@@ -1,0 +1,479 @@
+"""Smoke run of the PyTorch/CUDA port on one GPU: ``python3 chip_smoke.py``.
+
+Drives the port's main path -- the online consolidation engine
+(``repro_torch.core.ConsolidationEngine``) with the hand-written CUDA
+candidate scorer -- on the card, in five phases, one line of output each:
+
+  1. environment: torch and CUDA versions, the card's name and power limit;
+  2. build: nvcc builds every kernel under ``src/repro_torch/kernels/csrc``;
+  3. kernel vs plain version: ``consolidation_scores`` against
+     ``consolidation_scores_torch`` on the same inputs (64 servers, Q = 1, 8,
+     1024; max abs error <= 1e-5 on both outputs), with median times;
+  4. main path, rack scale: 64 servers, 1024 arrivals through the engine;
+     the kernel route must place exactly as the plain-version route, the
+     criterion-1 queue and a full queue rescan must occur, and a small trace
+     must place exactly as the port does on the CPU;
+  5. main path, fleet scale: 1024 servers, 4096 arrivals: the kernel against
+     its plain version at this width and the rescans' Q = 4096 (<= 1e-5),
+     then the engine with the kernel route, which must place exactly as the
+     plain-version route on the same trace.
+
+Then a JSON line with each kernel's numbers, the ``nvidia-smi`` name/power
+line, and a last JSON line ``{"ok": true, "device": {...}}``. Any failed
+check raises, so the script exits nonzero; without a CUDA device, or
+without the repository beside it, it exits nonzero before printing a result.
+Imports nothing of JAX and nothing of the JAX package ``repro``.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+SEED = 0
+#: published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 non-tensor
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+TOL = 1e-5
+
+
+class CheckFailed(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise CheckFailed(msg)
+
+
+def trace(n: int, gap: float, *, passes: int = 8, seed: int = 3, heavy: bool = True):
+    """Seeded arrival trace [(time, workload)]: heavy workloads arriving with
+    exponential gaps, each moving ``passes`` times its file size."""
+    import numpy as np
+    from repro_torch.core import FS_GRID, RS_GRID, Workload, snap_to_grid
+
+    rng = np.random.default_rng(seed)
+    fs_pool = FS_GRID[12:18] if heavy else FS_GRID[:18]
+    rs_pool = RS_GRID[5:] if heavy else RS_GRID
+    out, t = [], 0.0
+    for _ in range(n):
+        fs = float(rng.choice(fs_pool))
+        w = snap_to_grid(
+            Workload(fs=fs, rs=float(rng.choice(rs_pool)), data_total=fs * passes))
+        t += float(rng.exponential(gap))
+        out.append((t, w))
+    return out
+
+
+def rack(m: int):
+    from repro_torch.core import M1, M2
+    return [M1, M2] * (m // 2)
+
+
+def plain_scorer(cluster, counts, wtypes):
+    """The kernel's plain PyTorch version behind the shared scorer interface."""
+    from repro_torch.core import kernel_args
+    from repro_torch.kernels.consolidation import consolidation_scores_torch
+    return consolidation_scores_torch(*kernel_args(cluster, counts, wtypes))
+
+
+def kernel_inputs(m: int, device, rng):
+    """Scorer inputs at the main path's widths: D profiled for the rack, sparse
+    seeded counts with server 0 empty."""
+    import numpy as np
+    import torch
+    from repro_torch.core import PackedCluster, profile_pairwise_fast
+
+    servers = rack(m)
+    D = {s: profile_pairwise_fast(s) for s in set(servers)}
+    cl = PackedCluster.build(servers, [D[s] for s in servers], device=device)
+    T = cl.T
+    counts = rng.integers(1, 4, size=(m, T)) * (rng.random((m, T)) < 0.04)
+    counts[0] = 0
+    return cl, torch.tensor(counts, dtype=torch.float32, device=device)
+
+
+def candidate_types(counts, Q: int, rng):
+    """Q candidate types, half drawn from types present somewhere, half from
+    types present nowhere, or from all types where every type is present on
+    some server (as at fleet width; each is still absent from most)."""
+    import numpy as np
+    import torch
+
+    present = np.flatnonzero(counts.cpu().numpy().sum(0) > 0)
+    absent = np.setdiff1d(np.arange(counts.shape[1]), present)
+    if absent.size == 0:
+        absent = np.arange(counts.shape[1])
+    half = Q // 2
+    w = np.concatenate([rng.choice(absent, Q - half), rng.choice(present, half)])
+    return torch.tensor(rng.permutation(w), dtype=torch.int32, device=counts.device)
+
+
+def bound_ms(counts, wtypes) -> tuple[float, str]:
+    """Least time for one call: every input byte the function needs read once
+    (per server, the D rows of the types present there or scored there;
+    counts, fs_resident, rs, budget, wtypes) and both outputs written once,
+    over HBM bandwidth; against the fp32 work over the fp32 peak."""
+    import numpy as np
+
+    c = counts.cpu().numpy()
+    m, T = c.shape
+    Q = int(wtypes.shape[0])
+    cand = np.zeros(T, bool)
+    cand[wtypes.cpu().numpy()] = True
+    rows = int(((c > 0) | cand[None, :]).sum())  # distinct D rows needed
+    nnz = int((c > 0).sum())
+    nbytes = 4 * (rows * T + 2 * m * T + T + m + Q + 2 * Q * m)
+    flops = 2 * nnz * T + 2 * m * T + 5 * Q * m * T
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def call_ms(fn, reps: int = 20) -> float:
+    """Median time of one call as the engine pays it: CUDA events around each
+    call, so the host's launch work shows when it exceeds the device's."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call: ``reps`` calls captured in a CUDA graph and
+    replayed back to back (median of 5 replays, over ``reps``)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def phase_env():
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    smi_line = smi.stdout.strip().splitlines()[0]
+    print(f"[1 env] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | {smi_line}")
+    return smi_line
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    logs = _build.build()
+    dt = time.perf_counter() - t0
+    ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    print(f"[2 build] {len(logs)}/{len(_build.sources())} sources built in {dt:.2f} s; "
+          + " | ".join(ptxas))
+
+
+def kernel_error(args, label: str) -> float:
+    """Max abs error of the kernel against its plain version on ``args``,
+    over both outputs; fails above TOL or on a non-finite score."""
+    import torch
+    from repro_torch.kernels import consolidation as kc
+
+    got, want = kc.consolidation_scores(*args), kc.consolidation_scores_torch(*args)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    check(all(bool(torch.isfinite(g).all()) for g in got), f"{label}: non-finite scores")
+    check(err <= TOL, f"{label}: kernel vs plain max abs err {err:.3g} > {TOL}")
+    return err
+
+
+def phase_kernel(device) -> dict:
+    import numpy as np
+    from repro_torch.core import kernel_args
+    from repro_torch.kernels import consolidation as kc
+
+    rng = np.random.default_rng(SEED)
+    cl, counts = kernel_inputs(64, device, rng)
+    rows = {}
+    for Q in (1, 8, 1024):
+        wt = candidate_types(counts, Q, rng)
+        args = kernel_args(cl, counts, wt)
+        err = kernel_error(args, f"m=64 Q={Q}")
+        bound, bound_by = bound_ms(counts, wt)
+        kernel = lambda: kc.consolidation_scores(*args)  # noqa: E731
+        plain = lambda: kc.consolidation_scores_torch(*args)  # noqa: E731
+        rows[Q] = dict(max_abs_err=err, ms=device_ms(kernel), plain_ms=device_ms(plain),
+                       call_ms=call_ms(kernel), plain_call_ms=call_ms(plain),
+                       bound_ms=bound, bound_by=bound_by)
+    print("[3 kernel] consolidation_scores vs plain, m=64 T=230, device ms (per call "
+          "with host launch): " + "; ".join(
+              f"Q={Q} err={r['max_abs_err']:.3g} kernel {r['ms']:.5f} ({r['call_ms']:.4f}) "
+              f"plain {r['plain_ms']:.5f} ({r['plain_call_ms']:.4f}) bound "
+              f"{r['bound_ms']:.5f} by {r['bound_by']}" for Q, r in rows.items()))
+    return rows
+
+
+def drive(engine, arrivals, device):
+    """One timed run of the main path: (result, wall seconds, launches by Q,
+    peak device bytes). The launch counts are zeroed just before the run."""
+    import gc
+
+    import torch
+    from repro_torch.kernels import consolidation as kc
+
+    if device.type == "cuda":
+        gc.collect()  # free earlier phases' graphs before the peak is reset
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kc.reset_launches()
+    t0 = time.perf_counter()
+    res = engine.run(arrivals)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(sorted(kc.LAUNCHES.items()))
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else 0
+    return res, wall, launches, peak
+
+
+def describe(res, wall, launches, peak) -> str:
+    s, n = res.stats, len(res.placements)
+    return (f"wall {wall:.3f} s, {s.events} micro-events, {s.host_syncs} host syncs, "
+            f"{s.drain_full_scans} full rescans, {1e6 * wall / n:.1f} us/decision, "
+            f"queued {sum(res.was_queued)}/{n}, makespan {res.makespan:.6f} s, "
+            f"kernel launches by Q {launches}, peak device memory {peak / 2**20:.1f} MiB")
+
+
+def count_syncs(fn) -> int:
+    """Synchronizing CUDA calls made by ``fn`` (the trace's copy to the card,
+    the loop's reads, the result copies), as torch's sync debug mode reports
+    them."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def device_busy(fn) -> tuple[float, float, int, float]:
+    """What torch.profiler saw of ``fn`` on the device: (seconds of all
+    device kernels, seconds of the scorer kernel ``score_kernel``, its
+    launches in the trace, wall seconds of the profiled call). Kernel times
+    are self device times on one stream, so they do not overlap; the wall
+    includes the profiler's overhead."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    score = [e for e in kernels if "score_kernel" in e.name]
+    return (1e-6 * sum(e.self_device_time_total for e in kernels),
+            1e-6 * sum(e.self_device_time_total for e in score), len(score), wall)
+
+
+def first_divergence(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def check_same_route(res, other, label: str) -> float:
+    """Fails unless ``other`` placed and queued exactly as ``res``, with its
+    makespan within TOL relative; returns the relative makespan difference."""
+    rel = abs(other.makespan - res.makespan) / other.makespan
+    check(other.placements == res.placements,
+          f"{label}: kernel and plain routes diverge at arrival "
+          f"{first_divergence(other.placements, res.placements)}")
+    check(other.was_queued == res.was_queued, f"{label}: queue decisions differ from plain")
+    check(rel <= TOL, f"{label}: makespan differs from plain by {rel:.3g} relative")
+    return rel
+
+
+def check_outputs(res, n: int, label: str) -> None:
+    check(len(res.placements) == n, f"{label}: {len(res.placements)} placements for {n}")
+    check(all(p is not None for p in res.placements), f"{label}: an arrival never ran")
+    check(all(t < float("inf") for t in res.finish_times), f"{label}: unfinished work")
+    check(res.makespan > 0.0, f"{label}: empty makespan")
+
+
+def phase_rack(device, m: int = 64, n: int = 1024, small=(16, 64)) -> int:
+    """Drives the rack-scale main path; returns its kernel launch count."""
+    from repro_torch.core import ConsolidationEngine
+    from repro_torch.kernels import consolidation as kc
+
+    servers = rack(m)
+    arrivals = trace(n, gap=1e-4)
+    eng = ConsolidationEngine(servers, scorer="cuda", device=device)
+    eng.run(trace(64, gap=1e-4, seed=1))  # warm-up: library load, allocator, cuBLAS
+
+    res, wall, launches, peak = drive(eng, arrivals, device)
+    print(f"[4 rack] m={m} n={n} scorer=cuda: " + describe(res, wall, launches, peak))
+    check_outputs(res, n, "rack cuda")
+    check(sum(res.was_queued) > 0, "rack: the criterion-1 queue was never used")
+    check(res.stats.drain_full_scans > 0, "rack: no drain rescanned the whole queue")
+    n_launch = sum(launches.values())
+
+    plain = ConsolidationEngine(servers, D=eng.D, scorer=plain_scorer, device=device)
+    pres, pwall, _, _ = drive(plain, arrivals, device)
+    rel = check_same_route(res, pres, "rack")
+
+    if device.type == "cuda":
+        # the first 256 arrivals only: parsing the trace of the whole run
+        # takes minutes of host time
+        kc.reset_launches()
+        busy, score, n_score, pwall_prof = device_busy(lambda: eng.run(arrivals[:256]))
+        n_prof = sum(kc.LAUNCHES.values())
+        if busy > 0:
+            check(n_score == n_prof, f"rack: the profiler saw {n_score} scorer kernels, "
+                  f"the wrapper counted {n_prof} launches")
+            share = (f"device busy {100 * busy / pwall_prof:.2f} % of the wall; "
+                     f"score_kernel {score:.4f} s in {n_score} launches = "
+                     f"{100 * score / pwall_prof:.2f} % of the wall, "
+                     f"{100 * score / busy:.2f} % of device kernel time")
+        else:
+            share = "the profiler saw no device time: busy share not measured"
+        print(f"[4 rack] profiled rerun of the first 256 arrivals: device kernels {busy:.4f} s "
+              f"of {pwall_prof:.3f} s wall; {share}")
+
+    fast = ConsolidationEngine(servers, D=eng.D, scorer="torch", device=device)
+    tres, twall, _, _ = drive(fast, arrivals, device)
+    match = tres.placements == res.placements
+    print(f"[4 rack] plain route: identical placements and queue decisions, makespan "
+          f"rel diff {rel:.3g}, wall {pwall:.3f} s | scorer=torch: placements_match="
+          f"{match} first divergence "
+          f"{first_divergence(tres.placements, res.placements)}, wall {twall:.3f} s")
+
+    # a small trace on the CPU, as a reference the card's run must reproduce
+    ms, ns = small
+    small_arr = trace(ns, gap=2e-5)
+    ref = ConsolidationEngine(rack(ms), scorer="cuda", device="cpu").run(small_arr)
+    small_eng = ConsolidationEngine(rack(ms), scorer="cuda", device=device)
+    got = small_eng.run(small_arr)
+    flagged = (count_syncs(lambda: small_eng.run(small_arr))
+               if device.type == "cuda" else "not measured")
+    check(got.placements == ref.placements and got.was_queued == ref.was_queued,
+          "small trace: card and CPU runs place differently")
+    check(abs(got.makespan - ref.makespan) <= 1e-3 * ref.makespan,
+          "small trace: card and CPU makespans differ")
+    print(f"[4 rack] small trace m={ms} n={ns}: card run == CPU run "
+          f"(queued {sum(got.was_queued)}, makespan {got.makespan:.6f} s); "
+          f"synchronizing calls flagged by torch's sync debug mode in a rerun: "
+          f"{flagged}, of which loop reads {got.stats.host_syncs}")
+    return n_launch
+
+
+def phase_fleet(device, m: int = 1024, n: int = 4096) -> dict:
+    """The kernel against its plain version at fleet width and the full
+    rescans' Q = n, then the fleet-scale main path by the kernel route and by
+    the plain-version route on the same trace. Returns the kernel check's
+    numbers."""
+    import numpy as np
+    from repro_torch.core import ConsolidationEngine, kernel_args
+    from repro_torch.kernels import consolidation as kc
+
+    rng = np.random.default_rng(SEED + 1)
+    cl, counts = kernel_inputs(m, device, rng)
+    args = kernel_args(cl, counts, candidate_types(counts, n, rng))
+    row = dict(max_abs_err=kernel_error(args, f"m={m} Q={n}"),
+               call_ms=call_ms(lambda: kc.consolidation_scores(*args), reps=10),
+               plain_call_ms=call_ms(lambda: kc.consolidation_scores_torch(*args), reps=10))
+    row["bound_ms"], row["bound_by"] = bound_ms(counts, args[-1])
+    del cl, counts, args
+    print(f"[5 fleet] consolidation_scores vs plain, m={m} T=230 Q={n}: err "
+          f"{row['max_abs_err']:.3g}, per call kernel {row['call_ms']:.5f} ms, plain "
+          f"{row['plain_call_ms']:.5f} ms, bound {row['bound_ms']:.5f} ms by {row['bound_by']}")
+
+    servers = rack(m)
+    arrivals = trace(n, gap=1e-4 * 64 / m)
+    eng = ConsolidationEngine(servers, scorer="cuda", device=device)
+    eng.run(trace(64, gap=1e-4 * 64 / m, seed=1))  # warm-up at this width
+    res, wall, launches, peak = drive(eng, arrivals, device)
+    check_outputs(res, n, "fleet")
+    check(res.stats.drain_full_scans > 0, "fleet: no drain rescanned the whole queue")
+    print(f"[5 fleet] m={m} n={n} scorer=cuda: " + describe(res, wall, launches, peak))
+
+    plain = ConsolidationEngine(servers, D=eng.D, scorer=plain_scorer, device=device)
+    pres, pwall, _, ppeak = drive(plain, arrivals, device)
+    rel = check_same_route(res, pres, "fleet")
+    print(f"[5 fleet] plain route: identical placements and queue decisions, makespan "
+          f"rel diff {rel:.3g}, wall {pwall:.3f} s, peak device memory "
+          f"{ppeak / 2**20:.1f} MiB")
+    return row
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the smoke runs on the GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch  # noqa: F401  -- fails where the repository is missing
+
+    device = torch.device("cuda")
+    smi_line = phase_env()
+    phase_build()
+    rows = phase_kernel(device)
+    n_launch = phase_rack(device)
+    check(n_launch > 0, "main path never launched consolidation_scores")
+    fleet = phase_fleet(device)
+
+    q = 1024
+    print(json.dumps({"kernels": [{
+        "name": "consolidation_scores", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/consolidation_scores.cu",
+        "replaces": "src/repro/kernels/consolidation.py:65",
+        "launches": n_launch,
+        "max_abs_err": max(r["max_abs_err"] for r in [*rows.values(), fleet]),
+        "ms": rows[q]["ms"], "plain_ms": rows[q]["plain_ms"],
+        "bound_ms": rows[q]["bound_ms"], "bound_by": rows[q]["bound_by"],
+        "library_ms": None,
+        "shape": f"m=64 T=230 Q={q}",
+    }]}))
+    print(smi_line)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,31 @@
+"""Core library of the port: the paper's online consolidation decision.
+
+Public API:
+  Workload, grid_types, type_index, snap_to_grid  -- §III characterization
+  ServerSpec, M1, M2, PAPER_CLUSTER               -- Table I testbed
+  profile_pairwise_fast, type_tables, pair_slowdown_matrices -- Eqns 1-3
+  PackedCluster, server_loads, score_candidates_torch, greedy_choice,
+  argmin_with_margin, greedy_step, greedy_sequence -- the Fig-8 greedy
+  PackedDynamics, run_trace, corun_rates          -- event-loop internals
+  ConsolidationEngine, EngineResult, make_scorer, score_candidates,
+  kernel_args
+                                                  -- the online runtime
+"""
+from .binpack_torch import (
+    QUEUED,
+    SCORE_MARGIN,
+    PackedCluster,
+    argmin_with_margin,
+    avg_loads,
+    greedy_choice,
+    greedy_sequence,
+    greedy_step,
+    score_candidates_torch,
+    server_loads,
+)
+from .contention import pair_slowdown_matrices, profile_pairwise_fast, type_tables
+from .engine import (ConsolidationEngine, EngineResult, kernel_args, make_scorer,
+                     score_candidates)
+from .engine_torch import EngineTrace, LoopStats, PackedDynamics, corun_rates, run_trace
+from .server import M1, M2, PAPER_CLUSTER, ServerSpec
+from .workload import FS_GRID, RS_GRID, Workload, grid_types, snap_to_grid, type_index

@@ -1,0 +1,53 @@
+"""Single-workload-on-single-server throughput model (paper §III, C2).
+
+The paper's Figures 1-2 show that solo throughput is a piecewise function of
+FS with per-request-overhead amortization in RS:
+
+  level 1 (highest):       FS fits the LLC                (FS <= LLC)
+  level 2 (intermediate):  FS fits file cache + disk cache
+  level 3 (write only):    FS exceeds file+disk cache -> true disk speed
+
+Within a level with bandwidth ``bw`` and per-request overhead ``ov`` the
+throughput of request size RS is the classic amortization curve
+
+  T(RS) = RS / (ov + RS / bw)          (monotone increasing in RS, -> bw)
+
+which reproduces the paper's "accessing disks with large RSs is always much
+more efficient" observation (§III.C: 1MB at RS=1KB pays the overhead 1000x,
+at RS=512KB only 2x).
+"""
+from __future__ import annotations
+
+from .server import ServerSpec
+from .workload import Workload
+
+
+def level_of(server: ServerSpec, fs: float, op: str) -> int:
+    """Which throughput level (1/2/3) a solo workload with file size ``fs`` runs at."""
+    if fs <= server.llc_bytes:
+        return 1
+    if op == "read" or fs <= server.cache_spill_bytes:
+        return 2  # reads stay at level 2 (paper reports two read levels)
+    return 3
+
+
+def level_params(server: ServerSpec, level: int, op: str) -> tuple[float, float]:
+    """(bandwidth, per-request overhead) for a level. Level 3 exists for writes."""
+    if op == "read":
+        bw = {1: server.bw_l1_read, 2: server.bw_l2_read}[min(level, 2)]
+        return bw, server.ov_l12
+    bw = {1: server.bw_l1_write, 2: server.bw_l2_write, 3: server.bw_l3_write}[level]
+    ov = server.ov_l3 if level == 3 else server.ov_l12
+    return bw, ov
+
+
+def amortized(bw: float, ov: float, rs: float) -> float:
+    """T(RS) = RS / (ov + RS/bw)."""
+    return rs / (ov + rs / bw)
+
+
+def solo_throughput(server: ServerSpec, w: Workload) -> float:
+    """Solo throughput (bytes/s) of workload ``w`` on ``server`` (Figures 1-2)."""
+    lvl = level_of(server, w.fs, w.op)
+    bw, ov = level_params(server, lvl, w.op)
+    return amortized(bw, ov, w.rs)

@@ -1,0 +1,32 @@
+"""Public wrappers for the port's kernels (counterpart of ``repro/kernels/ops.py``).
+
+``mode`` selects the execution: ``'cuda'`` launches the hand-written kernel
+and raises on a tensor that is not on a CUDA device; ``'torch'`` runs the
+kernel's plain PyTorch version on any device. Neither mode stands in for
+the other.
+"""
+from __future__ import annotations
+
+import torch
+
+from .consolidation import consolidation_scores, consolidation_scores_torch
+
+
+def greedy_scores(
+    counts: torch.Tensor,
+    D: torch.Tensor,
+    rs: torch.Tensor,
+    fs_resident: torch.Tensor,
+    llc_budget: torch.Tensor,
+    wtypes: torch.Tensor,
+    *,
+    mode: str = "cuda",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Q x m candidate scores: (cache_after [Q, m], maxd_after [Q, m])."""
+    if mode == "cuda":
+        if counts.device.type != "cuda":
+            raise ValueError(f"mode='cuda' needs CUDA tensors, got {counts.device}")
+        return consolidation_scores(counts, D, rs, fs_resident, llc_budget, wtypes)
+    if mode == "torch":
+        return consolidation_scores_torch(counts, D, rs, fs_resident, llc_budget, wtypes)
+    raise ValueError(f"mode must be cuda|torch, got {mode!r}")
