@@ -1,14 +1,16 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: ``python3 chip_smoke.py``.
 
-Drives the port's main path -- the online consolidation engine
-(``repro_torch.core.ConsolidationEngine``) with the hand-written CUDA
-candidate scorer -- on the card, in five phases, one line of output each:
+Drives the port's two main paths on the card -- the online consolidation
+engine (``repro_torch.core.ConsolidationEngine``) with the hand-written CUDA
+candidate scorer, and the adaptive loop (``repro_torch.core.AdaptiveEngine``)
+whose streaming D-estimators take their pair statistics from the
+hand-written CUDA scatter -- in seven phases:
 
   1. environment: torch and CUDA versions, the card's name and power limit;
   2. build: nvcc builds every kernel under ``src/repro_torch/kernels/csrc``;
   3. kernel vs plain version: ``consolidation_scores`` against
      ``consolidation_scores_torch`` on the same inputs (64 servers, Q = 1, 8,
-     1024; max abs error <= 1e-5 on both outputs), with median times;
+     512, 1024; max abs error <= 1e-5 on both outputs), with median times;
   4. main path, rack scale: 64 servers, 1024 arrivals through the engine;
      the kernel route must place exactly as the plain-version route, the
      criterion-1 queue and a full queue rescan must occur, and a small trace
@@ -16,7 +18,23 @@ candidate scorer -- on the card, in five phases, one line of output each:
   5. main path, fleet scale: 1024 servers, 4096 arrivals: the kernel against
      its plain version at this width and the rescans' Q = 4096 (<= 1e-5),
      then the engine with the kernel route, which must place exactly as the
-     plain-version route on the same trace.
+     plain-version route on the same trace;
+  6. pair_scatter vs plain version: ``pair_scatter`` against
+     ``pair_scatter_torch`` at B = 0, 1, 7, 300, 4096, T = 32, 230 and
+     K = 1 (1-D), 1, 2, 3 (atol 2e-5, rtol 1e-5), and against the float64
+     reference at one shape, with device times beside the ``index_add_``
+     scatter-add form at B = 4096, T = 230, K = 2;
+  7. adaptive loop, rack scale, ``scorer='cuda'`` and ``scatter='cuda'``:
+     64 servers, 8 segments of 256 arrivals from the uniform prior 0.0, a
+     congestion drift at segment 4; then 3 segments of 512 arrivals from
+     the profiled prior, a drift at segment 1, where every segment must
+     queue and rescan its whole queue. In both, every estimator update is
+     replayed on shadow estimators with the plain scatter, whose tables
+     must agree after every segment (so every launch is held to the plain
+     version at the shape it ran), and the launches must be exactly the
+     updates that had a co-run. Segment 0 of the first must place as the
+     plain engine on the prior D, and a small adaptive run on the card,
+     which queues, must equal the same run on the CPU.
 
 Then a JSON line with each kernel's numbers, the ``nvidia-smi`` name/power
 line, and a last JSON line ``{"ok": true, "device": {...}}``. Any failed
@@ -26,6 +44,8 @@ Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import collections
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -39,6 +59,9 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 TOL = 1e-5
+#: pair_scatter vs its plain version: f32 sums of B products in a different
+#: order (tests/test_kernels.py's bound for the Pallas kernel)
+SCATTER_ATOL, SCATTER_RTOL = 2e-5, 1e-5
 
 
 class CheckFailed(RuntimeError):
@@ -224,7 +247,7 @@ def phase_kernel(device) -> dict:
     rng = np.random.default_rng(SEED)
     cl, counts = kernel_inputs(64, device, rng)
     rows = {}
-    for Q in (1, 8, 1024):
+    for Q in (1, 8, 512, 1024):  # 512: the adaptive queue run's full rescans
         wt = candidate_types(counts, Q, rng)
         args = kernel_args(cl, counts, wt)
         err = kernel_error(args, f"m=64 Q={Q}")
@@ -291,12 +314,12 @@ def count_syncs(fn) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def device_busy(fn) -> tuple[float, float, int, float]:
+def device_busy(fn, names=("score_kernel",)) -> tuple[float, dict, float]:
     """What torch.profiler saw of ``fn`` on the device: (seconds of all
-    device kernels, seconds of the scorer kernel ``score_kernel``, its
-    launches in the trace, wall seconds of the profiled call). Kernel times
-    are self device times on one stream, so they do not overlap; the wall
-    includes the profiler's overhead."""
+    device kernels, {name: (seconds, launches)} of the kernels whose name
+    contains each of ``names``, wall seconds of the profiled call). Kernel
+    times are self device times on one stream, so they do not overlap; the
+    wall includes the profiler's overhead."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -306,9 +329,26 @@ def device_busy(fn) -> tuple[float, float, int, float]:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    score = [e for e in kernels if "score_kernel" in e.name]
-    return (1e-6 * sum(e.self_device_time_total for e in kernels),
-            1e-6 * sum(e.self_device_time_total for e in score), len(score), wall)
+    seconds = lambda evs: 1e-6 * sum(e.self_device_time_total for e in evs)  # noqa: E731
+    named = {}
+    for name in names:
+        hits = [e for e in kernels if name in e.name]
+        named[name] = (seconds(hits), len(hits))
+    return seconds(kernels), named, wall
+
+
+def kernel_shares(busy: float, named: dict, wall: float, counted: dict, label: str) -> str:
+    """The profiled shares as text; fails unless the trace saw each kernel
+    exactly as often as its wrapper counted launches."""
+    if busy <= 0:
+        return "the profiler saw no device time: busy share not measured"
+    parts = [f"device busy {100 * busy / wall:.2f} % of the wall"]
+    for name, (sec, n) in named.items():
+        check(n == counted[name], f"{label}: the profiler saw {n} {name} launches, "
+              f"the wrapper counted {counted[name]}")
+        parts.append(f"{name} {sec:.4f} s in {n} launches = {100 * sec / wall:.2f} % of the "
+                     f"wall, {100 * sec / busy:.2f} % of device kernel time")
+    return "; ".join(parts)
 
 
 def first_divergence(a, b):
@@ -359,17 +399,9 @@ def phase_rack(device, m: int = 64, n: int = 1024, small=(16, 64)) -> int:
         # the first 256 arrivals only: parsing the trace of the whole run
         # takes minutes of host time
         kc.reset_launches()
-        busy, score, n_score, pwall_prof = device_busy(lambda: eng.run(arrivals[:256]))
-        n_prof = sum(kc.LAUNCHES.values())
-        if busy > 0:
-            check(n_score == n_prof, f"rack: the profiler saw {n_score} scorer kernels, "
-                  f"the wrapper counted {n_prof} launches")
-            share = (f"device busy {100 * busy / pwall_prof:.2f} % of the wall; "
-                     f"score_kernel {score:.4f} s in {n_score} launches = "
-                     f"{100 * score / pwall_prof:.2f} % of the wall, "
-                     f"{100 * score / busy:.2f} % of device kernel time")
-        else:
-            share = "the profiler saw no device time: busy share not measured"
+        busy, named, pwall_prof = device_busy(lambda: eng.run(arrivals[:256]))
+        share = kernel_shares(busy, named, pwall_prof,
+                              {"score_kernel": sum(kc.LAUNCHES.values())}, "rack")
         print(f"[4 rack] profiled rerun of the first 256 arrivals: device kernels {busy:.4f} s "
               f"of {pwall_prof:.3f} s wall; {share}")
 
@@ -439,6 +471,290 @@ def phase_fleet(device, m: int = 1024, n: int = 4096) -> dict:
     return row
 
 
+def scatter_inputs(B: int, T: int, K: int | None, device, rng):
+    """Seeded scatter inputs: types drawn from [-1, T + 2), so padding and
+    past-the-table rows are there to be dropped; K=None gives 1-D vals."""
+    import numpy as np
+    import torch
+
+    types = rng.integers(-1, T + 2, size=B).astype(np.int32)
+    cbar = (rng.random((B, T)) * 2).astype(np.float32)
+    vals = rng.normal(size=B if K is None else (K, B)).astype(np.float32)
+    return tuple(torch.from_numpy(x).to(device) for x in (types, cbar, vals))
+
+
+def close_err(got, want, label: str) -> float:
+    """Max abs difference over the output pairs; fails past
+    SCATTER_ATOL + SCATTER_RTOL * |want|, on a shape mismatch or a
+    non-finite value."""
+    import torch
+
+    err = 0.0
+    for g, w in zip(got, want):
+        check(tuple(g.shape) == tuple(w.shape), f"{label}: shape {tuple(g.shape)} "
+              f"!= {tuple(w.shape)}")
+        check(bool(torch.isfinite(g).all()), f"{label}: non-finite output")
+        diff = (g.double() - w.double()).abs()
+        ok = bool((diff <= SCATTER_ATOL + SCATTER_RTOL * w.double().abs()).all())
+        err = max(err, float(diff.max()) if diff.numel() else 0.0)
+        check(ok, f"{label}: kernel vs reference max abs err {err:.3g}")
+    return err
+
+
+def index_add_form(types, cbar, vals):
+    """pair [K, T, T] by the scatter-add the JAX package lowers to on a GPU
+    (``repro/telemetry/estimator.py:292-300``): the contributions
+    ``cbar[b] * vals[k, b]`` index-added into target-major rows, with a dump
+    row for dropped types. Timed as the library call; the port never calls
+    it."""
+    import torch
+
+    K, T = vals.shape[0], cbar.shape[1]
+    tt = torch.where((types >= 0) & (types < T), types, T).long()
+    acc = torch.zeros((K, T + 1, T), dtype=torch.float32, device=cbar.device)
+    acc.index_add_(1, tt, cbar[None] * vals[:, :, None])
+    return acc[:, :T].transpose(1, 2)
+
+
+def scatter_bound_ms(types, T: int, K: int) -> tuple[float, str]:
+    """Least time for one call on these inputs: the rows whose type is in
+    range (their cbar rows and K values) and all types read once, both
+    outputs written once, over HBM bandwidth; against 2 K T fp32 operations
+    per row in range over the fp32 peak."""
+    B = int(types.shape[0])
+    rows = int(((types >= 0) & (types < T)).sum())
+    nbytes = 4 * (rows * T + B + K * rows + K * T * T + K * T)
+    flops = 2 * K * rows * T
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_pair_scatter(device) -> dict:
+    """``pair_scatter`` against its plain version at every listed shape and
+    against the float64 reference at one; times at B=4096, T=230, K=2."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import telemetry as kt
+    from repro_torch.kernels.ref import pair_scatter_ref
+
+    rng = np.random.default_rng(SEED + 2)
+    errs = []
+    for T in (32, 230):
+        for B in (0, 1, 7, 300, 4096):
+            for K in (None, 1, 2, 3):
+                args = scatter_inputs(B, T, K, device, rng)
+                errs.append(close_err(kt.pair_scatter(*args), kt.pair_scatter_torch(*args),
+                                      f"pair_scatter B={B} T={T} K={K or '1-D'}"))
+    args = scatter_inputs(300, 230, 2, device, rng)
+    ref = [torch.from_numpy(x).to(device)
+           for x in pair_scatter_ref(*(a.cpu().numpy() for a in args))]
+    err_ref = close_err(kt.pair_scatter(*args), ref, "pair_scatter vs float64 reference")
+
+    B, T, K = 4096, 230, 2
+    args = scatter_inputs(B, T, K, device, rng)
+    lib_err = close_err([index_add_form(*args)], [kt.pair_scatter(*args)[0]],
+                        "index_add_ form vs kernel")
+    row = dict(max_abs_err=max(errs), ref_err=err_ref, lib_err=lib_err, B=B, T=T, K=K)
+    row["bound_ms"], row["bound_by"] = scatter_bound_ms(args[0].cpu(), T, K)
+    if device.type == "cuda":
+        row.update(ms=device_ms(lambda: kt.pair_scatter(*args)),
+                   plain_ms=device_ms(lambda: kt.pair_scatter_torch(*args)),
+                   library_ms=device_ms(lambda: index_add_form(*args)),
+                   call_ms=call_ms(lambda: kt.pair_scatter(*args)))
+        times = (f"device ms kernel {row['ms']:.5f} (per call {row['call_ms']:.4f}), plain "
+                 f"{row['plain_ms']:.5f}, index_add_ form {row['library_ms']:.5f}")
+    else:
+        times = "times not measured off the card"
+    print(f"[6 pair_scatter] vs plain at {len(errs)} shapes (B 0..4096, T 32/230, K 1-D/1/2/3): "
+          f"max abs err {row['max_abs_err']:.3g}; vs float64 ref (B=300 T=230 K=2) "
+          f"{err_ref:.3g}; at B={B} T={T} K={K}: {times}, bound {row['bound_ms']:.5f} ms "
+          f"by {row['bound_by']}; index_add_ form vs kernel max abs err {lib_err:.3g}")
+    return row
+
+
+def estimator_gap(est, snap) -> float:
+    """Max abs difference of an estimator's L, log_b and n_pair from a
+    snapshot of another's."""
+    return max(float((a - b).abs().max()) for a, b in zip((est.L, est.log_b, est.n_pair), snap))
+
+
+def adaptive_run(servers, arrivals, segments: int, drift, prior, device, label: str):
+    """One timed adaptive run at rack width with ``scorer='cuda'`` and
+    ``scatter='cuda'``, the launch counts zeroed just before it and read just
+    after. Every estimator update is replayed on shadow estimators with the
+    plain scatter, whose tables must agree after every segment, and the
+    scatter launches must be exactly the updates that had a co-run.
+    Returns (result, wall, per-segment walls, scatter launches by shape,
+    scorer launches by Q, peak, shadow gap)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core import AdaptiveEngine
+    from repro_torch.kernels import consolidation as kc
+    from repro_torch.kernels import telemetry as kt
+
+    on_card = device.type == "cuda"
+    eng = AdaptiveEngine(servers, drift=drift, scorer="cuda", scatter="cuda", device=device,
+                         prior=prior, decay=0.997)
+    snaps, seg_wall = [], []
+
+    def on_segment(k, res, engine):
+        seg_wall.append(time.perf_counter())
+        snaps.append([(e.L.clone(), e.log_b.clone(), e.n_pair.clone())
+                      for e in engine.estimators])
+
+    if on_card:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kc.reset_launches()
+    kt.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.run(arrivals, segments=segments, on_segment=on_segment)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    scatter_launches = collections.Counter(kt.LAUNCHES)
+    score_launches = dict(sorted(kc.LAUNCHES.items()))
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+
+    n = len(arrivals)
+    check(len(res.segments) == segments, f"{label}: a segment is missing")
+    for r in res.segments:
+        check_outputs(r, n // segments, f"{label} segment")
+    check(res.total_obs >= n // 2, f"{label}: only {res.total_obs} of {n} observations used")
+    check(score_launches, f"{label}: never launched consolidation_scores")
+    check(scatter_launches, f"{label}: never launched pair_scatter")
+
+    # shadow estimators with the plain scatter, fed the same per-server logs
+    shadow = [dataclasses.replace(e, scatter="torch") for e in eng.estimators]
+    expected: collections.Counter = collections.Counter()
+    worst = 0.0
+    for k, seg in enumerate(res.segments):
+        for s, est in enumerate(shadow):
+            log = seg.observations.for_server(s)
+            kept = log.co_counts[log.lost_frac <= est.max_lost_frac]
+            n_co = int((kept.sum(dim=1) > est.solo_eps).sum())
+            if n_co:
+                expected[(n_co, kept.shape[1], 2)] += 1
+            est.update(log)
+            worst = max(worst, estimator_gap(est, snaps[k][s]))
+        check(worst <= TOL, f"{label}: kernel and plain estimators differ by {worst:.3g} "
+              f"after segment {k}")
+    check(scatter_launches == expected,
+          f"{label}: {sum(scatter_launches.values())} pair_scatter launches, "
+          f"{sum(expected.values())} per-server updates with a co-run")
+    walls = np.diff([t0] + seg_wall)
+    return res, wall, walls, scatter_launches, score_launches, peak, worst
+
+
+def describe_adaptive(label, res, wall, walls, scatter_launches, score_launches, peak,
+                      worst) -> str:
+    sizes = sorted(b for b, _, _ in scatter_launches)
+    return (f"[7 adaptive] {label}: wall {wall:.3f} s, {res.total_obs} observations; per "
+            f"segment wall s {[round(float(w), 3) for w in walls]}, simulated durations s "
+            f"{[round(d, 6) for d in res.durations]}, micro-events "
+            f"{[r.stats.events for r in res.segments]}, queued "
+            f"{[sum(r.was_queued) for r in res.segments]}, full rescans "
+            f"{[r.stats.drain_full_scans for r in res.segments]}\n"
+            f"[7 adaptive] {label}: launches pair_scatter {sum(scatter_launches.values())} "
+            f"(= per-server updates with a co-run; B {sizes[0]}..{sizes[-1]}, "
+            f"{len(scatter_launches)} shapes), consolidation_scores by Q {score_launches}; "
+            f"shadow estimators (plain scatter) within {worst:.3g} after every segment; peak "
+            f"device memory {peak / 2**20:.1f} MiB")
+
+
+def phase_adaptive(device, m: int = 64, segments: int = 8, per_segment: int = 256,
+                   queue=(3, 512), small=(2, 3, 16)) -> dict:
+    """Drives the adaptive loop (the second main path) at rack width twice:
+    from the uniform prior 0.0 under a congestion drift, and from the
+    profiled prior at twice the arrivals per segment, where the criterion-1
+    queue fills and drains rescan it. Every scatter launch is held to the
+    plain version through shadow estimators. Returns launch counts."""
+    import numpy as np
+    from repro_torch.core import AdaptiveEngine, ConsolidationEngine
+    from repro_torch.kernels import consolidation as kc
+    from repro_torch.kernels import telemetry as kt
+    from repro_torch.telemetry import congestion_at
+
+    on_card = device.type == "cuda"
+    kw = dict(prior=0.0, decay=0.997)
+
+    # a small run on the card against the same run on the CPU (plain scatter)
+    ms, ks, ns = small
+    small_arr = trace(ks * ns, gap=2e-4, seed=5)
+    cpu = AdaptiveEngine(rack(ms), scatter="torch", device="cpu", **kw)
+    card = AdaptiveEngine(rack(ms), device=device, **kw)
+    want, got = cpu.run(small_arr, segments=ks), card.run(small_arr, segments=ks)
+    for k in range(ks):
+        check(got.segments[k].placements == want.segments[k].placements
+              and got.segments[k].was_queued == want.segments[k].was_queued,
+              f"small adaptive run: card and CPU place differently in segment {k}")
+    gap = max(estimator_gap(c, (e.L.to(device), e.log_b.to(device), e.n_pair.to(device)))
+              for c, e in zip(card.estimators, cpu.estimators))
+    check(gap <= TOL, f"small adaptive run: card and CPU estimates differ by {gap:.3g}")
+    check(got.n_obs == want.n_obs and got.total_obs > 0, "small adaptive run: observations differ")
+    queued = sum(sum(r.was_queued) for r in got.segments)
+    check(queued > 0, "small adaptive run: the criterion-1 queue was never used")
+    print(f"[7 adaptive] small run m={ms} {ks}x{ns}: card run == CPU run (placements, "
+          f"{queued} queue decisions, {got.total_obs} observations; estimator tables within "
+          f"{gap:.3g})")
+
+    # prior 0.0 under drift: at 4 arrivals per server per segment the learned
+    # D never predicts a 50 % degradation, so this run does not queue
+    servers = rack(m)
+    n = segments * per_segment
+    arrivals = trace(n, gap=1e-4)
+    drift = congestion_at(servers, segments // 2, server=0, factor=0.4)
+    label = f"m={m} {segments}x{per_segment} prior 0.0 drift at {segments // 2}"
+    out = adaptive_run(servers, arrivals, segments, drift, 0.0, device, label)
+    res, scatter_launches, score_launches = out[0], out[3], out[4]
+    print(describe_adaptive(label, *out))
+
+    # segment 0 places as the plain engine on the prior D (uniform 0)
+    base = ConsolidationEngine(servers, D=np.zeros((230, 230)), scorer="cuda", device=device)
+    b0 = base.run(arrivals[:per_segment])
+    check(b0.placements == res.segments[0].placements
+          and b0.was_queued == res.segments[0].was_queued,
+          "adaptive: segment 0 places differently from the plain engine on the prior D")
+    print("[7 adaptive] segment 0 == plain engine on the prior D")
+
+    # the profiled prior at 8 arrivals per server per segment: the
+    # criterion-1 queue fills, so drains score at Q = 8 and rescan the whole
+    # queue on estimated D with telemetry on; congestion from segment 1
+    kq, nq = queue
+    q_arrivals = trace(kq * nq, gap=1e-4, seed=7)
+    q_drift = congestion_at(servers, 1, server=0, factor=0.4)
+    q_label = f"m={m} {kq}x{nq} profiled prior drift at 1"
+    q_out = adaptive_run(servers, q_arrivals, kq, q_drift, "profiled", device, q_label)
+    q_res, q_scatter, q_score = q_out[0], q_out[3], q_out[4]
+    q_queued = [sum(r.was_queued) for r in q_res.segments]
+    check(all(q > 0 for q in q_queued), f"{q_label}: a segment never queued ({q_queued})")
+    check(all(r.stats.drain_full_scans > 0 for r in q_res.segments),
+          f"{q_label}: a segment's drains never rescanned the whole queue")
+    check(8 in q_score, f"{q_label}: no drain scored at Q = 8")
+    print(describe_adaptive(q_label, *q_out))
+
+    if on_card:
+        # one segment of a fresh run under the profiler: the device's share
+        prof = AdaptiveEngine(servers, drift=drift, scorer="cuda", scatter="cuda",
+                              device=device, **kw)
+        kc.reset_launches()
+        kt.reset_launches()
+        busy, named, pwall = device_busy(
+            lambda: prof.run(arrivals[:per_segment], segments=1),
+            ("pair_scatter_kernel", "score_kernel"))
+        share = kernel_shares(busy, named, pwall, {
+            "pair_scatter_kernel": sum(kt.LAUNCHES.values()),
+            "score_kernel": sum(kc.LAUNCHES.values())}, "adaptive")
+        print(f"[7 adaptive] profiled rerun of segment 0: device kernels {busy:.4f} s of "
+              f"{pwall:.3f} s wall; {share}")
+
+    return dict(scatter=sum(scatter_launches.values()) + sum(q_scatter.values()),
+                score=sum(score_launches.values()) + sum(q_score.values()))
+
+
 def main() -> int:
     import torch
 
@@ -455,6 +771,8 @@ def main() -> int:
     n_launch = phase_rack(device)
     check(n_launch > 0, "main path never launched consolidation_scores")
     fleet = phase_fleet(device)
+    scatter = phase_pair_scatter(device)
+    adaptive = phase_adaptive(device)
 
     q = 1024
     print(json.dumps({"kernels": [{
@@ -467,6 +785,16 @@ def main() -> int:
         "bound_ms": rows[q]["bound_ms"], "bound_by": rows[q]["bound_by"],
         "library_ms": None,
         "shape": f"m=64 T=230 Q={q}",
+    }, {
+        "name": "pair_scatter", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/pair_scatter.cu",
+        "replaces": "src/repro/kernels/telemetry.py:150",
+        "launches": adaptive["scatter"],
+        "max_abs_err": max(scatter["max_abs_err"], scatter["ref_err"]),
+        "ms": scatter["ms"], "plain_ms": scatter["plain_ms"],
+        "bound_ms": scatter["bound_ms"], "bound_by": scatter["bound_by"],
+        "library_ms": scatter["library_ms"],
+        "shape": f"B={scatter['B']} T={scatter['T']} K={scatter['K']}",
     }]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

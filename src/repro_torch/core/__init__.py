@@ -10,6 +10,8 @@ Public API:
   ConsolidationEngine, EngineResult, make_scorer, score_candidates,
   kernel_args
                                                   -- the online runtime
+  AdaptiveEngine, AdaptiveResult                  -- the observe -> estimate
+                                                     -> schedule loop
 """
 from .binpack_torch import (
     QUEUED,
@@ -24,8 +26,8 @@ from .binpack_torch import (
     server_loads,
 )
 from .contention import pair_slowdown_matrices, profile_pairwise_fast, type_tables
-from .engine import (ConsolidationEngine, EngineResult, kernel_args, make_scorer,
-                     score_candidates)
+from .engine import (AdaptiveEngine, AdaptiveResult, ConsolidationEngine, EngineResult,
+                     kernel_args, make_scorer, score_candidates)
 from .engine_torch import EngineTrace, LoopStats, PackedDynamics, corun_rates, run_trace
 from .server import M1, M2, PAPER_CLUSTER, ServerSpec
 from .workload import FS_GRID, RS_GRID, Workload, grid_types, snap_to_grid, type_index

@@ -58,17 +58,19 @@ class PackedCluster:
     def build(
         cls,
         servers: Sequence[ServerSpec],
-        D: Sequence[np.ndarray] | np.ndarray,
+        D: Sequence[np.ndarray | torch.Tensor] | np.ndarray | torch.Tensor,
         alpha: float | Sequence[float] = 1.3,
         active: np.ndarray | None = None,
         *,
         device: str | torch.device | None = None,
     ) -> "PackedCluster":
         """Host tables in numpy (float32 casts of the same float64 values the
-        JAX package casts), then one copy to ``device``."""
+        JAX package casts), then one copy to ``device``. Each D-matrix, numpy
+        or tensor, is cast to float32 on ``device``; one already there (the
+        adaptive loop's estimates) makes no trip through the host."""
         device = resolve_device(device)
         m = len(servers)
-        if isinstance(D, np.ndarray):
+        if isinstance(D, (np.ndarray, torch.Tensor)):
             D = [D] * m
         if isinstance(alpha, (int, float)):
             alpha = [float(alpha)] * m
@@ -80,9 +82,10 @@ class PackedCluster:
         cache = np.asarray([s.llc_bytes for s in servers], np.float32)
         resident = (fs_t[None, :] <= cache[:, None]).astype(np.float32)
         act = np.ones(m, np.float32) if active is None else np.asarray(active, np.float32)
-        host = dict(D=np.stack([np.asarray(d, np.float32) for d in D]), rs=rs_t,
-                    fs=fs_t, llc_budget=llc, resident=resident, active=act)
-        return cls(**{k: torch.from_numpy(v).to(device) for k, v in host.items()})
+        D_dev = torch.stack([torch.as_tensor(d).to(device=device, dtype=torch.float32)
+                             for d in D])
+        host = dict(rs=rs_t, fs=fs_t, llc_budget=llc, resident=resident, active=act)
+        return cls(D=D_dev, **{k: torch.from_numpy(v).to(device) for k, v in host.items()})
 
     @property
     def m(self) -> int:

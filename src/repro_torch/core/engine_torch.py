@@ -21,6 +21,8 @@ State encoding (m servers, K = n run-slots per server, n arrivals, T types):
   slot_rem  : f32[m, K]  -- remaining bytes per slot
   slot_arr  : i32[m, K]  -- arrival index occupying the slot
   queued    : bool[n]    -- criterion-1 queue, in arrival order
+  obs_*     : [n + 1, ...] -- per-arrival telemetry integrals (run_trace(
+                            telemetry=True)); row n is a dump row, sliced away
 
 Ground-truth rates reproduce the simulator exactly for grid-typed
 workloads: with per-type counts c the log co-run slowdown of a type-t
@@ -117,6 +119,9 @@ class EngineState:
     max_deg: torch.Tensor  # f32 scalar max *observed* (simulated) degradation
     draining: torch.Tensor  # bool -- queue re-check pending
     deadlock: torch.Tensor  # bool -- queued work that no empty server can take
+    obs_co: torch.Tensor  # f32[n + 1, T] time-integrated co-resident type counts
+    obs_lost: torch.Tensor  # f32[n + 1] time spent past the physical TDP
+    obs_logr: torch.Tensor  # f32[n + 1] time-integrated log instantaneous rate
     ai: int = 0  # next-arrival pointer (the host runs the ARRIVE branch)
 
     @classmethod
@@ -142,6 +147,9 @@ class EngineState:
             max_deg=torch.zeros((), **f32),
             draining=torch.zeros((), dtype=torch.bool, device=device),
             deadlock=torch.zeros((), dtype=torch.bool, device=device),
+            obs_co=torch.zeros((n + 1, T), **f32),
+            obs_lost=torch.zeros((n + 1,), **f32),
+            obs_logr=torch.zeros((n + 1,), **f32),
         )
 
 
@@ -166,6 +174,9 @@ class EngineTrace:
     makespan: torch.Tensor  # f32
     max_deg: torch.Tensor  # f32
     deadlock: torch.Tensor  # bool
+    obs_co: torch.Tensor  # f32[n, T] (zeros unless telemetry=True)
+    obs_lost: torch.Tensor  # f32[n] (zeros unless telemetry=True)
+    obs_logr: torch.Tensor  # f32[n] (zeros unless telemetry=True)
     stats: LoopStats
 
 
@@ -205,9 +216,10 @@ def _put_if(dst: torch.Tensor, index: tuple, value: torch.Tensor, mask: torch.Te
 class _TraceLoop:
     """One run of the event loop: the constants of a trace and its branches."""
 
-    def __init__(self, cluster, dyn, arr_time, arr_type, arr_bytes, objective, scorer):
+    def __init__(self, cluster, dyn, arr_time, arr_type, arr_bytes, objective, scorer,
+                 telemetry=False):
         self.cluster, self.dyn, self.scorer = cluster, dyn, scorer
-        self.objective = objective
+        self.objective, self.telemetry = objective, telemetry
         self.arr_time, self.arr_type, self.arr_bytes = arr_time, arr_type, arr_bytes
         self.n = n = int(arr_time.shape[0])
         self.m, self.T, self.K = cluster.m, cluster.T, n
@@ -222,6 +234,7 @@ class _TraceLoop:
             [cluster.D, dyn.log_keep, dyn.log_lost, self.comp_delta[:, :, None]], dim=2
         )  # [m, T, 3T + 1]
         self.arange_n = torch.arange(n, device=dev)
+        self.arange_T = torch.arange(self.T, device=dev)
         self.ranks = torch.arange(1, self.W + 1, device=dev)
         # device constants, made once: a host scalar copied per event would
         # make each event wait for the device
@@ -296,6 +309,22 @@ class _TraceLoop:
         active = st.slot_type >= 0
         st.slot_rem = torch.where(
             active, torch.clamp(st.slot_rem - rates * dt, min=0.0), st.slot_rem)
+        if self.telemetry:
+            # integrate each running workload's co-resident counts, TDP
+            # exposure and log instantaneous rate over [now, now + dt), as
+            # the JAX engine does. Its scatter drops inactive slots at index
+            # n; here they land in the dump row n. Each arrival holds at most
+            # one slot, so every real row takes at most one add: no duplicate
+            # indices, and the sum does not depend on the add's order.
+            m, K, T = self.m, self.K, self.T
+            idx = torch.where(active, st.slot_arr, self.n).reshape(-1).long()  # [m K]
+            own = self.arange_T == st.slot_type.clamp(min=0)[:, :, None]  # [m, K, T]
+            co = torch.clamp(st.counts[:, None, :] - own.to(st.counts.dtype), min=0.0)
+            overflow = (st.comp > self.dyn.tol_budget).to(st.counts.dtype)  # [m]
+            logr = torch.log(torch.where(active, rates, 1.0))
+            st.obs_co.index_add_(0, idx, dt * co.reshape(-1, T))
+            st.obs_lost.index_add_(0, idx, dt * overflow[:, None].expand(m, K).reshape(-1))
+            st.obs_logr.index_add_(0, idx, dt * logr.reshape(-1))
 
     # -- the three micro-events -------------------------------------------------
     def drain_branch(self, st, rates, tt):
@@ -392,7 +421,8 @@ class _TraceLoop:
             branches[b](st, rates, tt)
             events += 1
         return EngineTrace(st.placement, st.was_queued, st.place_time, st.finish_time,
-                           st.makespan, st.max_deg, st.deadlock,
+                           st.makespan, st.max_deg, st.deadlock, st.obs_co[:n],
+                           st.obs_lost[:n], st.obs_logr[:n],
                            LoopStats(events, self.syncs, self.full_scans))
 
 
@@ -425,15 +455,22 @@ def run_trace(
     ``scorer=None`` uses the loop's incremental evaluation of the shared
     scoring contract from its maintained sums; an explicit scorer (e.g. the
     CUDA kernel via ``engine.make_scorer('cuda')``) scores every candidate
-    batch instead. The JAX engine's ``telemetry``, ``metrics``, ``record``
-    and ``axis`` paths are not ported yet and raise.
+    batch instead.
+
+    ``telemetry=True`` additionally accumulates, per arrival, the
+    time-integrated co-resident type counts, time past the physical TDP and
+    log instantaneous rate over its run (``obs_co``, ``obs_lost``,
+    ``obs_logr``), the input of ``telemetry.observations_from_trace``.
+    The JAX engine's ``metrics``, ``record`` and ``axis`` paths are not
+    ported yet and raise.
     """
-    for flag, name in ((telemetry, "telemetry"), (metrics, "metrics"),
-                       (record, "record"), (axis is not None, "axis")):
+    for flag, name in ((metrics, "metrics"), (record, "record"),
+                       (axis is not None, "axis")):
         if flag:
             raise NotImplementedError(f"run_trace({name}=...) is not ported yet")
     n = int(arr_time.shape[0])
     if n_steps is None:
         n_steps = 4 * n + 8
-    loop = _TraceLoop(cluster, dyn, arr_time, arr_type, arr_bytes, objective, scorer)
+    loop = _TraceLoop(cluster, dyn, arr_time, arr_type, arr_bytes, objective, scorer,
+                      telemetry)
     return loop.run(n_steps)

@@ -10,6 +10,12 @@ from __future__ import annotations
 import torch
 
 from .consolidation import consolidation_scores, consolidation_scores_torch
+from .telemetry import pair_scatter, pair_scatter_torch
+
+
+def _require_cuda(x: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"mode='cuda' needs CUDA tensors, got {x.device}")
 
 
 def greedy_scores(
@@ -24,9 +30,25 @@ def greedy_scores(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Q x m candidate scores: (cache_after [Q, m], maxd_after [Q, m])."""
     if mode == "cuda":
-        if counts.device.type != "cuda":
-            raise ValueError(f"mode='cuda' needs CUDA tensors, got {counts.device}")
+        _require_cuda(counts)
         return consolidation_scores(counts, D, rs, fs_resident, llc_budget, wtypes)
     if mode == "torch":
         return consolidation_scores_torch(counts, D, rs, fs_resident, llc_budget, wtypes)
+    raise ValueError(f"mode must be cuda|torch, got {mode!r}")
+
+
+def telemetry_pair_scatter(
+    types: torch.Tensor,
+    cbar: torch.Tensor,
+    vals: torch.Tensor,
+    *,
+    mode: str = "cuda",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K-stacked pair statistics: (pair [K, T, T], base [K, T]), K squeezed
+    for 1-D ``vals``."""
+    if mode == "cuda":
+        _require_cuda(cbar)
+        return pair_scatter(types, cbar, vals)
+    if mode == "torch":
+        return pair_scatter_torch(types, cbar, vals)
     raise ValueError(f"mode must be cuda|torch, got {mode!r}")

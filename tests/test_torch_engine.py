@@ -129,9 +129,10 @@ def test_engine_empty_trace_and_unported_flags():
     port = TorchEngine([TM1], device="cpu")
     res = port.run([])
     assert res.backend == "torch" and res.placements == () and res.stats is None
-    for flag in ("telemetry", "metrics", "record"):
+    for flag in ("metrics", "record"):
         with pytest.raises(NotImplementedError):
             port.run([], **{flag: True})
+    assert len(port.run([], telemetry=True).observations) == 0
     with pytest.raises(ValueError):
         TorchEngine([TM1], scorer="pallas", device="cpu")
 
