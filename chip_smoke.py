@@ -1,10 +1,12 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: ``python3 chip_smoke.py``.
 
-Drives the port's two main paths on the card -- the online consolidation
+Drives the port's three main paths on the card -- the online consolidation
 engine (``repro_torch.core.ConsolidationEngine``) with the hand-written CUDA
-candidate scorer, and the adaptive loop (``repro_torch.core.AdaptiveEngine``)
+candidate scorer, the adaptive loop (``repro_torch.core.AdaptiveEngine``)
 whose streaming D-estimators take their pair statistics from the
-hand-written CUDA scatter -- in seven phases:
+hand-written CUDA scatter, and the serving driver
+(``repro_torch.launch.serve``), whose dense LM attends through the
+hand-written CUDA flash attention -- in nine phases:
 
   1. environment: torch and CUDA versions, the card's name and power limit;
   2. build: nvcc builds every kernel under ``src/repro_torch/kernels/csrc``;
@@ -34,7 +36,28 @@ hand-written CUDA scatter -- in seven phases:
      version at the shape it ran), and the launches must be exactly the
      updates that had a co-run. Segment 0 of the first must place as the
      plain engine on the prior D, and a small adaptive run on the card,
-     which queues, must equal the same run on the CPU.
+     which queues, must equal the same run on the CPU;
+  8. flash_attention vs plain version: ``flash_attention`` against
+     ``flash_attention_torch`` in bf16 (atol/rtol 2e-2) and f32 (2e-5) at
+     the serving prefill (B 8, Sq 512, Skv 672, H 32, Hkv 4, dh 64), decode
+     at q_offset 0, 511 and 542 of the 672-row cache, a ragged Sq = 17, a
+     non-causal shape, the llama3.2 width (H 24, Hkv 8, dh 128), dh 16
+     and 32, and f32 q on a bf16 cache; device times of the kernel, the plain version and
+     ``scaled_dot_product_attention`` (the library call, never used by the
+     port), beside the bound;
+  9. serving, ``tinyllama-1.1b`` at full width with weights drawn on the
+     card: admission of 8 streams on two H100 hosts through the CUDA
+     scorer, then 8 requests of 512 prompt tokens and 32 greedy tokens by
+     the kernel route, which must launch flash_attention 22 x 32 times; a
+     teacher-forced replay on the plain route must give the same logits
+     (within 2e-2 of their scale) and argmax wherever the top-2 gap is
+     wider; prefill ms, decode ms per step, tokens/s, peak memory and the
+     kernel's share of device time under ``torch.profiler``; at the JAX
+     package's init scale (near one-hot softmaxes), the prefill's logits by
+     the kernel, plain and float64-attention routes, and every layer's
+     kernel attention held to the plain version on the same inputs; a SMOKE
+     run at float32 compute must give the same tokens on the card as on
+     the CPU.
 
 Then a JSON line with each kernel's numbers, the ``nvidia-smi`` name/power
 line, and a last JSON line ``{"ok": true, "device": {...}}``. Any failed
@@ -55,13 +78,18 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SEED = 0
-#: published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 non-tensor
+#: published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 non-tensor,
+#: dense bf16 tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 TOL = 1e-5
 #: pair_scatter vs its plain version: f32 sums of B products in a different
 #: order (tests/test_kernels.py's bound for the Pallas kernel)
 SCATTER_ATOL, SCATTER_RTOL = 2e-5, 1e-5
+#: flash_attention vs its plain version (tests/test_kernels.py's bounds for
+#: the Pallas kernel): a bf16 output rounds once, f32 sums run in another order
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 
 
 class CheckFailed(RuntimeError):
@@ -314,16 +342,20 @@ def count_syncs(fn) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def device_busy(fn, names=("score_kernel",)) -> tuple[float, dict, float]:
+def device_busy(fn, names=("score_kernel",)) -> tuple[float, dict, float, int]:
     """What torch.profiler saw of ``fn`` on the device: (seconds of all
     device kernels, {name: (seconds, launches)} of the kernels whose name
-    contains each of ``names``, wall seconds of the profiled call). Kernel
-    times are self device times on one stream, so they do not overlap; the
-    wall includes the profiler's overhead."""
+    contains each of ``names``, wall seconds of the profiled call, number of
+    device kernels). Kernel times are self device times on one stream, so
+    they do not overlap; the wall includes the profiler's overhead."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # one synchronized launch first: launches right after the tracer
+        # starts can go unrecorded
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -334,7 +366,7 @@ def device_busy(fn, names=("score_kernel",)) -> tuple[float, dict, float]:
     for name in names:
         hits = [e for e in kernels if name in e.name]
         named[name] = (seconds(hits), len(hits))
-    return seconds(kernels), named, wall
+    return seconds(kernels), named, wall, len(kernels)
 
 
 def kernel_shares(busy: float, named: dict, wall: float, counted: dict, label: str) -> str:
@@ -399,7 +431,7 @@ def phase_rack(device, m: int = 64, n: int = 1024, small=(16, 64)) -> int:
         # the first 256 arrivals only: parsing the trace of the whole run
         # takes minutes of host time
         kc.reset_launches()
-        busy, named, pwall_prof = device_busy(lambda: eng.run(arrivals[:256]))
+        busy, named, pwall_prof, _ = device_busy(lambda: eng.run(arrivals[:256]))
         share = kernel_shares(busy, named, pwall_prof,
                               {"score_kernel": sum(kc.LAUNCHES.values())}, "rack")
         print(f"[4 rack] profiled rerun of the first 256 arrivals: device kernels {busy:.4f} s "
@@ -742,7 +774,7 @@ def phase_adaptive(device, m: int = 64, segments: int = 8, per_segment: int = 25
                               device=device, **kw)
         kc.reset_launches()
         kt.reset_launches()
-        busy, named, pwall = device_busy(
+        busy, named, pwall, _ = device_busy(
             lambda: prof.run(arrivals[:per_segment], segments=1),
             ("pair_scatter_kernel", "score_kernel"))
         share = kernel_shares(busy, named, pwall, {
@@ -753,6 +785,350 @@ def phase_adaptive(device, m: int = 64, segments: int = 8, per_segment: int = 25
 
     return dict(scatter=sum(scatter_launches.values()) + sum(q_scatter.values()),
                 score=sum(score_launches.values()) + sum(q_score.values()))
+
+#: (label, B, Sq, Skv, H, Hkv, dh, causal, q_offset): the serving path's
+#: shapes (tinyllama-1.1b, 8 requests, prompt 512, 32 tokens, a 672-row
+#: padded cache), the edges the path does not reach, and the head dims of
+#: the other kernel instances
+FLASH_SHAPES = [
+    ("prefill", 8, 512, 672, 32, 4, 64, True, 0),
+    ("decode@0", 8, 1, 672, 32, 4, 64, True, 0),
+    ("decode@511", 8, 1, 672, 32, 4, 64, True, 511),
+    ("decode@542", 8, 1, 672, 32, 4, 64, True, 542),
+    ("ragged Sq=17", 8, 17, 672, 32, 4, 64, True, 0),
+    ("non-causal", 2, 128, 300, 32, 4, 64, False, 0),
+    ("llama3.2 prefill", 8, 512, 672, 24, 8, 128, True, 0),
+    ("llama3.2 decode@542", 8, 1, 672, 24, 8, 128, True, 542),
+    ("SMOKE width dh=16", 2, 33, 70, 4, 2, 16, True, 20),
+    ("dh=32", 2, 33, 70, 4, 2, 32, True, 20),
+]
+
+
+def flash_bound_ms(B, Sq, Skv, H, Hkv, dh, causal, q_offset, q_size, kv_size) -> tuple[float, str]:
+    """Least time for one call on these inputs: q and out, and the k/v rows
+    some query sees, moved once over HBM bandwidth; against 4 dh flops per
+    (query, head, visible kv row) over the dense peak of q's dtype (bf16
+    tensor cores, or fp32 without TF32)."""
+    from repro_torch.kernels.flash_attention import visible_rows
+
+    rows = visible_rows(Sq, Skv, causal, q_offset)
+    seen = sum(min(Skv, q_offset + i + 1) for i in range(Sq)) if causal else Sq * Skv
+    nbytes = 2 * B * Sq * H * dh * q_size + 2 * B * rows * Hkv * dh * kv_size
+    flops = 4 * B * H * dh * seen
+    peak = BF16_FLOPS if q_size == 2 else FP32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sdpa_form(q, k, v, causal: bool, q_offset: int):
+    """The same function by ``scaled_dot_product_attention`` on [B, H, S, dh]
+    views (GQA through ``enable_gqa``), with an explicit boolean mask where
+    the causal diagonal is offset. Timed as the library call; the port
+    never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    Sq, Skv = q.shape[1], k.shape[1]
+    mask = None
+    if causal and q_offset:
+        mask = ((q_offset + torch.arange(Sq, device=q.device))[:, None]
+                >= torch.arange(Skv, device=q.device)[None, :])
+    out = F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+        is_causal=causal and not q_offset, enable_gqa=True)
+    return out.transpose(1, 2)
+
+
+def phase_flash(device) -> dict:
+    """``flash_attention`` against ``flash_attention_torch`` at every
+    FLASH_SHAPES shape in bf16 and f32 (and f32 q on a bf16 cache at one
+    decode shape), with device times of the kernel, the plain version and
+    SDPA, and the bound. Returns the rows by (label, dtype)."""
+    import torch
+    from repro_torch.kernels import flash_attention as kf
+
+    gen = torch.Generator(device).manual_seed(SEED + 3)
+    cases = [(shape, dt, dt) for shape in FLASH_SHAPES for dt in ("bfloat16", "float32")]
+    cases.append((FLASH_SHAPES[2], "float32", "bfloat16"))
+    rows = {}
+    for (label, B, Sq, Skv, H, Hkv, dh, causal, off), qdt, kvdt in cases:
+        q = torch.randn(B, Sq, H, dh, generator=gen, device=device).to(getattr(torch, qdt))
+        k, v = (torch.randn(B, Skv, Hkv, dh, generator=gen, device=device)
+                .to(getattr(torch, kvdt)) for _ in range(2))
+        got = kf.flash_attention(q, k, v, causal=causal, q_offset=off)
+        torch.cuda.synchronize()
+        want = kf.flash_attention_torch(q, k, v, causal=causal, q_offset=off)
+        tol = FLASH_TOL[qdt]
+        diff = (got.double() - want.double()).abs()
+        err = float(diff.max())
+        check(bool(torch.isfinite(got).all()), f"flash {label} {qdt}: non-finite output")
+        check(bool((diff <= tol + tol * want.double().abs()).all()),
+              f"flash {label} {qdt}/{kvdt}: kernel vs plain max abs err {err:.3g} > {tol}")
+        row = dict(max_abs_err=err, tol=tol,
+                   ms=device_ms(lambda: kf.flash_attention(q, k, v, causal=causal, q_offset=off)),
+                   plain_ms=device_ms(
+                       lambda: kf.flash_attention_torch(q, k, v, causal=causal, q_offset=off)))
+        if qdt == kvdt:
+            lib = sdpa_form(q, k, v, causal, off)
+            row["library_err"] = float((lib.double() - want.double()).abs().max())
+            row["library_ms"] = device_ms(lambda: sdpa_form(q, k, v, causal, off))
+        else:
+            row["library_err"] = row["library_ms"] = None  # SDPA takes one dtype
+        row["bound_ms"], row["bound_by"] = flash_bound_ms(
+            B, Sq, Skv, H, Hkv, dh, causal, off, q.element_size(), k.element_size())
+        row["shape"] = (f"B={B} Sq={Sq} Skv={Skv} H={H} Hkv={Hkv} dh={dh} "
+                        f"{'causal' if causal else 'non-causal'} q_offset={off} {qdt}/{kvdt}")
+        rows[(label, qdt if qdt == kvdt else f"{qdt}/{kvdt}")] = row
+        lib_text = ("SDPA n/a" if row["library_ms"] is None else
+                    f"SDPA {row['library_ms']:.5f} (err {row['library_err']:.3g})")
+        print(f"[8 flash] {label} {qdt}/{kvdt}: err {err:.3g} (tol {tol}), device ms kernel "
+              f"{row['ms']:.5f} plain {row['plain_ms']:.5f} {lib_text} bound "
+              f"{row['bound_ms']:.5f} by {row['bound_by']}")
+    return rows
+
+
+def bf16_ulps(got, want):
+    """|got - want| in bf16 ulps of the larger magnitude, elementwise."""
+    import torch
+
+    a, b = got.double(), want.double()
+    mag = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
+    return (a - b).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def attention64(q, k, v, *, causal: bool = True, q_offset: int = 0, mode=None):
+    """Attention in float64 on the model layout (``attention_ref``), cast to
+    q's dtype: a third summation order for the witness below."""
+    import torch
+    from repro_torch.kernels.ref import attention_ref
+
+    B, Sq, H, dh = q.shape
+    G = H // k.shape[2]
+    flat = lambda x: x.transpose(1, 2).reshape(B * H, x.shape[1], dh)  # noqa: E731
+    out = attention_ref(flat(q), flat(k.repeat_interleave(G, dim=2)),
+                        flat(v.repeat_interleave(G, dim=2)), causal=causal,
+                        q_offset=q_offset, dtype=torch.float64)
+    return out.reshape(B, H, Sq, dh).transpose(1, 2)
+
+
+def jax_scale_witness(cfg, prompts, device) -> dict:
+    """The serving prefill on weights at the JAX package's init scale, whose
+    stacked draw takes the layer count as a layer weight's fan-in (std
+    1/sqrt(22) for tinyllama, not 1/sqrt(2048)), so that its softmaxes are
+    near one-hot. Every layer's attention on the kernel route's own inputs
+    is computed three ways: the kernel, the plain version (float32) and
+    float64, and the kernel must be within the phase-8 tolerance of the
+    plain version wherever the plain version is within it of float64. The
+    last-position logits of three whole routes are read against each
+    other: kernel, plain, and plain with float64 attention. A gap between
+    the kernel and plain routes that the two plain routes show too is the
+    model's amplification of last-bit differences, not the kernel's."""
+    import math
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    from repro_torch.models.params import materialize
+    from repro_torch.models.transformer import TransformerLM
+
+    model = build_model(cfg)
+    infos = model.param_infos()
+    params = materialize(infos, torch.Generator(device).manual_seed(SEED))
+    for blk, leaves in infos["layers"].items():
+        for name, info in leaves.items():
+            if info.init == "normal" and info.scale is None:  # fan-in: dim 1 -> n_layers
+                params["layers"][blk][name].mul_(math.sqrt(info.shape[1] / info.shape[0]))
+    lm = TransformerLM(cfg, params)
+    del params
+    tol = FLASH_TOL["bfloat16"]
+    real = ops.gqa_flash_attention
+    layers = []
+
+    def checked(q, k, v, *, causal=True, q_offset=0, mode="cuda"):
+        out = real(q, k, v, causal=causal, q_offset=q_offset, mode=mode)
+        plain = real(q, k, v, causal=causal, q_offset=q_offset, mode="torch")
+        ref = attention64(q, k, v, causal=causal, q_offset=q_offset).double()
+        far = lambda x, y: (x.double() - y).abs() > tol + tol * y.abs()  # noqa: E731
+        plain_far = far(plain, ref)
+        layers.append(dict(
+            kernel_ulps=float(bf16_ulps(out, plain).max()),
+            over_1ulp=int((bf16_ulps(out, plain) > 1).sum()),
+            kernel_far=int(far(out, plain.double()).sum()),
+            kernel_far_where_plain_near=int((far(out, plain.double()) & ~plain_far).sum()),
+            plain_far_from_f64=int(plain_far.sum()),
+            kernel_vs_f64_ulps=float(bf16_ulps(out, ref).max()),
+            plain_vs_f64_ulps=float(bf16_ulps(plain, ref).max())))
+        return out
+
+    def prefill_logits():
+        cache = model.init_cache(prompts.shape[0], prompts.shape[1] + 1, device=device)
+        return model.prefill(lm, {"tokens": prompts}, cache)[0][:, -1, :].float()
+
+    try:
+        ops.gqa_flash_attention = checked
+        kern = prefill_logits()
+        ops.gqa_flash_attention = attention64
+        plain64 = prefill_logits()
+    finally:
+        ops.gqa_flash_attention = real
+    lm.attn_mode = "torch"
+    plain = prefill_logits()
+    del lm
+    gap = lambda a, b: float((a - b).abs().max()) / float(b.abs().max())  # noqa: E731
+    out = dict(kernel_vs_plain=gap(kern, plain), plain_vs_plain64=gap(plain, plain64),
+               kernel_vs_plain64=gap(kern, plain64),
+               layer_kernel_ulps=max(r["kernel_ulps"] for r in layers),
+               layer_over_1ulp=sum(r["over_1ulp"] for r in layers),
+               layer_kernel_far=sum(r["kernel_far"] for r in layers),
+               layer_plain_far=sum(r["plain_far_from_f64"] for r in layers),
+               layer_kernel_vs_f64_ulps=max(r["kernel_vs_f64_ulps"] for r in layers),
+               layer_plain_vs_f64_ulps=max(r["plain_vs_f64_ulps"] for r in layers))
+    n_out = prompts.shape[0] * prompts.shape[1] * cfg.n_heads * cfg.d_head * cfg.n_layers
+    print(f"[9 serve] JAX init scale, prefill: last-position logits kernel vs plain route "
+          f"{out['kernel_vs_plain']:.4g} of their scale, plain vs plain with float64 attention "
+          f"{out['plain_vs_plain64']:.4g}, kernel vs float64 {out['kernel_vs_plain64']:.4g}")
+    print(f"[9 serve] JAX init scale, each layer's attention on the kernel route's inputs, "
+          f"{n_out} outputs over {len(layers)} layers: kernel vs plain max "
+          f"{out['layer_kernel_ulps']:.4g} bf16 ulps, {out['layer_over_1ulp']} outputs over "
+          f"1 ulp, {out['layer_kernel_far']} beyond the phase-8 tolerance; plain vs float64 "
+          f"max {out['layer_plain_vs_f64_ulps']:.4g} ulps ({out['layer_plain_far']} beyond "
+          f"it), kernel vs float64 max {out['layer_kernel_vs_f64_ulps']:.4g} ulps")
+    for i, r in enumerate(layers):
+        check(r["kernel_far_where_plain_near"] == 0,
+              f"JAX init scale, layer {i}: the kernel is beyond the phase-8 tolerance of the "
+              f"plain version at {r['kernel_far_where_plain_near']} outputs where the plain "
+              f"version is within it of float64")
+    check(all(math.isfinite(v) for v in out.values()), f"JAX init scale: {out}")
+    return out
+
+
+def phase_serve(device, smoke: bool = False, requests: int = 8, prompt_len: int = 512,
+                n_gen: int = 32) -> dict:
+    """The serving path at full width: admission of 8 streams on H100_HOST
+    through the CUDA scorer, then ``tinyllama-1.1b`` (22 layers, d_model
+    2048, weights drawn on the card from SEED) serving 8 requests of 512
+    prompt tokens and 32 generated tokens by the kernel route. The flash
+    launches must be 22 x 32; a teacher-forced replay on the plain route
+    must give the same logits (2e-2 of their scale) and the same argmax
+    where the top-2 gap is wider than that; ``jax_scale_witness`` runs
+    the prefill at the JAX init scale; a SMOKE run at f32 compute must give
+    the card the CPU's tokens. Returns the path's numbers.
+    ``smoke`` and the sizes shrink it for a rehearsal on the CPU."""
+    import dataclasses as dc
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import H100_HOST
+    from repro_torch.kernels import consolidation as kc
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.launch import serve
+
+    tol = 2e-2
+    on_card = device.type == "cuda"
+    kc.reset_launches()
+    placements = serve.admission_check("tinyllama-1.1b", requests, host=H100_HOST, device=device)
+    check(all(p is not None for p in placements), f"admission queued a stream: {placements}")
+    check(sum(kc.LAUNCHES.values()) > 0 or not on_card,
+          "admission never launched consolidation_scores")
+    print(f"[9 serve] admission of {requests} streams on 2 x {H100_HOST.name}: {placements}, "
+          f"consolidation_scores launches {sum(kc.LAUNCHES.values())}")
+
+    cfg = get_config("tinyllama-1.1b", smoke=smoke)
+    model, lm, prompts = serve.prepare(cfg, requests=requests, prompt_len=prompt_len, seed=SEED,
+                                       device=device)
+    n_params = sum(p.numel() for p in lm.parameters())
+    serve.generate(model, lm, prompts, 2)  # warm-up: cuBLAS handles, allocator
+    if on_card:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kf.reset_launches()
+    run = serve.generate(model, lm, prompts, n_gen, keep_logits=True)
+    launches = dict(kf.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    n_launch = sum(launches.values())
+    check(n_launch == cfg.n_layers * n_gen or not on_card,
+          f"serving launched flash_attention {n_launch} times, want {cfg.n_layers} x {n_gen}")
+    check(tuple(run.tokens.shape) == (requests, n_gen), f"tokens {tuple(run.tokens.shape)}")
+    check(bool(((run.tokens >= 0) & (run.tokens < cfg.vocab)).all()), "token out of the vocab")
+    decode_ms = [1e3 * t for t in run.decode_s]
+    total = run.prefill_s + sum(run.decode_s)
+    print(f"[9 serve] {cfg.name} {n_params / 1e9:.3f} B params, {requests} requests x prompt "
+          f"{prompt_len} + {n_gen} tokens: prefill {1e3 * run.prefill_s:.3f} ms, decode "
+          f"{statistics.mean(decode_ms):.3f} ms/step (median {statistics.median(decode_ms):.3f}, "
+          f"min {min(decode_ms):.3f}, max {max(decode_ms):.3f}), {requests * n_gen / total:.1f} "
+          f"tokens/s over {total:.3f} s, peak device memory {peak / 2**30:.3f} GiB; "
+          f"flash_attention launches {n_launch} over {len(launches)} shapes")
+
+    # the plain route, teacher-forced on the kernel route's tokens
+    lm.attn_mode = "torch"
+    cache = model.init_cache(requests, prompt_len + n_gen, device=device)
+    worst_rel, worst_gap_mismatch, flips = 0.0, 0, 0
+    for t in range(n_gen):
+        if t == 0:
+            logits, cache = model.prefill(lm, {"tokens": prompts}, cache)
+        else:
+            logits, cache = model.decode_step(lm, cache, run.tokens[:, t - 1:t])
+        plain, kern = logits[:, -1, :].float(), run.logits[t].float()
+        scale = float(kern.abs().max())
+        rel = float((plain - kern).abs().max()) / scale
+        worst_rel = max(worst_rel, rel)
+        check(rel <= tol, f"step {t}: plain and kernel routes' logits differ by {rel:.3g} of "
+              f"their scale")
+        top2 = kern.topk(2, dim=-1).values
+        wide = (top2[:, 0] - top2[:, 1]) > tol * scale
+        differ = plain.argmax(-1) != kern.argmax(-1)
+        flips += int(differ.sum())
+        check(not bool((differ & wide).any()), f"step {t}: argmax differs where the top-2 gap "
+              f"exceeds {tol} of the scale")
+    lm.attn_mode = None
+    check(sum(kf.LAUNCHES.values()) == n_launch, "the plain route launched the kernel")
+    print(f"[9 serve] plain route teacher-forced over {n_gen} steps: logits within {worst_rel:.3g} "
+          f"of their scale (tol {tol}); argmax differs in {flips} of {requests * n_gen} "
+          f"places, none where the top-2 gap exceeds the tolerance")
+
+    # the kernel's share of device time, prefill alone and 8 decode steps
+    if not on_card:
+        return dict(launches=n_launch, prefill_ms=1e3 * run.prefill_s,
+                    decode_ms=statistics.mean(decode_ms), worst_rel=worst_rel)
+    kf.reset_launches()
+    busy_p, named_p, wall_p, n_p = device_busy(lambda: serve.generate(model, lm, prompts, 1),
+                                               ("flash_attention_kernel",))
+    share_p = kernel_shares(busy_p, named_p, wall_p,
+                            {"flash_attention_kernel": sum(kf.LAUNCHES.values())}, "prefill")
+    cache = model.init_cache(requests, prompt_len + n_gen, device=device)
+    _, cache = model.prefill(lm, {"tokens": prompts}, cache)
+
+    def decode8():
+        c = dict(cache)
+        for i in range(8):
+            _, c = model.decode_step(lm, c, run.tokens[:, i:i + 1])
+
+    kf.reset_launches()
+    busy_d, named_d, wall_d, n_d = device_busy(decode8, ("flash_attention_kernel",))
+    share_d = kernel_shares(busy_d, named_d, wall_d,
+                            {"flash_attention_kernel": sum(kf.LAUNCHES.values())}, "decode")
+    print(f"[9 serve] profiled prefill: {n_p} device kernels, {busy_p:.5f} s of {wall_p:.4f} s "
+          f"wall; {share_p}\n[9 serve] profiled 8 decode steps: {n_d} device kernels "
+          f"({n_d / 8:.1f} per step), {busy_d:.5f} s of {wall_d:.4f} s wall; {share_d}")
+
+    del lm
+    gc.collect()
+    witness = jax_scale_witness(cfg, prompts, device)
+
+    # a SMOKE model at float32 compute: the card's tokens are the CPU's
+    smoke = dc.replace(get_config("tinyllama-1.1b", smoke=True), compute_dtype=torch.float32)
+    s_model, s_lm, s_prompts = serve.prepare(smoke, requests=2, prompt_len=16, seed=SEED,
+                                             device="cpu")
+    want = serve.generate(s_model, s_lm, s_prompts, 8).tokens
+    got = serve.generate(s_model, s_lm.to(device), s_prompts.to(device), 8).tokens
+    check(torch.equal(got.cpu(), want), f"SMOKE f32: card tokens {got.tolist()} != CPU "
+          f"{want.tolist()}")
+    print(f"[9 serve] SMOKE tinyllama at f32 compute, 2 x (16 + 8): card tokens == CPU tokens "
+          f"{want[0].tolist()}")
+    return dict(launches=n_launch, prefill_ms=1e3 * run.prefill_s,
+                decode_ms=statistics.mean(decode_ms), worst_rel=worst_rel, witness=witness)
 
 
 def main() -> int:
@@ -773,6 +1149,8 @@ def main() -> int:
     fleet = phase_fleet(device)
     scatter = phase_pair_scatter(device)
     adaptive = phase_adaptive(device)
+    flash = phase_flash(device)
+    served = phase_serve(device)
 
     q = 1024
     print(json.dumps({"kernels": [{
@@ -795,6 +1173,16 @@ def main() -> int:
         "bound_ms": scatter["bound_ms"], "bound_by": scatter["bound_by"],
         "library_ms": scatter["library_ms"],
         "shape": f"B={scatter['B']} T={scatter['T']} K={scatter['K']}",
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:118",
+        "launches": served["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in flash.values()),
+        **{key: flash[("prefill", "bfloat16")][key]
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+        "decode": {key: flash[("decode@511", "bfloat16")][key]
+                   for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
     }]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

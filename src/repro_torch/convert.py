@@ -6,7 +6,10 @@ field name to array; ``degradation_limit`` as a float) and return the
 port's versions on ``device``, so both implementations can score the
 identical tables. ``estimator_from_numpy`` does the same for a
 ``StreamingEstimator``'s state, so both compute the same next update.
-Arrays keep their dtype; nothing here imports JAX.
+``lm_params_from_numpy`` and ``kv_cache_from_numpy`` carry a JAX LM's
+parameter tree and KV cache across, so both models run on the same weights.
+Arrays keep their dtype (bf16 arrives as numpy's ``bfloat16`` extension
+type and leaves as ``torch.bfloat16``); nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -19,6 +22,9 @@ import torch
 from .core.binpack_torch import PackedCluster
 from .core.engine_torch import PackedDynamics
 from .device import resolve_device
+from .models.api import build_model
+from .models.params import ParamInfo
+from .models.transformer import TransformerLM
 from .telemetry.estimator import ScatterName, StreamingEstimator
 
 
@@ -71,3 +77,53 @@ def estimator_from_numpy(state: Mapping[str, object], *, scatter: ScatterName = 
         setattr(est, k, torch.from_numpy(np.array(state[k], np.float64)).to(est.device))
     est.n_obs = int(state["n_obs"])
     return est
+
+
+def tensor_from_numpy(a, device: torch.device) -> torch.Tensor:
+    """numpy array -> tensor on ``device``, bf16 included (through its bits)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a).view(np.int16)) \
+            .view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _tree_from_numpy(infos, tree, device, path=""):
+    """The numpy tree as tensors, checked key by key and shape by shape
+    against the declaration ``infos``."""
+    if isinstance(infos, ParamInfo):
+        a = np.asarray(tree)
+        if tuple(a.shape) != tuple(infos.shape):
+            raise ValueError(f"parameter {path}: shape {tuple(a.shape)}, want {infos.shape}")
+        return tensor_from_numpy(a, device).to(infos.dtype)
+    if not isinstance(tree, Mapping):
+        raise KeyError(f"parameter {path or '/'}: want a mapping of {sorted(infos)}")
+    missing, extra = sorted(set(infos) - set(tree)), sorted(set(tree) - set(infos))
+    if missing or extra:
+        raise KeyError(f"parameters under {path or '/'}: missing {missing}, extra {extra}")
+    return {k: _tree_from_numpy(infos[k], tree[k], device, f"{path}/{k}") for k in infos}
+
+
+def lm_params_from_numpy(cfg, params: Mapping, *,
+                         device: str | torch.device | None = None) -> TransformerLM:
+    """The port's LM holding a JAX LM's parameters.
+
+    ``params`` is the JAX parameter tree (``Model.param_infos``: stacked
+    layers) with numpy leaves. Raises ``KeyError`` on a missing or extra
+    key and ``ValueError`` on a wrong shape.
+    """
+    device = resolve_device(device)
+    model = build_model(cfg)
+    tree = _tree_from_numpy(model.param_infos(), params, device)
+    return TransformerLM(cfg, tree)
+
+
+def kv_cache_from_numpy(cache: Mapping, *, device: str | torch.device | None = None) -> dict:
+    """A JAX KV cache ({'k', 'v': [L, B, T, Hkv, dh] bf16, 'len'}) as the
+    port's, with ``len`` a host int."""
+    device = resolve_device(device)
+    missing = [k for k in ("k", "v", "len") if k not in cache]
+    if missing:
+        raise KeyError(f"KV cache missing {missing}")
+    return {"k": tensor_from_numpy(cache["k"], device), "v": tensor_from_numpy(cache["v"], device),
+            "len": int(np.asarray(cache["len"]))}

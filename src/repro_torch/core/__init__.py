@@ -3,12 +3,13 @@
 Public API:
   Workload, grid_types, type_index, snap_to_grid  -- §III characterization
   ServerSpec, M1, M2, PAPER_CLUSTER               -- Table I testbed
+  TPU_V5E_HOST, H100_HOST                         -- accelerator hosts as bins
   profile_pairwise_fast, type_tables, pair_slowdown_matrices -- Eqns 1-3
   PackedCluster, server_loads, score_candidates_torch, greedy_choice,
   argmin_with_margin, greedy_step, greedy_sequence -- the Fig-8 greedy
   PackedDynamics, run_trace, corun_rates          -- event-loop internals
-  ConsolidationEngine, EngineResult, make_scorer, score_candidates,
-  kernel_args
+  ConsolidationEngine, EngineResult, Deadlock, make_scorer,
+  score_candidates, kernel_args
                                                   -- the online runtime
   AdaptiveEngine, AdaptiveResult                  -- the observe -> estimate
                                                      -> schedule loop
@@ -26,8 +27,8 @@ from .binpack_torch import (
     server_loads,
 )
 from .contention import pair_slowdown_matrices, profile_pairwise_fast, type_tables
-from .engine import (AdaptiveEngine, AdaptiveResult, ConsolidationEngine, EngineResult,
-                     kernel_args, make_scorer, score_candidates)
+from .engine import (AdaptiveEngine, AdaptiveResult, ConsolidationEngine, Deadlock,
+                     EngineResult, kernel_args, make_scorer, score_candidates)
 from .engine_torch import EngineTrace, LoopStats, PackedDynamics, corun_rates, run_trace
-from .server import M1, M2, PAPER_CLUSTER, ServerSpec
+from .server import H100_HOST, M1, M2, PAPER_CLUSTER, TPU_V5E_HOST, ServerSpec
 from .workload import FS_GRID, RS_GRID, Workload, grid_types, snap_to_grid, type_index

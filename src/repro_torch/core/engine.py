@@ -88,6 +88,10 @@ class EngineResult:
         return tuple(i for i, q in enumerate(self.was_queued) if q)
 
 
+class Deadlock(RuntimeError):
+    """A run stopped with queued workloads that no empty server can take."""
+
+
 class ConsolidationEngine:
     """The online consolidation runtime on one device (see module docstring).
 
@@ -192,8 +196,8 @@ class ConsolidationEngine:
 
         Workloads are snapped to the profiling grid (as the paper's scheduler
         snaps every candidate for its D-matrix lookup); ``data_total`` is
-        honoured per arrival. Raises ``RuntimeError`` on deadlock (a queued
-        workload no *empty* server can take), like the oracle.
+        honoured per arrival. Raises :class:`Deadlock` (a ``RuntimeError``)
+        when a queued workload fits no *empty* server, like the oracle.
 
         ``telemetry=True`` attaches the completion-observation log
         (``repro_torch.telemetry.ObservationLog``, tensors on the engine's
@@ -238,7 +242,7 @@ class ConsolidationEngine:
         trace = run_trace(self.cluster, self.dyn, arr_time, arr_type, arr_bytes,
                           objective=self.objective, scorer=scorer, telemetry=telemetry)
         if bool(trace.deadlock):
-            raise RuntimeError("deadlock: queued workloads fit no empty server")
+            raise Deadlock("deadlock: queued workloads fit no empty server")
         # observation records are per run; the trace's arrival-sorted order
         # serves as well as submission order
         obs = observations_from_trace(trace, arr_type, arr_bytes) if telemetry else None

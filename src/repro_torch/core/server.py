@@ -93,3 +93,36 @@ M2 = ServerSpec(
 
 #: The paper's evaluation cluster (§VIII): 2x M1 + 2x M2.
 PAPER_CLUSTER = (M1, dataclasses.replace(M1, name="M1b"), M2, dataclasses.replace(M2, name="M2b"))
+
+
+# --- accelerator hosts as consolidation bins (DESIGN.md §2) -------------------
+# A TPU v5e host: 8 chips, 16GB HBM each. The consolidation "cache" dimension
+# becomes the HBM byte budget; the shared bandwidth becomes aggregate HBM bw.
+# (A copy of the JAX package's spec, so both admit request streams alike.)
+TPU_V5E_HOST = ServerSpec(
+    name="tpu-v5e-host",
+    llc_bytes=8 * 16 * GB,  # HBM capacity = the hard contention resource
+    mem_bytes=512 * GB,  # host DRAM
+    file_cache_bytes=256 * GB,  # host staging buffers (input pipeline)
+    disk_cache_bytes=4 * GB,
+    cores=224,
+    ghz=2.0,
+    shared_bw=8 * 819 * GB,  # aggregate HBM bandwidth
+    llc_tolerance=1.0,  # HBM does not over-subscribe: OOM is a cliff
+)
+
+# An 8-GPU H100 SXM host (NVIDIA DGX H100 data sheet: 8 x 80 GB HBM3 at
+# 3.35 TB/s each, 2 TB of system memory, two 56-core Xeon 8480C at 2.0 GHz),
+# mapped as the TPU host is: HBM capacity is the budget, aggregate HBM
+# bandwidth the shared pipe, and HBM does not over-subscribe.
+H100_HOST = ServerSpec(
+    name="h100-host",
+    llc_bytes=8 * 80 * GB,
+    mem_bytes=2048 * GB,
+    file_cache_bytes=1024 * GB,
+    disk_cache_bytes=4 * GB,
+    cores=112,
+    ghz=2.0,
+    shared_bw=8 * 3.35e12,
+    llc_tolerance=1.0,
+)

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from .consolidation import consolidation_scores, consolidation_scores_torch
+from .flash_attention import flash_attention, flash_attention_torch
 from .telemetry import pair_scatter, pair_scatter_torch
 
 
@@ -51,4 +52,24 @@ def telemetry_pair_scatter(
         return pair_scatter(types, cbar, vals)
     if mode == "torch":
         return pair_scatter_torch(types, cbar, vals)
+    raise ValueError(f"mode must be cuda|torch, got {mode!r}")
+
+
+def gqa_flash_attention(
+    q: torch.Tensor,  # [B, Sq, H, dh]
+    k: torch.Tensor,  # [B, Skv, Hkv, dh]
+    v: torch.Tensor,  # [B, Skv, Hkv, dh]
+    *,
+    causal: bool = True,
+    q_offset: int = 0,
+    mode: str = "cuda",
+) -> torch.Tensor:
+    """Model-layout attention [B, Sq, H, dh]; the kernel maps each query
+    head to its kv head itself, so k and v are neither repeated nor
+    transposed (the JAX wrapper does both)."""
+    if mode == "cuda":
+        _require_cuda(q)
+        return flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    if mode == "torch":
+        return flash_attention_torch(q, k, v, causal=causal, q_offset=q_offset)
     raise ValueError(f"mode must be cuda|torch, got {mode!r}")

@@ -1,12 +1,33 @@
-"""Float64 numpy references for the port's kernels (copied from
+"""Float64-capable references for the port's kernels (copied from
 ``repro/kernels/ref.py``, same names and arithmetic).
 
 ``pair_scatter_ref`` is the tests' oracle for ``kernels.telemetry`` and the
-estimator's ``scatter='numpy'`` backend.
+estimator's ``scatter='numpy'`` backend; ``attention_ref`` is the oracle
+for ``kernels.flash_attention``.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
+import torch
+
+
+def attention_ref(q, k, v, *, causal=True, q_offset=0, dtype=torch.float32):
+    """q [N, Sq, dh]; k, v [N, Skv, dh] -> [N, Sq, dh] in q's dtype.
+
+    Softmax attention computed in ``dtype`` (float32, as the JAX reference,
+    or float64), with -1e30 on the scores a causal mask hides
+    (q_offset + i < j)."""
+    N, Sq, dh = q.shape
+    Skv = k.shape[1]
+    s = torch.einsum("nqd,ntd->nqt", q.to(dtype), k.to(dtype)) / math.sqrt(dh)
+    if causal:
+        qp = q_offset + torch.arange(Sq, device=q.device)[:, None]
+        kp = torch.arange(Skv, device=q.device)[None, :]
+        s = torch.where(qp >= kp, s, torch.full_like(s, -1e30))
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("nqt,ntd->nqd", w, v.to(dtype)).to(q.dtype)
 
 
 def pair_scatter_ref(types, cbar, vals):

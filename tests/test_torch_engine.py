@@ -21,6 +21,7 @@ from repro.core import snap_to_grid, type_index
 from repro.core.units import KB, MB
 from repro_torch import convert
 from repro_torch.core import ConsolidationEngine as TorchEngine
+from repro_torch.core import Deadlock
 from repro_torch.core import M1 as TM1
 from repro_torch.core import M2 as TM2
 from repro_torch.core import PAPER_CLUSTER as T_PAPER_CLUSTER
@@ -121,7 +122,7 @@ def test_engine_deadlock_raises():
     w = snap_to_grid(Workload(fs=8 * MB, rs=512 * KB))
     with pytest.raises(RuntimeError):
         ConsolidationEngine([M1], alpha=0.01).run([(0.0, w)], backend="jax")
-    with pytest.raises(RuntimeError):
+    with pytest.raises(Deadlock):
         TorchEngine([TM1], alpha=0.01, device="cpu").run([(0.0, w)])
 
 

@@ -16,9 +16,12 @@ import pytest
 import torch
 
 import repro_torch.device
+from repro_torch.configs import get_config
 from repro_torch.core import M1, ConsolidationEngine, PackedCluster, PackedDynamics
 from repro_torch.core import profile_pairwise_fast
 from repro_torch.kernels import ops
+from repro_torch.launch import serve
+from repro_torch.models import build_model
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -49,7 +52,8 @@ def _env():
 def test_import_loads_neither_jax_nor_repro():
     """In a fresh interpreter (this test process has jax loaded by conftest)."""
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.convert, "
-            "repro_torch.kernels.ops; "
+            "repro_torch.kernels.ops, repro_torch.models, repro_torch.configs, "
+            "repro_torch.distributed.serve_step, repro_torch.launch.serve; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], env=_env(), capture_output=True,
@@ -70,6 +74,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         PackedCluster.build([M1], D)
     with pytest.raises(RuntimeError, match="CUDA"):
         PackedDynamics.build([M1])
+    model = build_model(get_config("tinyllama-1.1b", smoke=True))
+    for serving_entry in (model.init, lambda: model.init_cache(1, 4),
+                          lambda: serve.admission_check("tinyllama-1.1b", 1),
+                          lambda: serve.main(["--smoke"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serving_entry()
     assert repro_torch.device.resolve_device("cpu") == torch.device("cpu")
     assert ConsolidationEngine([M1], D=D, device="cpu").cluster.device.type == "cpu"
 
