@@ -1,12 +1,13 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: ``python3 chip_smoke.py``.
 
-Drives the port's three main paths on the card -- the online consolidation
+Drives the port's four main paths on the card -- the online consolidation
 engine (``repro_torch.core.ConsolidationEngine``) with the hand-written CUDA
 candidate scorer, the adaptive loop (``repro_torch.core.AdaptiveEngine``)
 whose streaming D-estimators take their pair statistics from the
 hand-written CUDA scatter, and the serving driver
-(``repro_torch.launch.serve``), whose dense LM attends through the
-hand-written CUDA flash attention -- in nine phases:
+(``repro_torch.launch.serve``) with a dense LM, which attends through the
+hand-written CUDA flash attention, and with RWKV6, whose WKV recurrence
+runs through the hand-written CUDA scan -- in eleven phases:
 
   1. environment: torch and CUDA versions, the card's name and power limit;
   2. build: nvcc builds every kernel under ``src/repro_torch/kernels/csrc``;
@@ -42,9 +43,9 @@ hand-written CUDA flash attention -- in nine phases:
      the serving prefill (B 8, Sq 512, Skv 672, H 32, Hkv 4, dh 64), decode
      at q_offset 0, 511 and 542 of the 672-row cache, a ragged Sq = 17, a
      non-causal shape, the llama3.2 width (H 24, Hkv 8, dh 128), dh 16
-     and 32, and f32 q on a bf16 cache; device times of the kernel, the plain version and
-     ``scaled_dot_product_attention`` (the library call, never used by the
-     port), beside the bound;
+     and 32, and f32 q on a bf16 cache at dh 64, 128 and 32; device times
+     of the kernel, the plain version and ``scaled_dot_product_attention``
+     (the library call, never used by the port), beside the bound;
   9. serving, ``tinyllama-1.1b`` at full width with weights drawn on the
      card: admission of 8 streams on two H100 hosts through the CUDA
      scorer, then 8 requests of 512 prompt tokens and 32 greedy tokens by
@@ -57,7 +58,27 @@ hand-written CUDA flash attention -- in nine phases:
      the kernel, plain and float64-attention routes, and every layer's
      kernel attention held to the plain version on the same inputs; a SMOKE
      run at float32 compute must give the same tokens on the card as on
-     the CPU.
+     the CPU;
+ 10. rwkv6_scan vs plain version: ``rwkv6_scan`` against
+     ``rwkv6_scan_torch`` (atol 5e-4, rtol 1e-3 on y and the final state)
+     at the serving prefill (B 8, S 512, H 64, dh 64, bf16 r/k/v), decode
+     (S 1) from a nonzero state, ragged S = 17 and 33, the SMOKE head size
+     dh 16 and float32 r/k/v, both against the float64 recurrence at
+     S = 33; device times of the kernel and the plain version beside the
+     bound (no library call computes WKV6);
+ 11. serving, ``rwkv6-7b`` at full width with weights drawn on the card
+     and the decay's ``w_base`` / ``w_lora_b`` perturbed (at the init they
+     make the decay uniform): admission of 8 streams on two H100 hosts,
+     then 8 requests of 512 prompt tokens and 32 greedy tokens by the kernel
+     route, which must launch rwkv6_scan 32 x 32 times; a shadow rerun
+     holds every one of those launches to the plain version on its own
+     inputs; the teacher-forced plain-route replay is measured beside a
+     witness with the WKV in float64 (this random model amplifies last-bit
+     differences, so no limit holds there); at float32 compute, decode
+     steps from one state must agree across the routes (1e-4 of the
+     logits' scale); prefill ms, decode ms per step, tokens/s, peak memory
+     and the kernel's share of device time; a SMOKE run at float32 compute
+     with the same tokens on the card as on the CPU.
 
 Then a JSON line with each kernel's numbers, the ``nvidia-smi`` name/power
 line, and a last JSON line ``{"ok": true, "device": {...}}``. Any failed
@@ -841,15 +862,16 @@ def sdpa_form(q, k, v, causal: bool, q_offset: int):
 
 def phase_flash(device) -> dict:
     """``flash_attention`` against ``flash_attention_torch`` at every
-    FLASH_SHAPES shape in bf16 and f32 (and f32 q on a bf16 cache at one
-    decode shape), with device times of the kernel, the plain version and
+    FLASH_SHAPES shape in bf16 and f32 (and f32 q on a bf16 cache at dh 64,
+    128 and 32), with device times of the kernel, the plain version and
     SDPA, and the bound. Returns the rows by (label, dtype)."""
     import torch
     from repro_torch.kernels import flash_attention as kf
 
     gen = torch.Generator(device).manual_seed(SEED + 3)
     cases = [(shape, dt, dt) for shape in FLASH_SHAPES for dt in ("bfloat16", "float32")]
-    cases.append((FLASH_SHAPES[2], "float32", "bfloat16"))
+    # f32 q on a bf16 cache (a float32-compute model's decode), at dh 64, 128 and 32
+    cases += [(FLASH_SHAPES[i], "float32", "bfloat16") for i in (2, 7, 9)]
     rows = {}
     for (label, B, Sq, Skv, H, Hkv, dh, causal, off), qdt, kvdt in cases:
         q = torch.randn(B, Sq, H, dh, generator=gen, device=device).to(getattr(torch, qdt))
@@ -1002,6 +1024,89 @@ def jax_scale_witness(cfg, prompts, device) -> dict:
     return out
 
 
+def replay_gaps(model, lm, prompts, run, tol: float) -> list[tuple[float, int, int]]:
+    """Teacher-forced replay of the forward calls of ``run`` (the kernel
+    route's tokens) through ``lm``, set to its other route. Per
+    call: (max |diff| of the last-position logits over the kernel route's
+    max |.|, the rows whose argmax differs, those of them whose top-2 gap
+    in the kernel route is wider than ``tol`` of the scale)."""
+    requests, n_gen = run.tokens.shape
+    cache = model.init_cache(requests, prompts.shape[1] + n_gen, device=prompts.device)
+    out = []
+    for t in range(n_gen):
+        if t == 0:
+            logits, cache = model.prefill(lm, {"tokens": prompts}, cache)
+        else:
+            logits, cache = model.decode_step(lm, cache, run.tokens[:, t - 1:t])
+        plain, kern = logits[:, -1, :].float(), run.logits[t].float()
+        out.append(logit_gap(plain, kern, tol))
+    return out
+
+
+def logit_gap(other, kern, tol: float) -> tuple[float, int, int]:
+    """(max |other - kern| over max |kern|, rows whose argmax differs, those
+    of them whose top-2 gap in ``kern`` is wider than ``tol`` of the scale)."""
+    scale = float(kern.abs().max())
+    top2 = kern.topk(2, dim=-1).values
+    wide = (top2[:, 0] - top2[:, 1]) > tol * scale
+    differ = other.argmax(-1) != kern.argmax(-1)
+    return (float((other - kern).abs().max()) / scale, int(differ.sum()),
+            int((differ & wide).sum()))
+
+
+def profile_serving(model, lm, prompts, run, km, kernel: str, tag: str) -> None:
+    """Prints the kernel's share of device time under torch.profiler, for
+    one prefill and then 8 decode steps of ``run``'s tokens; ``km`` is the
+    kernel's module (its ``LAUNCHES`` must match what the trace saw)."""
+    from repro_torch.launch import serve
+
+    requests, n_gen = run.tokens.shape
+    km.reset_launches()
+    busy_p, named_p, wall_p, n_p = device_busy(lambda: serve.generate(model, lm, prompts, 1),
+                                               (kernel,))
+    share_p = kernel_shares(busy_p, named_p, wall_p, {kernel: sum(km.LAUNCHES.values())},
+                            f"{tag} prefill")
+    cache = model.init_cache(requests, prompts.shape[1] + n_gen, device=prompts.device)
+    _, cache = model.prefill(lm, {"tokens": prompts}, cache)
+
+    def decode8():
+        c = dict(cache)
+        for i in range(8):
+            _, c = model.decode_step(lm, c, run.tokens[:, i:i + 1])
+
+    km.reset_launches()
+    busy_d, named_d, wall_d, n_d = device_busy(decode8, (kernel,))
+    share_d = kernel_shares(busy_d, named_d, wall_d, {kernel: sum(km.LAUNCHES.values())},
+                            f"{tag} decode")
+    print(f"[{tag}] profiled prefill: {n_p} device kernels, {busy_p:.5f} s of {wall_p:.4f} s "
+          f"wall; {share_p}\n[{tag}] profiled 8 decode steps: {n_d} device kernels "
+          f"({n_d / 8:.1f} per step), {busy_d:.5f} s of {wall_d:.4f} s wall; {share_d}")
+
+
+def smoke_card_matches_cpu(arch: str, device, tag: str, adjust=None) -> None:
+    """The SMOKE model of ``arch`` at float32 compute, weights and prompts
+    drawn on the CPU (then passed to ``adjust(lm, generator)`` if given):
+    8 greedy tokens for 2 requests of 16 must be the same on the card as on
+    the CPU."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    smoke = dc.replace(get_config(arch, smoke=True), compute_dtype=torch.float32)
+    s_model, s_lm, s_prompts = serve.prepare(smoke, requests=2, prompt_len=16, seed=SEED,
+                                             device="cpu")
+    if adjust is not None:
+        adjust(s_lm, torch.Generator().manual_seed(SEED))
+    want = serve.generate(s_model, s_lm, s_prompts, 8).tokens
+    got = serve.generate(s_model, s_lm.to(device), s_prompts.to(device), 8).tokens
+    check(torch.equal(got.cpu(), want), f"{arch} SMOKE f32: card tokens {got.tolist()} != CPU "
+          f"{want.tolist()}")
+    print(f"[{tag}] SMOKE {arch} at f32 compute, 2 x (16 + 8): card tokens == CPU tokens "
+          f"{want[0].tolist()}")
+
+
 def phase_serve(device, smoke: bool = False, requests: int = 8, prompt_len: int = 512,
                 n_gen: int = 32) -> dict:
     """The serving path at full width: admission of 8 streams on H100_HOST
@@ -1014,7 +1119,6 @@ def phase_serve(device, smoke: bool = False, requests: int = 8, prompt_len: int 
     the prefill at the JAX init scale; a SMOKE run at f32 compute must give
     the card the CPU's tokens. Returns the path's numbers.
     ``smoke`` and the sizes shrink it for a rehearsal on the CPU."""
-    import dataclasses as dc
     import gc
 
     import torch
@@ -1063,26 +1167,14 @@ def phase_serve(device, smoke: bool = False, requests: int = 8, prompt_len: int 
 
     # the plain route, teacher-forced on the kernel route's tokens
     lm.attn_mode = "torch"
-    cache = model.init_cache(requests, prompt_len + n_gen, device=device)
-    worst_rel, worst_gap_mismatch, flips = 0.0, 0, 0
-    for t in range(n_gen):
-        if t == 0:
-            logits, cache = model.prefill(lm, {"tokens": prompts}, cache)
-        else:
-            logits, cache = model.decode_step(lm, cache, run.tokens[:, t - 1:t])
-        plain, kern = logits[:, -1, :].float(), run.logits[t].float()
-        scale = float(kern.abs().max())
-        rel = float((plain - kern).abs().max()) / scale
-        worst_rel = max(worst_rel, rel)
+    gaps = replay_gaps(model, lm, prompts, run, tol)
+    lm.attn_mode = None
+    for t, (rel, _, wide_flips) in enumerate(gaps):
         check(rel <= tol, f"step {t}: plain and kernel routes' logits differ by {rel:.3g} of "
               f"their scale")
-        top2 = kern.topk(2, dim=-1).values
-        wide = (top2[:, 0] - top2[:, 1]) > tol * scale
-        differ = plain.argmax(-1) != kern.argmax(-1)
-        flips += int(differ.sum())
-        check(not bool((differ & wide).any()), f"step {t}: argmax differs where the top-2 gap "
-              f"exceeds {tol} of the scale")
-    lm.attn_mode = None
+        check(wide_flips == 0, f"step {t}: argmax differs where the top-2 gap exceeds {tol} "
+              f"of the scale")
+    worst_rel, flips = max(g[0] for g in gaps), sum(g[1] for g in gaps)
     check(sum(kf.LAUNCHES.values()) == n_launch, "the plain route launched the kernel")
     print(f"[9 serve] plain route teacher-forced over {n_gen} steps: logits within {worst_rel:.3g} "
           f"of their scale (tol {tol}); argmax differs in {flips} of {requests * n_gen} "
@@ -1092,43 +1184,366 @@ def phase_serve(device, smoke: bool = False, requests: int = 8, prompt_len: int 
     if not on_card:
         return dict(launches=n_launch, prefill_ms=1e3 * run.prefill_s,
                     decode_ms=statistics.mean(decode_ms), worst_rel=worst_rel)
-    kf.reset_launches()
-    busy_p, named_p, wall_p, n_p = device_busy(lambda: serve.generate(model, lm, prompts, 1),
-                                               ("flash_attention_kernel",))
-    share_p = kernel_shares(busy_p, named_p, wall_p,
-                            {"flash_attention_kernel": sum(kf.LAUNCHES.values())}, "prefill")
-    cache = model.init_cache(requests, prompt_len + n_gen, device=device)
-    _, cache = model.prefill(lm, {"tokens": prompts}, cache)
-
-    def decode8():
-        c = dict(cache)
-        for i in range(8):
-            _, c = model.decode_step(lm, c, run.tokens[:, i:i + 1])
-
-    kf.reset_launches()
-    busy_d, named_d, wall_d, n_d = device_busy(decode8, ("flash_attention_kernel",))
-    share_d = kernel_shares(busy_d, named_d, wall_d,
-                            {"flash_attention_kernel": sum(kf.LAUNCHES.values())}, "decode")
-    print(f"[9 serve] profiled prefill: {n_p} device kernels, {busy_p:.5f} s of {wall_p:.4f} s "
-          f"wall; {share_p}\n[9 serve] profiled 8 decode steps: {n_d} device kernels "
-          f"({n_d / 8:.1f} per step), {busy_d:.5f} s of {wall_d:.4f} s wall; {share_d}")
+    profile_serving(model, lm, prompts, run, kf, "flash_attention_kernel", "9 serve")
 
     del lm
     gc.collect()
     witness = jax_scale_witness(cfg, prompts, device)
 
     # a SMOKE model at float32 compute: the card's tokens are the CPU's
-    smoke = dc.replace(get_config("tinyllama-1.1b", smoke=True), compute_dtype=torch.float32)
-    s_model, s_lm, s_prompts = serve.prepare(smoke, requests=2, prompt_len=16, seed=SEED,
-                                             device="cpu")
-    want = serve.generate(s_model, s_lm, s_prompts, 8).tokens
-    got = serve.generate(s_model, s_lm.to(device), s_prompts.to(device), 8).tokens
-    check(torch.equal(got.cpu(), want), f"SMOKE f32: card tokens {got.tolist()} != CPU "
-          f"{want.tolist()}")
-    print(f"[9 serve] SMOKE tinyllama at f32 compute, 2 x (16 + 8): card tokens == CPU tokens "
-          f"{want[0].tolist()}")
+    smoke_card_matches_cpu("tinyllama-1.1b", device, "9 serve")
     return dict(launches=n_launch, prefill_ms=1e3 * run.prefill_s,
                 decode_ms=statistics.mean(decode_ms), worst_rel=worst_rel, witness=witness)
+
+
+#: rwkv6_scan vs its plain version and the float64 recurrence (tests/test_kernels.py's
+#: bounds for the Pallas kernel): float32 sums over dh terms and the tokens' decays
+RWKV_ATOL, RWKV_RTOL = 5e-4, 1e-3
+#: (label, B, S, H, dh, r/k/v dtype, nonzero s0): the serving path's shapes
+#: (rwkv6-7b, 8 requests, prompt 512: the prefill from a zero state, decode
+#: from the prefill's), ragged S, the SMOKE head size and float32 r/k/v
+RWKV_SHAPES = [
+    ("prefill", 8, 512, 64, 64, "bfloat16", False),
+    ("decode", 8, 1, 64, 64, "bfloat16", True),
+    ("ragged S=17", 8, 17, 64, 64, "bfloat16", True),
+    ("ragged S=33", 8, 33, 64, 64, "bfloat16", True),
+    ("SMOKE dh=16", 2, 33, 4, 16, "bfloat16", True),
+    ("SMOKE dh=16 decode", 2, 1, 4, 16, "float32", True),
+    ("f32", 2, 65, 8, 64, "float32", True),
+]
+
+
+def rwkv_inputs(B, S, H, dh, dtype, nonzero_s0, gen, device):
+    """Seeded WKV inputs on ``device``: r, k, v ~ N(0, 1) in ``dtype``,
+    wlog = -exp(0.5 N(0, 1)) per channel and token, u ~ 0.1 N(0, 1), s0
+    ~ N(0, 1) or zeros."""
+    import torch
+
+    rand = lambda *shape: torch.randn(*shape, generator=gen, device=device)  # noqa: E731
+    dt = getattr(torch, dtype)
+    r, k, v = (rand(B, S, H, dh).to(dt) for _ in range(3))
+    wlog = -torch.exp(0.5 * rand(B, S, H, dh))
+    u = 0.1 * rand(H, dh)
+    s0 = rand(B, H, dh, dh) if nonzero_s0 else torch.zeros(B, H, dh, dh, device=device)
+    return r, k, v, wlog, u, s0
+
+
+def rwkv_err(got, want, label: str) -> float:
+    """Max abs difference over (y, sT); fails past RWKV_ATOL + RWKV_RTOL *
+    |want|, on a shape mismatch or a non-finite value."""
+    import torch
+
+    err = 0.0
+    for g, w in zip(got, want):
+        check(tuple(g.shape) == tuple(w.shape) and g.dtype == torch.float32,
+              f"{label}: {g.dtype} {tuple(g.shape)} != float32 {tuple(w.shape)}")
+        check(bool(torch.isfinite(g).all()), f"{label}: non-finite output")
+        diff = (g.double() - w.double()).abs()
+        err = max(err, float(diff.max()))
+        check(bool((diff <= RWKV_ATOL + RWKV_RTOL * w.double().abs()).all()),
+              f"{label}: max abs err {err:.3g} beyond atol {RWKV_ATOL} rtol {RWKV_RTOL}")
+    return err
+
+
+def rwkv_bound_ms(B, S, H, dh, rkv_size) -> tuple[float, str]:
+    """Least time for one call on these inputs: r, k, v (``rkv_size`` bytes
+    each), wlog, u and s0 read once, y and sT written once, over HBM
+    bandwidth; against 4 dh^2 fp32 operations per (b, h, token) (two
+    multiply-adds per state entry: the output's and the update's) over the
+    fp32 peak."""
+    n = B * S * H * dh
+    nbytes = 3 * n * rkv_size + 4 * n + 4 * H * dh + 2 * 4 * B * H * dh * dh + 4 * n
+    flops = 4 * B * S * H * dh * dh
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def rwkv_ref64(r, k, v, wlog, u, s0):
+    """``rwkv6_ref`` in float64 on the [B * H, S, dh] fold, back in the
+    model layout."""
+    from repro_torch.kernels.ref import rwkv6_ref
+
+    B, S, H, dh = r.shape
+    fold = lambda x: x.double().permute(0, 2, 1, 3).reshape(B * H, S, dh)  # noqa: E731
+    y, sT = rwkv6_ref(fold(r), fold(k), fold(v), fold(wlog), u.double().repeat(B, 1),
+                      s0.double().reshape(B * H, dh, dh))
+    return y.reshape(B, H, S, dh).permute(0, 2, 1, 3), sT.reshape(B, H, dh, dh)
+
+
+def phase_rwkv_scan(device) -> dict:
+    """``rwkv6_scan`` against ``rwkv6_scan_torch`` at every RWKV_SHAPES
+    shape, both against ``rwkv6_ref`` in float64 at the ragged S = 33,
+    with device times of the kernel and the plain version beside the bound
+    (no PyTorch call computes WKV6). Returns the rows by label."""
+    import torch
+    from repro_torch.kernels import rwkv6_scan as ks
+
+    on_card = device.type == "cuda"
+    gen = torch.Generator(device).manual_seed(SEED + 4)
+    rows = {}
+    for label, B, S, H, dh, dtype, nonzero in RWKV_SHAPES:
+        args = rwkv_inputs(B, S, H, dh, dtype, nonzero, gen, device)
+        got = ks.rwkv6_scan(*args)
+        if on_card:
+            torch.cuda.synchronize()
+        want = ks.rwkv6_scan_torch(*args)
+        err = rwkv_err(got, want, f"rwkv6_scan {label}")
+        row = dict(max_abs_err=err, shape=f"B={B} S={S} H={H} dh={dh} {dtype} r/k/v, "
+                   f"{'nonzero' if nonzero else 'zero'} s0")
+        if label == "ragged S=33":
+            ref = rwkv_ref64(*args)
+            row["ref_err"] = max(rwkv_err(got, ref, f"rwkv6_scan {label} vs float64"),
+                                 rwkv_err(want, ref, f"rwkv6_scan_torch {label} vs float64"))
+        row["bound_ms"], row["bound_by"] = rwkv_bound_ms(B, S, H, dh, args[0].element_size())
+        row["library_ms"] = None
+        if on_card:
+            row["ms"] = device_ms(lambda: ks.rwkv6_scan(*args))
+            row["plain_ms"] = device_ms(lambda: ks.rwkv6_scan_torch(*args),
+                                        reps=5 if S > 64 else 20)
+        rows[label] = row
+        times = (f"device ms kernel {row['ms']:.5f} plain {row['plain_ms']:.5f}" if on_card
+                 else "device ms not measured")
+        ref_text = f", vs float64 {row['ref_err']:.3g}" if "ref_err" in row else ""
+        print(f"[10 rwkv6_scan] {label} ({row['shape']}): err {err:.3g}{ref_text} (atol "
+              f"{RWKV_ATOL} rtol {RWKV_RTOL}), {times}, bound {row['bound_ms']:.5f} by "
+              f"{row['bound_by']}, library none")
+    return rows
+
+
+def perturb_decay(lm, gen) -> None:
+    """In every layer of an RWKV LM, ``w_base`` uniform on [-6, 1] and
+    ``w_lora_b`` ~ N(0, 0.1^2), drawn from ``gen`` in place of the init's
+    constant -2 and zeros, under which the decay is the same in every
+    channel and at every token."""
+    for layer in lm.layers:
+        layer.time.w_base.uniform_(-6.0, 1.0, generator=gen)
+        layer.time.w_lora_b.normal_(0.0, 0.1, generator=gen)
+        layer.time.refresh()
+
+
+def rwkv_f64(r, k, v, wlog, u, s0, *, mode=None):
+    """The WKV by ``rwkv6_ref`` in float64, cast back to float32: a third
+    summation order for the witness below (``ops.rwkv6_wkv``'s signature)."""
+    y, sT = rwkv_ref64(r, k, v, wlog, u, s0)
+    return y.float(), sT.float()
+
+
+def shadow_rerun(model, lm, prompts, run) -> dict:
+    """``run``'s forward calls once more on the kernel route, teacher-forced
+    on its tokens, with every WKV launch held to the plain version on the
+    kernel route's own inputs (phase 10's tolerance): each launch of the
+    served run is checked at the shape and on the values it ran. Returns
+    the launches checked, the largest error, and the largest gap of the
+    rerun's logits from the served run's."""
+    from repro_torch.kernels import ops
+
+    real = ops.rwkv6_wkv
+    errs = []
+
+    def checked(r, k, v, wlog, u, s0, *, mode="cuda"):
+        out = real(r, k, v, wlog, u, s0, mode=mode)
+        plain = real(r, k, v, wlog, u, s0, mode="torch")
+        errs.append(rwkv_err(out, plain, f"served WKV launch {len(errs)} ({tuple(r.shape)})"))
+        return out
+
+    try:
+        ops.rwkv6_wkv = checked
+        gaps = replay_gaps(model, lm, prompts, run, 0.0)
+    finally:
+        ops.rwkv6_wkv = real
+    return dict(launches=len(errs), max_abs_err=max(errs), rerun_gap=max(g[0] for g in gaps))
+
+
+def rwkv_witness(model, lm, prompts, kern_logits) -> dict:
+    """The serving prefill's last-position logits by three routes: the
+    kernel's (``kern_logits``), the plain version's and the WKV in float64.
+    A gap between the kernel and plain routes that the plain route shows
+    against float64 too is the model's amplification of last-bit
+    differences, not the kernel's."""
+    from repro_torch.kernels import ops
+
+    def logits():
+        cache = model.init_cache(prompts.shape[0], prompts.shape[1] + 1, device=prompts.device)
+        return model.prefill(lm, {"tokens": prompts}, cache)[0][:, -1, :].float()
+
+    real = ops.rwkv6_wkv
+    lm.wkv_mode = "torch"
+    plain = logits()
+    lm.wkv_mode = None
+    try:
+        ops.rwkv6_wkv = rwkv_f64
+        plain64 = logits()
+    finally:
+        ops.rwkv6_wkv = real
+    gap = lambda a, b: float((a - b).abs().max()) / float(b.abs().max())  # noqa: E731
+    return dict(kernel_vs_plain=gap(kern_logits, plain), plain_vs_f64=gap(plain, plain64),
+                kernel_vs_f64=gap(kern_logits, plain64))
+
+
+def twin_decode_gaps(model, lm, prompts, tol: float, steps: int = 8) -> list[tuple[float, int, int]]:
+    """A kernel-route prefill, then ``steps`` greedy decode steps, each run
+    also on the plain route from a copy of the same state: ``logit_gap``
+    of the plain step's logits from the kernel step's, per step."""
+    import torch
+
+    requests, prompt_len = prompts.shape
+    cache = model.init_cache(requests, prompt_len + steps, device=prompts.device)
+    logits, cache = model.prefill(lm, {"tokens": prompts}, cache)
+    gaps = []
+    for _ in range(steps):
+        tok = logits[:, -1, :].float().argmax(-1)[:, None]
+        twin = {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in cache.items()}
+        lm.wkv_mode = "torch"
+        plain, _ = model.decode_step(lm, twin, tok)
+        lm.wkv_mode = None
+        logits, cache = model.decode_step(lm, cache, tok)
+        gaps.append(logit_gap(plain[:, -1, :].float(), logits[:, -1, :].float(), tol))
+    return gaps
+
+
+def f32_decode_check(cfg, device, requests: int, prompt_len: int) -> float:
+    """The served model at float32 compute (the same seeded masters and
+    decay): decode steps from one state by both routes (``twin_decode_gaps``)
+    must agree within 1e-4 of the logits' scale (float32 sums in another
+    order through 32 layers), and in argmax wherever the top-2 gap is
+    wider. Returns the largest gap."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.launch import serve
+
+    tol = 1e-4
+    f32 = dc.replace(cfg, compute_dtype=torch.float32)
+    model, lm, prompts = serve.prepare(f32, requests=requests, prompt_len=prompt_len, seed=SEED,
+                                       device=device)
+    perturb_decay(lm, torch.Generator(device).manual_seed(SEED + 5))
+    gaps = twin_decode_gaps(model, lm, prompts, tol)
+    for t, (rel, _, wide_flips) in enumerate(gaps):
+        check(rel <= tol, f"f32 decode step {t} from one state: plain and kernel routes' logits "
+              f"differ by {rel:.3g} of their scale (tol {tol})")
+        check(wide_flips == 0, f"f32 decode step {t}: argmax differs where the top-2 gap "
+              f"exceeds {tol} of the scale")
+    return max(g[0] for g in gaps)
+
+
+def phase_serve_rwkv(device, smoke: bool = False, requests: int = 8, prompt_len: int = 512,
+                     n_gen: int = 32) -> dict:
+    """The RWKV6 serving path at full width: admission of 8 streams on
+    H100_HOST through the CUDA scorer, then ``rwkv6-7b`` (32 layers, d_model
+    4096, weights drawn on the card from SEED, the decay's ``w_base`` and
+    ``w_lora_b`` perturbed by ``perturb_decay``, bf16 compute over float32
+    masters) serving 8 requests of 512 prompt tokens and 32 generated
+    tokens by the kernel route. The rwkv6_scan launches must be 32 x 32.
+
+    This random model amplifies last-bit differences through its 32 layers
+    (a WKV output near zero, divided by its own RMS in the group norm): two
+    correct routes give logits far apart. So every launch of the served run
+    is held to the plain version on its own inputs (``shadow_rerun``); the
+    teacher-forced plain-route replay is measured beside ``rwkv_witness``,
+    not held to a limit; at float32 compute, decode steps from one state
+    must agree across the routes (``f32_decode_check``); a SMOKE run at f32
+    compute must give the card the CPU's tokens. Returns the path's
+    numbers. ``smoke`` and the sizes shrink it for a rehearsal on the CPU."""
+    import gc
+    import math
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import H100_HOST
+    from repro_torch.kernels import consolidation as kc
+    from repro_torch.kernels import rwkv6_scan as ks
+    from repro_torch.launch import serve
+
+    tol = 2e-2
+    on_card = device.type == "cuda"
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+    kc.reset_launches()
+    placements = serve.admission_check("rwkv6-7b", requests, host=H100_HOST, device=device)
+    check(all(p is not None for p in placements), f"admission queued a stream: {placements}")
+    check(sum(kc.LAUNCHES.values()) > 0 or not on_card,
+          "admission never launched consolidation_scores")
+    print(f"[11 serve rwkv] admission of {requests} streams on 2 x {H100_HOST.name}: "
+          f"{placements}, consolidation_scores launches {sum(kc.LAUNCHES.values())}")
+
+    cfg = get_config("rwkv6-7b", smoke=smoke)
+    model, lm, prompts = serve.prepare(cfg, requests=requests, prompt_len=prompt_len, seed=SEED,
+                                       device=device)
+    perturb_decay(lm, torch.Generator(device).manual_seed(SEED + 5))
+    n_params = sum(p.numel() for p in lm.parameters())
+    serve.generate(model, lm, prompts, 2)  # warm-up: cuBLAS handles, allocator, the build
+    if on_card:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ks.reset_launches()
+    run = serve.generate(model, lm, prompts, n_gen, keep_logits=True)
+    launches = dict(ks.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    n_launch = sum(launches.values())
+    check(n_launch == cfg.n_layers * n_gen or not on_card,
+          f"serving launched rwkv6_scan {n_launch} times, want {cfg.n_layers} x {n_gen}")
+    check(tuple(run.tokens.shape) == (requests, n_gen), f"tokens {tuple(run.tokens.shape)}")
+    check(bool(((run.tokens >= 0) & (run.tokens < cfg.vocab)).all()), "token out of the vocab")
+    check(all(bool(torch.isfinite(x.float()).all()) for x in run.logits), "non-finite logits")
+    decode_ms = [1e3 * t for t in run.decode_s]
+    total = run.prefill_s + sum(run.decode_s)
+    state_bytes = sum(math.prod(i.shape) * i.dtype.itemsize
+                      for i in model.cache_infos(requests, 1).values())
+    print(f"[11 serve rwkv] {cfg.name} {n_params / 1e9:.3f} B params, {requests} requests x "
+          f"prompt {prompt_len} + {n_gen} tokens: prefill {1e3 * run.prefill_s:.3f} ms, decode "
+          f"{statistics.mean(decode_ms):.3f} ms/step (median {statistics.median(decode_ms):.3f}, "
+          f"min {min(decode_ms):.3f}, max {max(decode_ms):.3f}), {requests * n_gen / total:.1f} "
+          f"tokens/s over {total:.3f} s, peak device memory {peak / 2**30:.3f} GiB (states "
+          f"{state_bytes / 1e6:.1f} MB); rwkv6_scan launches {n_launch} over {len(launches)} "
+          f"shapes {sorted(launches)}")
+
+    shadow = shadow_rerun(model, lm, prompts, run)
+    check(shadow["launches"] == cfg.n_layers * n_gen,
+          f"the shadow rerun checked {shadow['launches']} launches")
+    print(f"[11 serve rwkv] shadow rerun of the {n_gen} calls: all {shadow['launches']} WKV "
+          f"launches within atol {RWKV_ATOL} rtol {RWKV_RTOL} of the plain version on their own "
+          f"inputs, max abs err {shadow['max_abs_err']:.3g}; rerun logits vs the served run's "
+          f"{shadow['rerun_gap']:.3g} of their scale")
+
+    # the plain route, teacher-forced on the kernel route's tokens: measured
+    before = sum(ks.LAUNCHES.values())
+    lm.wkv_mode = "torch"
+    gaps = replay_gaps(model, lm, prompts, run, tol)
+    lm.wkv_mode = None
+    check(sum(ks.LAUNCHES.values()) == before, "the plain route launched the kernel")
+    witness = rwkv_witness(model, lm, prompts, run.logits[0].float())
+    witness["bf16_decode_from_one_state"] = max(
+        g[0] for g in twin_decode_gaps(model, lm, prompts, tol))
+    check(all(math.isfinite(v) for v in witness.values()), f"witness: {witness}")
+    print(f"[11 serve rwkv] plain route teacher-forced over {n_gen} calls (measured, not held "
+          f"to {tol}): logits {gaps[0][0]:.4g} of their scale apart at the prefill, "
+          f"{max(g[0] for g in gaps[1:]) if n_gen > 1 else 0.0:.4g} at most over the decode "
+          f"steps; argmax differs in {sum(g[1] for g in gaps)} of {requests * n_gen} places, "
+          f"{sum(g[2] for g in gaps)} of them where the top-2 gap exceeds {tol} of the scale. "
+          f"Witness at the prefill: kernel vs plain {witness['kernel_vs_plain']:.4g}, plain vs "
+          f"WKV in float64 {witness['plain_vs_f64']:.4g}, kernel vs float64 "
+          f"{witness['kernel_vs_f64']:.4g}; 8 bf16 decode steps each from one state by both "
+          f"routes: logits up to {witness['bf16_decode_from_one_state']:.4g} apart")
+    out = dict(launches=n_launch, prefill_ms=1e3 * run.prefill_s,
+               decode_ms=statistics.mean(decode_ms), replay_gaps=[g[0] for g in gaps],
+               witness=witness, shadow_err=shadow["max_abs_err"], peak_gib=peak / 2**30)
+    if not on_card:
+        return out
+
+    profile_serving(model, lm, prompts, run, ks, "rwkv6_scan_kernel", "11 serve rwkv")
+    del lm, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["f32_decode_gap"] = f32_decode_check(cfg, device, requests, prompt_len)
+    print(f"[11 serve rwkv] float32 compute, 8 decode steps each from one state by both routes: "
+          f"logits within {out['f32_decode_gap']:.3g} of their scale (tol 1e-4), argmax equal "
+          f"wherever the top-2 gap is wider")
+    gc.collect()
+    torch.cuda.empty_cache()
+    smoke_card_matches_cpu("rwkv6-7b", device, "11 serve rwkv", adjust=perturb_decay)
+    return out
 
 
 def main() -> int:
@@ -1151,6 +1566,8 @@ def main() -> int:
     adaptive = phase_adaptive(device)
     flash = phase_flash(device)
     served = phase_serve(device)
+    wkv = phase_rwkv_scan(device)
+    served_rwkv = phase_serve_rwkv(device)
 
     q = 1024
     print(json.dumps({"kernels": [{
@@ -1182,6 +1599,17 @@ def main() -> int:
         **{key: flash[("prefill", "bfloat16")][key]
            for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
         "decode": {key: flash[("decode@511", "bfloat16")][key]
+                   for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+    }, {
+        "name": "rwkv6_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan.py:90",
+        "launches": served_rwkv["launches"],
+        "max_abs_err": max(served_rwkv["shadow_err"],
+                           *(max(r["max_abs_err"], r.get("ref_err", 0.0)) for r in wkv.values())),
+        **{key: wkv["prefill"][key]
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+        "decode": {key: wkv["decode"][key]
                    for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
     }]}))
     print(smi_line)

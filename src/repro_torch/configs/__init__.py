@@ -2,7 +2,7 @@
 
 ``configs/<id>.py`` exports ``CONFIG`` (the published configuration) and
 ``SMOKE`` (a reduced same-family configuration for CPU tests), copied from
-the JAX package for the dense family; ``registry.get_config`` maps ``--arch``
+the JAX package for the dense family and rwkv6; ``registry.get_config`` maps ``--arch``
 ids to them.
 """
 from .base import SHAPES, ModelConfig

@@ -6,8 +6,10 @@ field name to array; ``degradation_limit`` as a float) and return the
 port's versions on ``device``, so both implementations can score the
 identical tables. ``estimator_from_numpy`` does the same for a
 ``StreamingEstimator``'s state, so both compute the same next update.
-``lm_params_from_numpy`` and ``kv_cache_from_numpy`` carry a JAX LM's
-parameter tree and KV cache across, so both models run on the same weights.
+``lm_params_from_numpy`` carries a JAX LM's parameter tree across (either
+ported family), and ``kv_cache_from_numpy`` / ``rwkv_cache_from_numpy`` a
+JAX KV cache or RWKV state cache, so both models run on the same weights
+and can continue from the same state.
 Arrays keep their dtype (bf16 arrives as numpy's ``bfloat16`` extension
 type and leaves as ``torch.bfloat16``); nothing here imports JAX.
 """
@@ -22,9 +24,8 @@ import torch
 from .core.binpack_torch import PackedCluster
 from .core.engine_torch import PackedDynamics
 from .device import resolve_device
-from .models.api import build_model
+from .models.api import LM, build_model
 from .models.params import ParamInfo
-from .models.transformer import TransformerLM
 from .telemetry.estimator import ScatterName, StreamingEstimator
 
 
@@ -105,8 +106,8 @@ def _tree_from_numpy(infos, tree, device, path=""):
 
 
 def lm_params_from_numpy(cfg, params: Mapping, *,
-                         device: str | torch.device | None = None) -> TransformerLM:
-    """The port's LM holding a JAX LM's parameters.
+                         device: str | torch.device | None = None) -> LM:
+    """The port's LM of ``cfg``'s family holding a JAX LM's parameters.
 
     ``params`` is the JAX parameter tree (``Model.param_infos``: stacked
     layers) with numpy leaves. Raises ``KeyError`` on a missing or extra
@@ -114,8 +115,7 @@ def lm_params_from_numpy(cfg, params: Mapping, *,
     """
     device = resolve_device(device)
     model = build_model(cfg)
-    tree = _tree_from_numpy(model.param_infos(), params, device)
-    return TransformerLM(cfg, tree)
+    return model.build(_tree_from_numpy(model.param_infos(), params, device))
 
 
 def kv_cache_from_numpy(cache: Mapping, *, device: str | torch.device | None = None) -> dict:
@@ -127,3 +127,15 @@ def kv_cache_from_numpy(cache: Mapping, *, device: str | torch.device | None = N
         raise KeyError(f"KV cache missing {missing}")
     return {"k": tensor_from_numpy(cache["k"], device), "v": tensor_from_numpy(cache["v"], device),
             "len": int(np.asarray(cache["len"]))}
+
+
+def rwkv_cache_from_numpy(cache: Mapping, *, device: str | torch.device | None = None) -> dict:
+    """A JAX RWKV cache ({'wkv': [L, B, H, dh, dh] float32, 'shift_t',
+    'shift_c': [L, B, D] bf16, 'len'}) as the port's, with ``len`` a host
+    int."""
+    device = resolve_device(device)
+    missing = [k for k in ("wkv", "shift_t", "shift_c", "len") if k not in cache]
+    if missing:
+        raise KeyError(f"RWKV cache missing {missing}")
+    out = {k: tensor_from_numpy(cache[k], device) for k in ("wkv", "shift_t", "shift_c")}
+    return dict(out, len=int(np.asarray(cache["len"])))

@@ -1,5 +1,6 @@
-"""Serving steps: prefill and decode against the KV cache, with sampling
-(counterpart of ``repro/distributed/serve_step.py``).
+"""Serving steps: prefill and decode against the model's cache (a dense LM's
+KV cache or RWKV6's recurrent state), with sampling (counterpart of
+``repro/distributed/serve_step.py``).
 
 Greedy decoding takes the argmax of the float32 cast of the last
 position's logits (the first index among equal maxima, as ``jnp.argmax``).

@@ -11,6 +11,7 @@ import torch
 
 from .consolidation import consolidation_scores, consolidation_scores_torch
 from .flash_attention import flash_attention, flash_attention_torch
+from .rwkv6_scan import rwkv6_scan, rwkv6_scan_torch
 from .telemetry import pair_scatter, pair_scatter_torch
 
 
@@ -72,4 +73,26 @@ def gqa_flash_attention(
         return flash_attention(q, k, v, causal=causal, q_offset=q_offset)
     if mode == "torch":
         return flash_attention_torch(q, k, v, causal=causal, q_offset=q_offset)
+    raise ValueError(f"mode must be cuda|torch, got {mode!r}")
+
+
+def rwkv6_wkv(
+    r: torch.Tensor,  # [B, S, H, dh]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    wlog: torch.Tensor,  # [B, S, H, dh], log decay < 0
+    u: torch.Tensor,  # [H, dh]
+    s0: torch.Tensor,  # [B, H, dh, dh]
+    *,
+    mode: str = "cuda",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Model-layout WKV6: (y [B, S, H, dh], sT [B, H, dh, dh]), both float32.
+    The kernel reads the model layout with strides and u by head, so
+    nothing is folded or transposed (the JAX wrapper does both), and it
+    takes any S >= 1."""
+    if mode == "cuda":
+        _require_cuda(r)
+        return rwkv6_scan(r, k, v, wlog, u, s0)
+    if mode == "torch":
+        return rwkv6_scan_torch(r, k, v, wlog, u, s0)
     raise ValueError(f"mode must be cuda|torch, got {mode!r}")

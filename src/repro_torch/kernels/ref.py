@@ -3,7 +3,7 @@
 
 ``pair_scatter_ref`` is the tests' oracle for ``kernels.telemetry`` and the
 estimator's ``scatter='numpy'`` backend; ``attention_ref`` is the oracle
-for ``kernels.flash_attention``.
+for ``kernels.flash_attention`` and ``rwkv6_ref`` for ``kernels.rwkv6_scan``.
 """
 from __future__ import annotations
 
@@ -28,6 +28,27 @@ def attention_ref(q, k, v, *, causal=True, q_offset=0, dtype=torch.float32):
         s = torch.where(qp >= kp, s, torch.full_like(s, -1e30))
     w = torch.softmax(s, dim=-1)
     return torch.einsum("nqt,ntd->nqd", w, v.to(dtype)).to(q.dtype)
+
+
+def rwkv6_ref(r, k, v, wlog, u, s0):
+    """Sequential WKV6 recurrence (the definition). All [N, S, dh] + u [N, dh],
+    s0 [N, dh, dh] (key dim first). Returns (y [N, S, dh], sT), computed in
+    the dtype of the inputs (float64 makes it the tests' oracle)."""
+    N, S, dh = r.shape
+
+    def step(s, t):
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], wlog[:, t]
+        # y_t[j] = sum_i r[i] * (s[i,j] + u[i] k[i] v[j])
+        y = torch.einsum("ni,nij->nj", rt, s) + torch.einsum("ni,ni,ni,nj->nj", rt, u, kt, vt)
+        s = torch.exp(wt)[:, :, None] * s + kt[:, :, None] * vt[:, None, :]
+        return s, y
+
+    s = s0
+    ys = []
+    for t in range(S):  # python loop: this is an oracle, clarity over speed
+        s, y = step(s, t)
+        ys.append(y)
+    return torch.stack(ys, dim=1), s
 
 
 def pair_scatter_ref(types, cbar, vals):

@@ -3,13 +3,16 @@
 
 Request streams are admitted onto the serving hosts by the paper's engine
 (``admission_check``), then one batch of requests runs batched prefill and
-greedy decode against the KV cache on one device, attention through the
-hand-written CUDA kernel on the card:
+greedy decode on one device: a dense LM against its KV cache, attention
+through the hand-written CUDA flash kernel on the card, or RWKV6 against its
+recurrent state, the WKV through the hand-written CUDA scan:
 
   python -m repro_torch.launch.serve --arch tinyllama-1.1b --requests 8 \\
       --prompt-len 512 --gen 32
-  python -m repro_torch.launch.serve --device cpu --smoke --requests 2 \\
-      --prompt-len 16 --gen 8
+  python -m repro_torch.launch.serve --arch rwkv6-7b --requests 8 \\
+      --prompt-len 512 --gen 32
+  python -m repro_torch.launch.serve --arch rwkv6-7b --device cpu --smoke \\
+      --requests 2 --prompt-len 16 --gen 8
 
 Weights are drawn at random from ``--seed`` (nothing is downloaded).
 """
@@ -27,8 +30,7 @@ from ..core import H100_HOST, ConsolidationEngine, Deadlock, ServerSpec, Workloa
 from ..core.units import KB, MB
 from ..device import resolve_device
 from ..distributed.serve_step import greedy_steps
-from ..models.api import Model, build_model
-from ..models.transformer import TransformerLM
+from ..models.api import LM, Model, build_model
 
 
 def admission_check(arch: str, n_streams: int, *, host: ServerSpec = H100_HOST,
@@ -60,9 +62,10 @@ def admission_check(arch: str, n_streams: int, *, host: ServerSpec = H100_HOST,
 
 
 def prepare(cfg: ModelConfig, *, requests: int, prompt_len: int, seed: int = 0,
-            device: str | torch.device | None = None) -> tuple[Model, TransformerLM, torch.Tensor]:
-    """(model, lm, prompts [requests, prompt_len]): weights and prompts drawn
-    from one generator seeded with ``seed`` on ``device``."""
+            device: str | torch.device | None = None) -> tuple[Model, LM, torch.Tensor]:
+    """(model, lm, prompts [requests, prompt_len]): the LM of ``cfg``'s family
+    (dense or ssm), weights and prompts drawn from one generator seeded with
+    ``seed`` on ``device``."""
     device = resolve_device(device)
     model = build_model(cfg)
     gen = torch.Generator(device).manual_seed(seed)
@@ -88,7 +91,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def generate(model: Model, lm: TransformerLM, prompts: torch.Tensor, gen: int, *,
+def generate(model: Model, lm: LM, prompts: torch.Tensor, gen: int, *,
              keep_logits: bool = False) -> ServeRun:
     """Prefill ``prompts`` into a fresh cache, then ``gen - 1`` greedy decode
     steps (``serve_step.greedy_steps``): ``gen`` tokens per request."""

@@ -1,14 +1,16 @@
-"""Uniform model API (counterpart of ``repro/models/api.py``), dense family.
+"""Uniform model API (counterpart of ``repro/models/api.py``) over the
+dense family (``transformer``) and the ssm family (``rwkv``).
 
 ``build_model(cfg)`` returns a :class:`Model` whose steps take the LM
 module where the JAX ``Model`` takes its parameter tree:
 
-  prefill(lm, batch, cache)       fill the KV cache from a prompt batch
+  prefill(lm, batch, cache)       fill the cache from a prompt batch
   decode_step(lm, cache, tokens)  append one token per sequence
 
 ``init`` draws the weights (``lm_infos`` with the float32 master dtype)
 from a ``torch.Generator`` on the target device, and ``init_cache`` makes
-the zero KV cache, ``CACHE_PAD`` rows longer than asked, as in JAX.
+the zero cache: the KV cache, ``CACHE_PAD`` rows longer than asked, as in
+JAX, or the recurrent state.
 """
 from __future__ import annotations
 
@@ -19,11 +21,15 @@ import torch
 from ..configs.base import ModelConfig
 from ..configs.registry import not_ported
 from ..device import resolve_device
-from . import transformer
+from . import rwkv, transformer
 from .params import ParamInfo, map_infos, materialize
 
 #: extra cache rows beyond the nominal context (decode writes at len)
 CACHE_PAD = 128
+
+#: each ported family's module (``lm_infos``, ``cache_infos``) and LM class
+FAMILIES = {"dense": (transformer, transformer.TransformerLM), "ssm": (rwkv, rwkv.RWKVLM)}
+LM = transformer.TransformerLM | rwkv.RWKVLM
 
 
 def _apply_param_dtype(infos, cfg):
@@ -43,14 +49,21 @@ class Model:
 
     # --- declarations -------------------------------------------------------
     def param_infos(self):
-        return _apply_param_dtype(transformer.lm_infos(self.cfg), self.cfg)
+        module, _ = FAMILIES[self.cfg.family]
+        return _apply_param_dtype(module.lm_infos(self.cfg), self.cfg)
 
     def cache_infos(self, batch: int, max_len: int):
-        return transformer.cache_infos(self.cfg, batch, max_len + CACHE_PAD)
+        module, _ = FAMILIES[self.cfg.family]
+        return module.cache_infos(self.cfg, batch, max_len + CACHE_PAD)
 
     # --- state ----------------------------------------------------------------
+    def build(self, params) -> LM:
+        """The LM holding ``params``, the ``param_infos`` tree as tensors."""
+        _, lm_class = FAMILIES[self.cfg.family]
+        return lm_class(self.cfg, params)
+
     def init(self, generator: torch.Generator | None = None, *,
-             device: str | torch.device | None = None) -> transformer.TransformerLM:
+             device: str | torch.device | None = None) -> LM:
         """The LM with weights drawn from ``generator`` (default: a new one
         seeded with 0) on ``device``: the card unless the caller asks for
         the CPU."""
@@ -59,28 +72,27 @@ class Model:
             generator = torch.Generator(device).manual_seed(0)
         elif generator.device.type != device.type:
             raise ValueError(f"generator on {generator.device}, weights asked on {device}")
-        params = materialize(self.param_infos(), generator)
-        return transformer.TransformerLM(self.cfg, params)
+        return self.build(materialize(self.param_infos(), generator))
 
     def init_cache(self, batch: int, max_len: int, *,
                    device: str | torch.device | None = None) -> dict:
-        """Zero KV cache for ``batch`` sequences of up to ``max_len`` tokens."""
+        """Zero cache for ``batch`` sequences of up to ``max_len`` tokens."""
         device = resolve_device(device)
         infos = self.cache_infos(batch, max_len)
         cache = {k: torch.zeros(i.shape, dtype=i.dtype, device=device) for k, i in infos.items()}
         return dict(cache, len=0)
 
     # --- steps -------------------------------------------------------------
-    def prefill(self, lm: transformer.TransformerLM, batch: dict, cache: dict):
+    def prefill(self, lm: LM, batch: dict, cache: dict):
         """(last-position logits [B, 1, Vp], cache) after the prompt."""
         return lm(batch["tokens"], cache=cache, last_only=True)
 
-    def decode_step(self, lm: transformer.TransformerLM, cache: dict, tokens: torch.Tensor):
+    def decode_step(self, lm: LM, cache: dict, tokens: torch.Tensor):
         """(logits [B, 1, Vp], cache) after appending tokens [B, 1]."""
         return lm(tokens, cache=cache, last_only=True)
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(not_ported(cfg.family))
     return Model(cfg)

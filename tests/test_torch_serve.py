@@ -16,10 +16,11 @@ from repro.core import Workload as JaxWorkload
 from repro.core.units import KB, MB
 from repro.launch.serve import admission_check as jax_admission_check
 from repro_torch.configs import get_config
-from repro_torch.convert import kv_cache_from_numpy, lm_params_from_numpy
+from repro_torch.convert import kv_cache_from_numpy, lm_params_from_numpy, rwkv_cache_from_numpy
 from repro_torch.core import H100_HOST, TPU_V5E_HOST
 from repro_torch.distributed.serve_step import greedy_generate, make_serve_steps
 from repro_torch.kernels import flash_attention as kf
+from repro_torch.kernels import rwkv6_scan as ks
 from repro_torch.launch import serve
 from repro_torch.models import build_model
 
@@ -39,6 +40,30 @@ def test_main_on_cpu_is_deterministic_and_greedy():
                                   model.init_cache(2, 24, device="cpu"), 8)
     assert torch.equal(toks, gen) and cache["len"] == 23
     assert not kf.LAUNCHES  # the CPU route never launches the kernel
+
+
+RWKV_ARGS = ["--arch", "rwkv6-7b", "--smoke", "--requests", "2", "--prompt-len", "16",
+             "--gen", "8", "--device", "cpu"]
+
+
+def test_main_serves_rwkv_on_cpu():
+    """``--arch rwkv6-7b --smoke --device cpu``: the same admission, then
+    RWKV6 prefill and greedy decode against its recurrent state, equal to
+    the library's greedy loop on the same weights and prompts."""
+    ks.reset_launches()
+    gen = serve.main(RWKV_ARGS)
+    assert tuple(gen.shape) == (2, 8) and gen.dtype == torch.int64
+    assert bool(((gen >= 0) & (gen < 256)).all())
+    assert torch.equal(serve.main(RWKV_ARGS), gen)
+    cfg = get_config("rwkv6-7b", smoke=True)
+    model, lm, prompts = serve.prepare(cfg, requests=2, prompt_len=16, device="cpu")
+    toks, cache = greedy_generate(model, lm, {"tokens": prompts},
+                                  model.init_cache(2, 24, device="cpu"), 8)
+    assert torch.equal(toks, gen) and cache["len"] == 23
+    run = serve.generate(model, lm, prompts, 8, keep_logits=True)
+    assert torch.equal(run.tokens, gen) and len(run.decode_s) == 7
+    assert tuple(run.logits[0].shape) == (2, 256) and run.logits[0].dtype == torch.bfloat16
+    assert not ks.LAUNCHES  # the CPU route never launches the kernel
 
 
 def test_generate_keeps_logits_and_times():
@@ -129,6 +154,10 @@ def test_serving_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         lambda: serve.main(ARGS),
         lambda: lm_params_from_numpy(cfg, {}),
         lambda: kv_cache_from_numpy({"k": np.zeros(1), "v": np.zeros(1), "len": 0}),
+        lambda: rwkv_cache_from_numpy({"wkv": np.zeros(1), "shift_t": np.zeros(1),
+                                       "shift_c": np.zeros(1), "len": 0}),
+        lambda: build_model(get_config("rwkv6-7b", smoke=True)).init_cache(1, 4),
+        lambda: serve.main(RWKV_ARGS[:-2]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
