@@ -1,13 +1,16 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: ``python3 chip_smoke.py``.
 
-Drives the port's four main paths on the card -- the online consolidation
+Drives the port's main paths on the card -- the online consolidation
 engine (``repro_torch.core.ConsolidationEngine``) with the hand-written CUDA
 candidate scorer, the adaptive loop (``repro_torch.core.AdaptiveEngine``)
 whose streaming D-estimators take their pair statistics from the
 hand-written CUDA scatter, and the serving driver
 (``repro_torch.launch.serve``) with a dense LM, which attends through the
-hand-written CUDA flash attention, and with RWKV6, whose WKV recurrence
-runs through the hand-written CUDA scan -- in eleven phases:
+hand-written CUDA flash attention, with RWKV6, whose WKV recurrence runs
+through the hand-written CUDA scan, and with the Jamba hybrid, whose Mamba
+layers run their selective scan through the hand-written CUDA
+``mamba_scan`` and whose attention layers take a sliding window in the
+flash kernel -- in thirteen phases:
 
   1. environment: torch and CUDA versions, the card's name and power limit;
   2. build: nvcc builds every kernel under ``src/repro_torch/kernels/csrc``;
@@ -43,7 +46,9 @@ runs through the hand-written CUDA scan -- in eleven phases:
      the serving prefill (B 8, Sq 512, Skv 672, H 32, Hkv 4, dh 64), decode
      at q_offset 0, 511 and 542 of the 672-row cache, a ragged Sq = 17, a
      non-causal shape, the llama3.2 width (H 24, Hkv 8, dh 128), dh 16
-     and 32, and f32 q on a bf16 cache at dh 64, 128 and 32; device times
+     and 32, jamba's width (H 32, Hkv 8, dh 128) with sliding windows of
+     64 and 256 at the prefill and 64 at decode@511, and f32 q on a bf16
+     cache at dh 64, 128, 16 and 32 and under a window; device times
      of the kernel, the plain version and ``scaled_dot_product_attention``
      (the library call, never used by the port), beside the bound;
   9. serving, ``tinyllama-1.1b`` at full width with weights drawn on the
@@ -78,7 +83,31 @@ runs through the hand-written CUDA scan -- in eleven phases:
      steps from one state must agree across the routes (1e-4 of the
      logits' scale); prefill ms, decode ms per step, tokens/s, peak memory
      and the kernel's share of device time; a SMOKE run at float32 compute
-     with the same tokens on the card as on the CPU.
+     with the same tokens on the card as on the CPU;
+ 12. mamba_scan vs plain versions: the model entry (delta, u, strided B
+     and C, A) against ``mamba_selective_scan_torch`` (the JAX model's
+     chunked scan) and the contract entry (da, dbu [B, S, E, N]) against
+     ``mamba_scan_torch`` (the sequential loop), atol and rtol 1e-4, at the
+     served prefill (B 8, S 512, E 8192, N 16, bf16 u/B/C), decode (S 1)
+     from a nonzero state, a ragged S = 33 and E = 96 (both against the
+     float64 recurrence), the SMOKE state N = 4 and float32 u/B/C at N = 8;
+     device times of the kernel and the plain versions beside the bound (no
+     library call computes the selective scan);
+ 13. serving, ``jamba-v0.1-52b`` at its published widths cut to 16 of 32
+     layers with bf16 weights (52.1 GB, drawn on the card): admission of 8
+     streams on two H100 hosts, then 8 requests of 512 prompt tokens and 32
+     greedy tokens by the kernel route, which must launch mamba_scan 14 x 32
+     and flash_attention 2 x 32 times; a shadow rerun holds every one of
+     those launches to its plain version on its own inputs; the
+     teacher-forced plain-route replay is measured beside a witness with
+     attention and the scan in float64 (MoE routing flips on last-bit
+     differences, so no limit holds there); at float32 compute on a
+     one-period cut (8 layers, 53.2 GB), decode steps from one state must
+     agree across the routes (1e-4 of the logits' scale); prefill ms,
+     decode ms per step, tokens/s, peak memory, device kernels per decode
+     step and both kernels' shares of device time; a SMOKE run at float32
+     compute with an 80-token prompt (past SMOKE's window of 64) with the
+     same tokens on the card as on the CPU.
 
 Then a JSON line with each kernel's numbers, the ``nvidia-smi`` name/power
 line, and a last JSON line ``{"ok": true, "device": {...}}``. Any failed
@@ -807,33 +836,45 @@ def phase_adaptive(device, m: int = 64, segments: int = 8, per_segment: int = 25
     return dict(scatter=sum(scatter_launches.values()) + sum(q_scatter.values()),
                 score=sum(score_launches.values()) + sum(q_score.values()))
 
-#: (label, B, Sq, Skv, H, Hkv, dh, causal, q_offset): the serving path's
-#: shapes (tinyllama-1.1b, 8 requests, prompt 512, 32 tokens, a 672-row
-#: padded cache), the edges the path does not reach, and the head dims of
-#: the other kernel instances
+#: (label, B, Sq, Skv, H, Hkv, dh, causal, q_offset, window): the serving
+#: paths' shapes (tinyllama-1.1b and jamba-v0.1-52b, 8 requests, prompt
+#: 512, 32 tokens, a 672-row padded cache), sliding windows narrower than
+#: the rows a query sees (jamba's 32,768 never bites at 672 rows), the
+#: edges the paths do not reach, and the head dims of the other instances
 FLASH_SHAPES = [
-    ("prefill", 8, 512, 672, 32, 4, 64, True, 0),
-    ("decode@0", 8, 1, 672, 32, 4, 64, True, 0),
-    ("decode@511", 8, 1, 672, 32, 4, 64, True, 511),
-    ("decode@542", 8, 1, 672, 32, 4, 64, True, 542),
-    ("ragged Sq=17", 8, 17, 672, 32, 4, 64, True, 0),
-    ("non-causal", 2, 128, 300, 32, 4, 64, False, 0),
-    ("llama3.2 prefill", 8, 512, 672, 24, 8, 128, True, 0),
-    ("llama3.2 decode@542", 8, 1, 672, 24, 8, 128, True, 542),
-    ("SMOKE width dh=16", 2, 33, 70, 4, 2, 16, True, 20),
-    ("dh=32", 2, 33, 70, 4, 2, 32, True, 20),
+    ("prefill", 8, 512, 672, 32, 4, 64, True, 0, 0),
+    ("decode@0", 8, 1, 672, 32, 4, 64, True, 0, 0),
+    ("decode@511", 8, 1, 672, 32, 4, 64, True, 511, 0),
+    ("decode@542", 8, 1, 672, 32, 4, 64, True, 542, 0),
+    ("ragged Sq=17", 8, 17, 672, 32, 4, 64, True, 0, 0),
+    ("non-causal", 2, 128, 300, 32, 4, 64, False, 0, 0),
+    ("llama3.2 prefill", 8, 512, 672, 24, 8, 128, True, 0, 0),
+    ("llama3.2 decode@542", 8, 1, 672, 24, 8, 128, True, 542, 0),
+    ("SMOKE width dh=16", 2, 33, 70, 4, 2, 16, True, 20, 0),
+    ("dh=32", 2, 33, 70, 4, 2, 32, True, 20, 0),
+    ("jamba prefill", 8, 512, 672, 32, 8, 128, True, 0, 32768),
+    ("jamba decode@511", 8, 1, 672, 32, 8, 128, True, 511, 32768),
+    ("window 64 prefill", 8, 512, 672, 32, 8, 128, True, 0, 64),
+    ("window 256 prefill", 8, 512, 672, 32, 8, 128, True, 0, 256),
+    ("window 64 decode@511", 8, 1, 672, 32, 8, 128, True, 511, 64),
 ]
 
 
-def flash_bound_ms(B, Sq, Skv, H, Hkv, dh, causal, q_offset, q_size, kv_size) -> tuple[float, str]:
+def flash_bound_ms(B, Sq, Skv, H, Hkv, dh, causal, q_offset, q_size, kv_size,
+                   window: int = 0) -> tuple[float, str]:
     """Least time for one call on these inputs: q and out, and the k/v rows
     some query sees, moved once over HBM bandwidth; against 4 dh flops per
     (query, head, visible kv row) over the dense peak of q's dtype (bf16
     tensor cores, or fp32 without TF32)."""
-    from repro_torch.kernels.flash_attention import visible_rows
+    from repro_torch.kernels.flash_attention import first_visible_row, visible_rows
 
-    rows = visible_rows(Sq, Skv, causal, q_offset)
-    seen = sum(min(Skv, q_offset + i + 1) for i in range(Sq)) if causal else Sq * Skv
+    rows = visible_rows(Sq, Skv, causal, q_offset) - first_visible_row(q_offset, window)
+
+    def seen_by(i: int) -> int:
+        hi = min(Skv, q_offset + i + 1) if causal else Skv
+        return hi - (max(0, q_offset + i - window + 1) if window else 0)
+
+    seen = sum(seen_by(i) for i in range(Sq))
     nbytes = 2 * B * Sq * H * dh * q_size + 2 * B * rows * Hkv * dh * kv_size
     flops = 4 * B * H * dh * seen
     peak = BF16_FLOPS if q_size == 2 else FP32_FLOPS
@@ -841,45 +882,51 @@ def flash_bound_ms(B, Sq, Skv, H, Hkv, dh, causal, q_offset, q_size, kv_size) ->
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def sdpa_form(q, k, v, causal: bool, q_offset: int):
+def sdpa_form(q, k, v, causal: bool, q_offset: int, window: int = 0):
     """The same function by ``scaled_dot_product_attention`` on [B, H, S, dh]
     views (GQA through ``enable_gqa``), with an explicit boolean mask where
-    the causal diagonal is offset. Timed as the library call; the port
-    never calls it."""
+    the causal diagonal is offset or a window bites. Timed as the library
+    call; the port never calls it."""
     import torch
     import torch.nn.functional as F
 
     Sq, Skv = q.shape[1], k.shape[1]
     mask = None
-    if causal and q_offset:
-        mask = ((q_offset + torch.arange(Sq, device=q.device))[:, None]
-                >= torch.arange(Skv, device=q.device)[None, :])
+    q_pos = (q_offset + torch.arange(Sq, device=q.device))[:, None]
+    kv_pos = torch.arange(Skv, device=q.device)[None, :]
+    if causal and (q_offset or window):
+        mask = q_pos >= kv_pos
+    if window:
+        mask = (kv_pos > q_pos - window) if mask is None else mask & (kv_pos > q_pos - window)
     out = F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
-        is_causal=causal and not q_offset, enable_gqa=True)
+        is_causal=causal and mask is None, enable_gqa=True)
     return out.transpose(1, 2)
 
 
 def phase_flash(device) -> dict:
     """``flash_attention`` against ``flash_attention_torch`` at every
     FLASH_SHAPES shape in bf16 and f32 (and f32 q on a bf16 cache at dh 64,
-    128 and 32), with device times of the kernel, the plain version and
-    SDPA, and the bound. Returns the rows by (label, dtype)."""
+    128 and 32), windows included, with device times of the kernel, the
+    plain version and SDPA, and the bound. Returns the rows by (label,
+    dtype)."""
     import torch
     from repro_torch.kernels import flash_attention as kf
 
     gen = torch.Generator(device).manual_seed(SEED + 3)
     cases = [(shape, dt, dt) for shape in FLASH_SHAPES for dt in ("bfloat16", "float32")]
-    # f32 q on a bf16 cache (a float32-compute model's decode), at dh 64, 128 and 32
-    cases += [(FLASH_SHAPES[i], "float32", "bfloat16") for i in (2, 7, 9)]
+    # f32 q on a bf16 cache (a float32-compute model's decode), at dh 64, 128, 16 and 32
+    # and with a window
+    cases += [(FLASH_SHAPES[i], "float32", "bfloat16") for i in (2, 7, 8, 9, 14)]
     rows = {}
-    for (label, B, Sq, Skv, H, Hkv, dh, causal, off), qdt, kvdt in cases:
+    for (label, B, Sq, Skv, H, Hkv, dh, causal, off, win), qdt, kvdt in cases:
         q = torch.randn(B, Sq, H, dh, generator=gen, device=device).to(getattr(torch, qdt))
         k, v = (torch.randn(B, Skv, Hkv, dh, generator=gen, device=device)
                 .to(getattr(torch, kvdt)) for _ in range(2))
-        got = kf.flash_attention(q, k, v, causal=causal, q_offset=off)
+        kw = dict(causal=causal, q_offset=off, window=win)
+        got = kf.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
-        want = kf.flash_attention_torch(q, k, v, causal=causal, q_offset=off)
+        want = kf.flash_attention_torch(q, k, v, **kw)
         tol = FLASH_TOL[qdt]
         diff = (got.double() - want.double()).abs()
         err = float(diff.max())
@@ -887,19 +934,19 @@ def phase_flash(device) -> dict:
         check(bool((diff <= tol + tol * want.double().abs()).all()),
               f"flash {label} {qdt}/{kvdt}: kernel vs plain max abs err {err:.3g} > {tol}")
         row = dict(max_abs_err=err, tol=tol,
-                   ms=device_ms(lambda: kf.flash_attention(q, k, v, causal=causal, q_offset=off)),
-                   plain_ms=device_ms(
-                       lambda: kf.flash_attention_torch(q, k, v, causal=causal, q_offset=off)))
+                   ms=device_ms(lambda: kf.flash_attention(q, k, v, **kw)),
+                   plain_ms=device_ms(lambda: kf.flash_attention_torch(q, k, v, **kw)))
         if qdt == kvdt:
-            lib = sdpa_form(q, k, v, causal, off)
+            lib = sdpa_form(q, k, v, causal, off, win)
             row["library_err"] = float((lib.double() - want.double()).abs().max())
-            row["library_ms"] = device_ms(lambda: sdpa_form(q, k, v, causal, off))
+            row["library_ms"] = device_ms(lambda: sdpa_form(q, k, v, causal, off, win))
         else:
             row["library_err"] = row["library_ms"] = None  # SDPA takes one dtype
         row["bound_ms"], row["bound_by"] = flash_bound_ms(
-            B, Sq, Skv, H, Hkv, dh, causal, off, q.element_size(), k.element_size())
+            B, Sq, Skv, H, Hkv, dh, causal, off, q.element_size(), k.element_size(), win)
         row["shape"] = (f"B={B} Sq={Sq} Skv={Skv} H={H} Hkv={Hkv} dh={dh} "
-                        f"{'causal' if causal else 'non-causal'} q_offset={off} {qdt}/{kvdt}")
+                        f"{'causal' if causal else 'non-causal'} q_offset={off} window={win} "
+                        f"{qdt}/{kvdt}")
         rows[(label, qdt if qdt == kvdt else f"{qdt}/{kvdt}")] = row
         lib_text = ("SDPA n/a" if row["library_ms"] is None else
                     f"SDPA {row['library_ms']:.5f} (err {row['library_err']:.3g})")
@@ -918,12 +965,16 @@ def bf16_ulps(got, want):
     return (a - b).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
-def attention64(q, k, v, *, causal: bool = True, q_offset: int = 0, mode=None):
+def attention64(q, k, v, *, causal: bool = True, q_offset: int = 0, window: int = 0,
+                mode=None):
     """Attention in float64 on the model layout (``attention_ref``), cast to
-    q's dtype: a third summation order for the witness below."""
+    q's dtype: a third summation order for the witnesses below. A window
+    is taken only where it masks nothing (no query reaches past it)."""
     import torch
     from repro_torch.kernels.ref import attention_ref
 
+    check(not window or q_offset + q.shape[1] <= window,
+          f"attention64: a window of {window} would mask rows at q_offset {q_offset}")
     B, Sq, H, dh = q.shape
     G = H // k.shape[2]
     flat = lambda x: x.transpose(1, 2).reshape(B * H, x.shape[1], dh)  # noqa: E731
@@ -966,10 +1017,10 @@ def jax_scale_witness(cfg, prompts, device) -> dict:
     real = ops.gqa_flash_attention
     layers = []
 
-    def checked(q, k, v, *, causal=True, q_offset=0, mode="cuda"):
-        out = real(q, k, v, causal=causal, q_offset=q_offset, mode=mode)
-        plain = real(q, k, v, causal=causal, q_offset=q_offset, mode="torch")
-        ref = attention64(q, k, v, causal=causal, q_offset=q_offset).double()
+    def checked(q, k, v, *, causal=True, q_offset=0, window=0, mode="cuda"):
+        out = real(q, k, v, causal=causal, q_offset=q_offset, window=window, mode=mode)
+        plain = real(q, k, v, causal=causal, q_offset=q_offset, window=window, mode="torch")
+        ref = attention64(q, k, v, causal=causal, q_offset=q_offset, window=window).double()
         far = lambda x, y: (x.double() - y).abs() > tol + tol * y.abs()  # noqa: E731
         plain_far = far(plain, ref)
         layers.append(dict(
@@ -1054,18 +1105,26 @@ def logit_gap(other, kern, tol: float) -> tuple[float, int, int]:
             int((differ & wide).sum()))
 
 
-def profile_serving(model, lm, prompts, run, km, kernel: str, tag: str) -> None:
-    """Prints the kernel's share of device time under torch.profiler, for
-    one prefill and then 8 decode steps of ``run``'s tokens; ``km`` is the
-    kernel's module (its ``LAUNCHES`` must match what the trace saw)."""
+def profile_serving(model, lm, prompts, run, kernels: dict, tag: str) -> dict:
+    """Prints each kernel's share of device time under torch.profiler, for
+    one prefill and then 8 decode steps of ``run``'s tokens; ``kernels``
+    maps a kernel's name to its module (whose ``LAUNCHES`` must match what
+    the trace saw). Returns the device kernels per decode step and the busy
+    shares."""
     from repro_torch.launch import serve
 
+    def counted():
+        return {name: sum(km.LAUNCHES.values()) for name, km in kernels.items()}
+
+    def reset():
+        for km in kernels.values():
+            km.reset_launches()
+
     requests, n_gen = run.tokens.shape
-    km.reset_launches()
+    reset()
     busy_p, named_p, wall_p, n_p = device_busy(lambda: serve.generate(model, lm, prompts, 1),
-                                               (kernel,))
-    share_p = kernel_shares(busy_p, named_p, wall_p, {kernel: sum(km.LAUNCHES.values())},
-                            f"{tag} prefill")
+                                               tuple(kernels))
+    share_p = kernel_shares(busy_p, named_p, wall_p, counted(), f"{tag} prefill")
     cache = model.init_cache(requests, prompts.shape[1] + n_gen, device=prompts.device)
     _, cache = model.prefill(lm, {"tokens": prompts}, cache)
 
@@ -1074,20 +1133,22 @@ def profile_serving(model, lm, prompts, run, km, kernel: str, tag: str) -> None:
         for i in range(8):
             _, c = model.decode_step(lm, c, run.tokens[:, i:i + 1])
 
-    km.reset_launches()
-    busy_d, named_d, wall_d, n_d = device_busy(decode8, (kernel,))
-    share_d = kernel_shares(busy_d, named_d, wall_d, {kernel: sum(km.LAUNCHES.values())},
-                            f"{tag} decode")
+    reset()
+    busy_d, named_d, wall_d, n_d = device_busy(decode8, tuple(kernels))
+    share_d = kernel_shares(busy_d, named_d, wall_d, counted(), f"{tag} decode")
     print(f"[{tag}] profiled prefill: {n_p} device kernels, {busy_p:.5f} s of {wall_p:.4f} s "
           f"wall; {share_p}\n[{tag}] profiled 8 decode steps: {n_d} device kernels "
           f"({n_d / 8:.1f} per step), {busy_d:.5f} s of {wall_d:.4f} s wall; {share_d}")
+    return dict(kernels_per_decode_step=n_d / 8, prefill_busy=busy_p / wall_p if wall_p else 0.0,
+                decode_busy=busy_d / wall_d if wall_d else 0.0)
 
 
-def smoke_card_matches_cpu(arch: str, device, tag: str, adjust=None) -> None:
+def smoke_card_matches_cpu(arch: str, device, tag: str, adjust=None,
+                           prompt_len: int = 16) -> None:
     """The SMOKE model of ``arch`` at float32 compute, weights and prompts
     drawn on the CPU (then passed to ``adjust(lm, generator)`` if given):
-    8 greedy tokens for 2 requests of 16 must be the same on the card as on
-    the CPU."""
+    8 greedy tokens for 2 requests of ``prompt_len`` must be the same on the
+    card as on the CPU."""
     import dataclasses as dc
 
     import torch
@@ -1095,15 +1156,15 @@ def smoke_card_matches_cpu(arch: str, device, tag: str, adjust=None) -> None:
     from repro_torch.launch import serve
 
     smoke = dc.replace(get_config(arch, smoke=True), compute_dtype=torch.float32)
-    s_model, s_lm, s_prompts = serve.prepare(smoke, requests=2, prompt_len=16, seed=SEED,
-                                             device="cpu")
+    s_model, s_lm, s_prompts = serve.prepare(smoke, requests=2, prompt_len=prompt_len,
+                                             seed=SEED, device="cpu")
     if adjust is not None:
         adjust(s_lm, torch.Generator().manual_seed(SEED))
     want = serve.generate(s_model, s_lm, s_prompts, 8).tokens
     got = serve.generate(s_model, s_lm.to(device), s_prompts.to(device), 8).tokens
     check(torch.equal(got.cpu(), want), f"{arch} SMOKE f32: card tokens {got.tolist()} != CPU "
           f"{want.tolist()}")
-    print(f"[{tag}] SMOKE {arch} at f32 compute, 2 x (16 + 8): card tokens == CPU tokens "
+    print(f"[{tag}] SMOKE {arch} at f32 compute, 2 x ({prompt_len} + 8): card tokens == CPU tokens "
           f"{want[0].tolist()}")
 
 
@@ -1184,7 +1245,7 @@ def phase_serve(device, smoke: bool = False, requests: int = 8, prompt_len: int 
     if not on_card:
         return dict(launches=n_launch, prefill_ms=1e3 * run.prefill_s,
                     decode_ms=statistics.mean(decode_ms), worst_rel=worst_rel)
-    profile_serving(model, lm, prompts, run, kf, "flash_attention_kernel", "9 serve")
+    profile_serving(model, lm, prompts, run, {"flash_attention_kernel": kf}, "9 serve")
 
     del lm
     gc.collect()
@@ -1380,10 +1441,20 @@ def rwkv_witness(model, lm, prompts, kern_logits) -> dict:
                 kernel_vs_f64=gap(kern_logits, plain64))
 
 
-def twin_decode_gaps(model, lm, prompts, tol: float, steps: int = 8) -> list[tuple[float, int, int]]:
+def set_route(lm, mode, routes=("wkv_mode",)) -> None:
+    """Point every route attribute of ``lm`` (``wkv_mode``, ``attn_mode``,
+    ``scan_mode``) at ``mode``: 'torch' for the plain route, None for the
+    kernels."""
+    for name in routes:
+        setattr(lm, name, mode)
+
+
+def twin_decode_gaps(model, lm, prompts, tol: float, steps: int = 8,
+                     routes=("wkv_mode",)) -> list[tuple[float, int, int]]:
     """A kernel-route prefill, then ``steps`` greedy decode steps, each run
-    also on the plain route from a copy of the same state: ``logit_gap``
-    of the plain step's logits from the kernel step's, per step."""
+    also on the plain route (``routes`` set to 'torch') from a copy of the
+    same state: ``logit_gap`` of the plain step's logits from the kernel
+    step's, per step."""
     import torch
 
     requests, prompt_len = prompts.shape
@@ -1393,9 +1464,9 @@ def twin_decode_gaps(model, lm, prompts, tol: float, steps: int = 8) -> list[tup
     for _ in range(steps):
         tok = logits[:, -1, :].float().argmax(-1)[:, None]
         twin = {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in cache.items()}
-        lm.wkv_mode = "torch"
+        set_route(lm, "torch", routes)
         plain, _ = model.decode_step(lm, twin, tok)
-        lm.wkv_mode = None
+        set_route(lm, None, routes)
         logits, cache = model.decode_step(lm, cache, tok)
         gaps.append(logit_gap(plain[:, -1, :].float(), logits[:, -1, :].float(), tol))
     return gaps
@@ -1532,7 +1603,7 @@ def phase_serve_rwkv(device, smoke: bool = False, requests: int = 8, prompt_len:
     if not on_card:
         return out
 
-    profile_serving(model, lm, prompts, run, ks, "rwkv6_scan_kernel", "11 serve rwkv")
+    profile_serving(model, lm, prompts, run, {"rwkv6_scan_kernel": ks}, "11 serve rwkv")
     del lm, run
     gc.collect()
     torch.cuda.empty_cache()
@@ -1544,6 +1615,419 @@ def phase_serve_rwkv(device, smoke: bool = False, requests: int = 8, prompt_len:
     torch.cuda.empty_cache()
     smoke_card_matches_cpu("rwkv6-7b", device, "11 serve rwkv", adjust=perturb_decay)
     return out
+
+
+#: mamba_scan vs its plain versions and the float64 recurrence: float32
+#: products that the kernel fuses into FMAs, expf against torch's exp, and y's
+#: sum over N in another order, through up to 512 steps whose decays (< 1)
+#: keep old errors from growing
+MAMBA_ATOL, MAMBA_RTOL = 1e-4, 1e-4
+#: (label, B, S, E, N, u/B/C dtype, nonzero h0): the served path's shapes
+#: (jamba-v0.1-52b, 8 requests, prompt 512: the prefill from a zero state,
+#: decode from the prefill's), a ragged S and E, the SMOKE width and float32
+MAMBA_SHAPES = [
+    ("prefill", 8, 512, 8192, 16, "bfloat16", False),
+    ("decode", 8, 1, 8192, 16, "bfloat16", True),
+    ("ragged S=33 E=96", 2, 33, 96, 16, "bfloat16", True),
+    ("SMOKE N=4", 2, 33, 128, 4, "bfloat16", True),
+    ("f32 N=8", 2, 65, 200, 8, "float32", True),
+]
+
+
+def mamba_inputs(B, S, E, N, dtype, nonzero_h0, gen, device):
+    """Seeded model-entry inputs on ``device``: delta = softplus(N(0, 1))
+    float32, u ~ N(0, 1) in ``dtype``, B and C as strided views of one
+    [B, S, 8 + 2N] projection in ``dtype`` (as the Mamba block's ``xdbc``),
+    A = -exp(0.5 N(0, 1)) float32, h0 ~ N(0, 1) or zeros."""
+    import torch
+    import torch.nn.functional as F
+
+    rand = lambda *shape: torch.randn(*shape, generator=gen, device=device)  # noqa: E731
+    dt = getattr(torch, dtype)
+    delta = F.softplus(rand(B, S, E))
+    u = rand(B, S, E).to(dt)
+    xdbc = rand(B, S, 8 + 2 * N).to(dt)
+    bm, cm = xdbc[..., 8:8 + N], xdbc[..., 8 + N:]
+    A = -torch.exp(0.5 * rand(E, N))
+    h0 = rand(B, E, N) if nonzero_h0 else torch.zeros(B, E, N, device=device)
+    return delta, u, bm, cm, A, h0
+
+
+def contract_inputs(delta, u, bm, cm, A, h0):
+    """The contract entry's inputs formed from the model entry's, as the JAX
+    model forms them: da = exp(delta * A), dbu = (delta * u) * B, c = C, all
+    float32."""
+    import torch
+
+    da = torch.exp(delta[..., None] * A)
+    dbu = (delta * u.float())[..., None] * bm.float()[:, :, None, :]
+    return da, dbu, cm.float().contiguous(), h0
+
+
+def mamba_err(got, want, label: str) -> float:
+    """Max abs difference over (y, hT); fails past MAMBA_ATOL + MAMBA_RTOL *
+    |want|, on a shape or dtype mismatch or a non-finite value."""
+    import torch
+
+    err = 0.0
+    for g, w in zip(got, want):
+        check(tuple(g.shape) == tuple(w.shape) and g.dtype == torch.float32,
+              f"{label}: {g.dtype} {tuple(g.shape)} != float32 {tuple(w.shape)}")
+        check(bool(torch.isfinite(g).all()), f"{label}: non-finite output")
+        diff = (g.double() - w.double()).abs()
+        err = max(err, float(diff.max()))
+        check(bool((diff <= MAMBA_ATOL + MAMBA_RTOL * w.double().abs()).all()),
+              f"{label}: max abs err {err:.3g} beyond atol {MAMBA_ATOL} rtol {MAMBA_RTOL}")
+    return err
+
+
+def mamba_bound_ms(B, S, E, N, ubc_size, model: bool) -> tuple[float, str]:
+    """Least time for one call on these inputs, each input read once and
+    each output written once over HBM bandwidth, against its fp32
+    operations over the fp32 peak. The model entry reads delta (4 bytes),
+    u, B and C (``ubc_size`` each), A and h0, writes y and hT, and does 6
+    operations per (b, t, e, n): delta * A, its exp, the decay's product,
+    (delta u) * B, the sum, and y's multiply-add. The contract entry reads
+    da and dbu [B, S, E, N] and c, h0 (4 bytes each), writes y and hT, and
+    does 4 operations per (b, t, e, n)."""
+    states = 2 * 4 * B * E * N + 4 * B * S * E  # h0, hT, y
+    if model:
+        nbytes = states + B * S * E * (4 + ubc_size) + 2 * B * S * N * ubc_size + 4 * E * N
+        flops = 6 * B * S * E * N
+    else:
+        nbytes = states + 2 * 4 * B * S * E * N + 4 * B * S * N
+        flops = 4 * B * S * E * N
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def mamba_ref64(da, dbu, c, h0):
+    """``mamba_ref`` in float64, from h0."""
+    from repro_torch.kernels.ref import mamba_ref
+
+    return mamba_ref(da.double(), dbu.double(), c.double(), h0.double())
+
+
+def phase_mamba_scan(device) -> dict:
+    """Both entries of ``mamba_scan`` against their plain versions at every
+    MAMBA_SHAPES shape (the model entry against ``mamba_selective_scan_torch``,
+    the JAX model's chunked form; the contract entry against
+    ``mamba_scan_torch``, the sequential loop, on da and dbu formed from
+    the same inputs), both against ``mamba_ref`` in float64 at the ragged
+    shape, with device times of the kernel and the plain version beside the
+    bound (no PyTorch call computes the selective scan). Returns the rows by
+    (entry, label)."""
+    import torch
+    from repro_torch.kernels import mamba_scan as km
+
+    on_card = device.type == "cuda"
+    gen = torch.Generator(device).manual_seed(SEED + 6)
+    rows = {}
+    for label, B, S, E, N, dtype, nonzero in MAMBA_SHAPES:
+        margs = mamba_inputs(B, S, E, N, dtype, nonzero, gen, device)
+        cargs = contract_inputs(*margs)
+        for entry, kernel, plain, args in (
+                ("model", km.mamba_selective_scan, km.mamba_selective_scan_torch, margs),
+                ("contract", km.mamba_scan, km.mamba_scan_torch, cargs)):
+            got = kernel(*args)
+            if on_card:
+                torch.cuda.synchronize()
+            want = plain(*args)
+            err = mamba_err(got, want, f"mamba_scan {entry} {label}")
+            row = dict(max_abs_err=err, shape=f"B={B} S={S} E={E} N={N} {dtype} u/B/C, "
+                       f"{'nonzero' if nonzero else 'zero'} h0 ({entry} entry)")
+            if label.startswith("ragged"):
+                ref = mamba_ref64(*cargs)
+                row["ref_err"] = max(mamba_err(got, ref, f"{entry} {label} vs float64"),
+                                     mamba_err(want, ref, f"{entry} plain {label} vs float64"))
+            row["bound_ms"], row["bound_by"] = mamba_bound_ms(
+                B, S, E, N, margs[1].element_size(), entry == "model")
+            row["library_ms"] = None
+            if on_card:
+                row["ms"] = device_ms(lambda: kernel(*args))
+                row["plain_ms"] = device_ms(lambda: plain(*args), reps=3 if S > 64 else 20)
+            rows[(entry, label)] = row
+            times = (f"device ms kernel {row['ms']:.5f} plain {row['plain_ms']:.5f}" if on_card
+                     else "device ms not measured")
+            ref_text = f", vs float64 {row['ref_err']:.3g}" if "ref_err" in row else ""
+            print(f"[12 mamba_scan] {entry} {label} ({row['shape']}): err {err:.3g}{ref_text} "
+                  f"(atol {MAMBA_ATOL} rtol {MAMBA_RTOL}), {times}, bound {row['bound_ms']:.5f} "
+                  f"by {row['bound_by']}, library none")
+        del margs, cargs
+    return rows
+
+
+#: the routes of the hybrid LM: attention and Mamba's scan
+HYBRID_ROUTES = ("attn_mode", "scan_mode")
+
+
+def jamba_served(smoke: bool = False):
+    """jamba-v0.1-52b at its published widths, cut in depth from 32 to 16
+    layers (two of four periods) with bf16 weights: 52.1 GB, the deepest
+    cut one 80 GB card holds. ``smoke`` gives the SMOKE configuration."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = get_config("jamba-v0.1-52b", smoke=smoke)
+    return cfg if smoke else dc.replace(cfg, n_layers=16, param_dtype=torch.bfloat16)
+
+
+def selective_scan_f64(delta, u, bm, cm, A, h0, *, mode=None):
+    """The model entry's scan in float64, one token at a time, cast back to
+    float32: a third summation order for the witness below
+    (``ops.selective_scan``'s signature)."""
+    import torch
+
+    d, uu, b, c, a = (x.double() for x in (delta, u, bm, cm, A))
+    h = h0.double()
+    ys = []
+    for t in range(d.shape[1]):
+        h = torch.exp(d[:, t, :, None] * a) * h + (d[:, t] * uu[:, t])[..., None] * b[:, t, None, :]
+        ys.append(torch.einsum("ben,bn->be", h, c[:, t]))
+    return torch.stack(ys, dim=1).float(), h.float()
+
+
+def shadow_rerun_hybrid(model, lm, prompts, run) -> dict:
+    """``run``'s forward calls once more on the kernel route, teacher-forced
+    on its tokens, with every Mamba scan launch held to the plain version on
+    the kernel route's own inputs (phase 12's tolerance) and every
+    attention launch too (phase 8's). Returns the launches checked and the
+    largest errors of each, and the largest gap of the rerun's logits from
+    the served run's."""
+    import torch
+    from repro_torch.kernels import ops
+
+    real_scan, real_attn = ops.selective_scan, ops.gqa_flash_attention
+    scan_errs, attn_errs = [], []
+
+    def checked_scan(delta, u, bm, cm, A, h0, *, mode="cuda"):
+        out = real_scan(delta, u, bm, cm, A, h0, mode=mode)
+        plain = real_scan(delta, u, bm, cm, A, h0, mode="torch")
+        scan_errs.append(mamba_err(out, plain, f"served scan launch {len(scan_errs)} "
+                                   f"({tuple(delta.shape)})"))
+        return out
+
+    def checked_attn(q, k, v, *, mode="cuda", **kw):
+        out = real_attn(q, k, v, mode=mode, **kw)
+        want = real_attn(q, k, v, mode="torch", **kw).double()
+        tol = FLASH_TOL[str(q.dtype).split(".")[-1]]
+        diff = (out.double() - want).abs()
+        check(bool(torch.isfinite(out).all()) and bool((diff <= tol + tol * want.abs()).all()),
+              f"served attention launch {len(attn_errs)} ({tuple(q.shape)}): max abs err "
+              f"{float(diff.max()):.3g} beyond {tol}")
+        attn_errs.append(float(diff.max()))
+        return out
+
+    try:
+        ops.selective_scan, ops.gqa_flash_attention = checked_scan, checked_attn
+        gaps = replay_gaps(model, lm, prompts, run, 0.0)
+    finally:
+        ops.selective_scan, ops.gqa_flash_attention = real_scan, real_attn
+    return dict(launches=len(scan_errs), max_abs_err=max(scan_errs),
+                attn_launches=len(attn_errs), attn_err=max(attn_errs),
+                rerun_gap=max(g[0] for g in gaps))
+
+
+def hybrid_witness(model, lm, prompts, kern_logits) -> dict:
+    """The serving prefill's last-position logits by three routes: the
+    kernels' (``kern_logits``), the plain versions', and the plain route
+    with attention and the scan in float64. A gap between the kernel and
+    plain routes that the plain route shows against float64 too is the
+    model's amplification of last-bit differences, not the kernels'."""
+    from repro_torch.kernels import ops
+
+    def logits():
+        cache = model.init_cache(prompts.shape[0], prompts.shape[1] + 1, device=prompts.device)
+        return model.prefill(lm, {"tokens": prompts}, cache)[0][:, -1, :].float()
+
+    real_scan, real_attn = ops.selective_scan, ops.gqa_flash_attention
+    set_route(lm, "torch", HYBRID_ROUTES)
+    try:
+        plain = logits()
+        ops.selective_scan, ops.gqa_flash_attention = selective_scan_f64, attention64
+        plain64 = logits()
+    finally:
+        ops.selective_scan, ops.gqa_flash_attention = real_scan, real_attn
+        set_route(lm, None, HYBRID_ROUTES)
+    gap = lambda a, b: float((a - b).abs().max()) / float(b.abs().max())  # noqa: E731
+    return dict(kernel_vs_plain=gap(kern_logits, plain), plain_vs_f64=gap(plain, plain64),
+                kernel_vs_f64=gap(kern_logits, plain64))
+
+
+def jamba_f32_decode_check(device, requests: int, prompt_len: int) -> float:
+    """jamba-v0.1-52b at float32 compute and float32 weights, cut to one
+    period (8 layers, 13.3 B parameters, 53.2 GB) so that it fits the card:
+    decode steps from one state by both routes (``twin_decode_gaps``) must
+    agree within 1e-4 of the logits' scale (float32 sums in another order
+    through 8 layers), and in argmax wherever the top-2 gap is wider.
+    Returns the largest gap."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.launch import serve
+
+    tol = 1e-4
+    f32 = dc.replace(jamba_served(), n_layers=8, param_dtype=torch.float32, compute_dtype=torch.float32)
+    model, lm, prompts = serve.prepare(f32, requests=requests, prompt_len=prompt_len, seed=SEED,
+                                       device=device)
+    gaps = twin_decode_gaps(model, lm, prompts, tol, routes=HYBRID_ROUTES)
+    for t, (rel, _, wide_flips) in enumerate(gaps):
+        check(rel <= tol, f"jamba f32 decode step {t} from one state: plain and kernel routes' "
+              f"logits differ by {rel:.3g} of their scale (tol {tol})")
+        check(wide_flips == 0, f"jamba f32 decode step {t}: argmax differs where the top-2 gap "
+              f"exceeds {tol} of the scale")
+    return max(g[0] for g in gaps)
+
+
+def phase_serve_jamba(device, smoke: bool = False, requests: int = 8, prompt_len: int = 512,
+                      n_gen: int = 32) -> dict:
+    """The hybrid serving path: admission of 8 streams on H100_HOST through
+    the CUDA scorer, then ``jamba-v0.1-52b`` at its published widths cut to
+    16 layers with bf16 weights (``jamba_served``; drawn on the card from
+    SEED) serving 8 requests of 512 prompt tokens and 32 generated tokens by
+    the kernel route. The launches must be 14 x 32 mamba_scan (7 Mamba
+    sub-layers per period) and 2 x 32 flash_attention (one attention
+    sub-layer per period).
+
+    MoE's top-2 routing and capacity drops flip on last-bit differences, so
+    two correct bf16 routes give logits far apart. So every scan and
+    attention launch of the served run is held to the plain version on its
+    own inputs (``shadow_rerun_hybrid``); the teacher-forced plain-route replay is
+    measured beside ``hybrid_witness``, not held to a limit; at float32
+    compute on a one-period cut, decode steps from one state must agree
+    across the routes (``jamba_f32_decode_check``); a SMOKE run at f32
+    compute with a prompt longer than SMOKE's window of 64, so the window
+    bites, must give the card the CPU's tokens. Returns the path's numbers.
+    ``smoke`` and the sizes shrink it for a rehearsal on the CPU."""
+    import gc
+    import math
+
+    import torch
+    from repro_torch.core import H100_HOST
+    from repro_torch.kernels import consolidation as kc
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import mamba_scan as km
+    from repro_torch.launch import serve
+    from repro_torch.models import hybrid
+
+    tol = 2e-2
+    on_card = device.type == "cuda"
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+    kc.reset_launches()
+    placements = serve.admission_check("jamba-v0.1-52b", requests, host=H100_HOST, device=device)
+    check(all(p is not None for p in placements), f"admission queued a stream: {placements}")
+    check(sum(kc.LAUNCHES.values()) > 0 or not on_card,
+          "admission never launched consolidation_scores")
+    print(f"[13 serve jamba] admission of {requests} streams on 2 x {H100_HOST.name}: "
+          f"{placements}, consolidation_scores launches {sum(kc.LAUNCHES.values())}")
+
+    cfg = jamba_served(smoke)
+    t0 = time.perf_counter()
+    model, lm, prompts = serve.prepare(cfg, requests=requests, prompt_len=prompt_len, seed=SEED,
+                                       device=device)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in lm.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    n_periods = cfg.n_layers // hybrid.PERIOD
+    n_attn = n_periods * sum(hybrid.is_attn(cfg, i) for i in range(hybrid.PERIOD))
+    n_mamba = cfg.n_layers - n_attn
+    serve.generate(model, lm, prompts, 2)  # warm-up: cuBLAS handles, allocator, the builds
+    if on_card:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    km.reset_launches()
+    kf.reset_launches()
+    run = serve.generate(model, lm, prompts, n_gen, keep_logits=True)
+    scans, flashes = sum(km.LAUNCHES.values()), sum(kf.LAUNCHES.values())
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    check(scans == n_mamba * n_gen or not on_card,
+          f"serving launched mamba_scan {scans} times, want {n_mamba} x {n_gen}")
+    check(flashes == n_attn * n_gen or not on_card,
+          f"serving launched flash_attention {flashes} times, want {n_attn} x {n_gen}")
+    check(all(key[0] == "model" for key in km.LAUNCHES), f"scan entries {sorted(km.LAUNCHES)}")
+    check(tuple(run.tokens.shape) == (requests, n_gen), f"tokens {tuple(run.tokens.shape)}")
+    check(bool(((run.tokens >= 0) & (run.tokens < cfg.vocab)).all()), "token out of the vocab")
+    check(all(bool(torch.isfinite(x.float()).all()) for x in run.logits), "non-finite logits")
+    decode_ms = [1e3 * t for t in run.decode_s]
+    total = run.prefill_s + sum(run.decode_s)
+    state_bytes = sum(math.prod(i.shape) * i.dtype.itemsize
+                      for i in model.cache_infos(requests, prompt_len + n_gen).values())
+    print(f"[13 serve jamba] {cfg.name} {cfg.n_layers} layers, {n_params / 1e9:.3f} B params "
+          f"({weight_bytes / 1e9:.2f} GB, drawn in {init_s:.2f} s), {requests} requests x prompt "
+          f"{prompt_len} + {n_gen} tokens: prefill {1e3 * run.prefill_s:.3f} ms, decode "
+          f"{statistics.mean(decode_ms):.3f} ms/step (median {statistics.median(decode_ms):.3f}, "
+          f"min {min(decode_ms):.3f}, max {max(decode_ms):.3f}), {requests * n_gen / total:.1f} "
+          f"tokens/s over {total:.3f} s, peak device memory {peak / 2**30:.3f} GiB (cache and "
+          f"states {state_bytes / 1e6:.1f} MB); mamba_scan launches {scans} over "
+          f"{len(km.LAUNCHES)} shapes {sorted(km.LAUNCHES)}, flash_attention launches {flashes}")
+
+    shadow = shadow_rerun_hybrid(model, lm, prompts, run)
+    check(shadow["launches"] == n_mamba * n_gen and shadow["attn_launches"] == n_attn * n_gen,
+          f"the shadow rerun checked {shadow['launches']} scan and {shadow['attn_launches']} "
+          f"attention launches")
+    print(f"[13 serve jamba] shadow rerun of the {n_gen} calls: all {shadow['launches']} scan "
+          f"launches within atol {MAMBA_ATOL} rtol {MAMBA_RTOL} of the plain version on their own "
+          f"inputs, max abs err {shadow['max_abs_err']:.3g}; all {shadow['attn_launches']} "
+          f"attention launches within phase 8's tolerance, max abs err {shadow['attn_err']:.3g}; "
+          f"rerun logits vs the served run's {shadow['rerun_gap']:.3g} of their scale")
+
+    # the plain route, teacher-forced on the kernel route's tokens: measured
+    before = (sum(km.LAUNCHES.values()), sum(kf.LAUNCHES.values()))
+    set_route(lm, "torch", HYBRID_ROUTES)
+    gaps = replay_gaps(model, lm, prompts, run, tol)
+    set_route(lm, None, HYBRID_ROUTES)
+    check((sum(km.LAUNCHES.values()), sum(kf.LAUNCHES.values())) == before,
+          "the plain route launched a kernel")
+    witness = hybrid_witness(model, lm, prompts, run.logits[0].float())
+    witness["bf16_decode_from_one_state"] = max(
+        g[0] for g in twin_decode_gaps(model, lm, prompts, tol, routes=HYBRID_ROUTES))
+    check(all(math.isfinite(v) for v in witness.values()), f"witness: {witness}")
+    print(f"[13 serve jamba] plain route teacher-forced over {n_gen} calls (measured, not held "
+          f"to {tol}): logits {gaps[0][0]:.4g} of their scale apart at the prefill, "
+          f"{max(g[0] for g in gaps[1:]) if n_gen > 1 else 0.0:.4g} at most over the decode "
+          f"steps; argmax differs in {sum(g[1] for g in gaps)} of {requests * n_gen} places, "
+          f"{sum(g[2] for g in gaps)} of them where the top-2 gap exceeds {tol} of the scale. "
+          f"Witness at the prefill: kernel vs plain {witness['kernel_vs_plain']:.4g}, plain vs "
+          f"attention and scan in float64 {witness['plain_vs_f64']:.4g}, kernel vs float64 "
+          f"{witness['kernel_vs_f64']:.4g}; 8 bf16 decode steps each from one state by both "
+          f"routes: logits up to {witness['bf16_decode_from_one_state']:.4g} apart")
+    out = dict(launches_scan=scans, launches_flash=flashes, prefill_ms=1e3 * run.prefill_s,
+               decode_ms=statistics.mean(decode_ms), tokens_per_s=requests * n_gen / total,
+               replay_gaps=[g[0] for g in gaps], witness=witness,
+               shadow_err=shadow["max_abs_err"], peak_gib=peak / 2**30)
+    if not on_card:
+        return out
+
+    out.update(profile_serving(model, lm, prompts, run, {"mamba_scan_kernel": km,
+                                                         "flash_attention_kernel": kf},
+                               "13 serve jamba"))
+    del lm, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["f32_decode_gap"] = jamba_f32_decode_check(device, requests, prompt_len)
+    print(f"[13 serve jamba] float32 compute and weights, one period (8 layers), 8 decode steps "
+          f"each from one state by both routes: logits within {out['f32_decode_gap']:.3g} of "
+          f"their scale (tol 1e-4), argmax equal wherever the top-2 gap is wider")
+    gc.collect()
+    torch.cuda.empty_cache()
+    smoke_card_matches_cpu("jamba-v0.1-52b", device, "13 serve jamba", prompt_len=80)
+    return out
+
+
+def free_card() -> None:
+    """Return the earlier phases' device memory before a phase draws a
+    large model."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1568,6 +2052,10 @@ def main() -> int:
     served = phase_serve(device)
     wkv = phase_rwkv_scan(device)
     served_rwkv = phase_serve_rwkv(device)
+    free_card()
+    scan = phase_mamba_scan(device)
+    free_card()
+    served_jamba = phase_serve_jamba(device)
 
     q = 1024
     print(json.dumps({"kernels": [{
@@ -1594,7 +2082,7 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:118",
-        "launches": served["launches"],
+        "launches": served["launches"] + served_jamba["launches_flash"],
         "max_abs_err": max(r["max_abs_err"] for r in flash.values()),
         **{key: flash[("prefill", "bfloat16")][key]
            for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
@@ -1611,6 +2099,19 @@ def main() -> int:
            for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
         "decode": {key: wkv["decode"][key]
                    for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+    }, {
+        "name": "mamba_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan.py:66",
+        "launches": served_jamba["launches_scan"],
+        "max_abs_err": max(served_jamba["shadow_err"],
+                           *(max(r["max_abs_err"], r.get("ref_err", 0.0)) for r in scan.values())),
+        **{key: scan[("model", "prefill")][key]
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+        "decode": {key: scan[("model", "decode")][key]
+                   for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+        "contract": {key: scan[("contract", "prefill")][key]
+                     for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
     }]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

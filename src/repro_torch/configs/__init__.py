@@ -2,8 +2,8 @@
 
 ``configs/<id>.py`` exports ``CONFIG`` (the published configuration) and
 ``SMOKE`` (a reduced same-family configuration for CPU tests), copied from
-the JAX package for the dense family and rwkv6; ``registry.get_config`` maps ``--arch``
-ids to them.
+the JAX package for the dense family, rwkv6 and jamba; ``registry.get_config``
+maps ``--arch`` ids to them.
 """
 from .base import SHAPES, ModelConfig
 from .registry import ARCHS, SMOKES, get_config

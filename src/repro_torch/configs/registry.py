@@ -1,21 +1,21 @@
-"""--arch registry of the port: the dense family's and rwkv6's configurations.
+"""--arch registry of the port: the dense family's, rwkv6's and jamba's
+configurations.
 
 The other families' ids are known, so ``get_config`` can say which ROADMAP
 item (Queue 1, item 10) brings each one.
 """
 from __future__ import annotations
 
-from . import llama3_2_3b, qwen2_72b, rwkv6_7b, starcoder2_7b, tinyllama_1_1b
+from . import jamba_v0_1_52b, llama3_2_3b, qwen2_72b, rwkv6_7b, starcoder2_7b, tinyllama_1_1b
 from .base import ModelConfig
 
-_MODULES = (llama3_2_3b, qwen2_72b, rwkv6_7b, starcoder2_7b, tinyllama_1_1b)
+_MODULES = (jamba_v0_1_52b, llama3_2_3b, qwen2_72b, rwkv6_7b, starcoder2_7b, tinyllama_1_1b)
 
 ARCHS: dict[str, ModelConfig] = {m.ARCH_ID: m.CONFIG for m in _MODULES}
 SMOKES: dict[str, ModelConfig] = {m.ARCH_ID: m.SMOKE for m in _MODULES}
 
 #: ROADMAP Queue 1 item that brings each model family not ported yet
 FAMILY_ITEM = {
-    "hybrid": "10c (the hybrid family with the mamba_scan kernel)",
     "moe": "10d (MoE, encdec and vlm)",
     "encdec": "10d (MoE, encdec and vlm)",
     "vlm": "10d (MoE, encdec and vlm)",
@@ -23,7 +23,6 @@ FAMILY_ITEM = {
 
 #: arch ids of the JAX package that the port does not serve yet, by family
 NOT_PORTED = {
-    "jamba-v0.1-52b": "hybrid",
     "moonshot-v1-16b-a3b": "moe",
     "kimi-k2-1t-a32b": "moe",
     "whisper-medium": "encdec",

@@ -6,10 +6,11 @@ field name to array; ``degradation_limit`` as a float) and return the
 port's versions on ``device``, so both implementations can score the
 identical tables. ``estimator_from_numpy`` does the same for a
 ``StreamingEstimator``'s state, so both compute the same next update.
-``lm_params_from_numpy`` carries a JAX LM's parameter tree across (either
-ported family), and ``kv_cache_from_numpy`` / ``rwkv_cache_from_numpy`` a
-JAX KV cache or RWKV state cache, so both models run on the same weights
-and can continue from the same state.
+``lm_params_from_numpy`` carries a JAX LM's parameter tree across (any
+ported family), and ``kv_cache_from_numpy`` / ``rwkv_cache_from_numpy`` /
+``hybrid_cache_from_numpy`` a JAX KV cache, RWKV state cache or hybrid
+cache, so both models run on the same weights and can continue from the
+same state.
 Arrays keep their dtype (bf16 arrives as numpy's ``bfloat16`` extension
 type and leaves as ``torch.bfloat16``); nothing here imports JAX.
 """
@@ -138,4 +139,17 @@ def rwkv_cache_from_numpy(cache: Mapping, *, device: str | torch.device | None =
     if missing:
         raise KeyError(f"RWKV cache missing {missing}")
     out = {k: tensor_from_numpy(cache[k], device) for k in ("wkv", "shift_t", "shift_c")}
+    return dict(out, len=int(np.asarray(cache["len"])))
+
+
+def hybrid_cache_from_numpy(cache: Mapping, *,
+                            device: str | torch.device | None = None) -> dict:
+    """A JAX hybrid cache ({'k', 'v': [P, n_attn, B, T, Hkv, dh] bf16, 'h':
+    [P, n_mamba, B, E, N] float32, 'conv': [P, n_mamba, B, K - 1, E] bf16,
+    'len'}) as the port's, with ``len`` a host int."""
+    device = resolve_device(device)
+    missing = [k for k in ("k", "v", "h", "conv", "len") if k not in cache]
+    if missing:
+        raise KeyError(f"hybrid cache missing {missing}")
+    out = {k: tensor_from_numpy(cache[k], device) for k in ("k", "v", "h", "conv")}
     return dict(out, len=int(np.asarray(cache["len"])))

@@ -7,7 +7,8 @@
 //   s_j   = (q[b, i, h] . k[b, j, h / G]) / sqrt(dh)
 //   out   = sum_j softmax_j(s) v[b, j, h / G]       over visible j,
 //
-// visible meaning j < Skv and, when causal, q_offset + i >= j. Scores,
+// visible meaning j < Skv, when causal q_offset + i >= j, and with a sliding
+// window (window > 0) j > q_offset + i - window. Scores,
 // softmax and the P.V sums are fp32 (online softmax: running max m and
 // denominator l per row, acc rescaled by exp(m_old - m_new)); the output
 // is divided by max(l, 1e-30) and written in q's dtype.
@@ -18,6 +19,11 @@
 //     in place as slices of the [L, B, T, Hkv, dh] cache; the TPU wrapper
 //     repeats k/v G times and transposes them first;
 //   * q_offset is a runtime argument (it is the cache length in decode);
+//   * the sliding window is a runtime argument too: each row has a lower
+//     limit beside its upper one, and a CTA starts at the tile holding the
+//     lowest row any of its queries sees, so rows below every window are
+//     never read (the TPU wrapper's model slices the cache to the last
+//     window + S rows instead);
 //   * ragged Sq and Skv: tails are masked, no block divisibility;
 //   * q in fp32 or bf16, k/v in fp32 or bf16 (bf16 k/v with fp32 q is the
 //     float32-compute model reading its bf16 cache); dh in {16, 32, 64, 128}.
@@ -90,7 +96,7 @@ struct Args {
   const void* v;
   void* o;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;  // element strides
-  int Sq, Skv, H, Hkv, q_offset, causal;
+  int Sq, Skv, H, Hkv, q_offset, causal, window;
   float scale;
 };
 
@@ -147,17 +153,22 @@ flash_attention_kernel(const Args a) {
   const int b = (int)blockIdx.y / a.Hkv, hk = (int)blockIdx.y % a.Hkv;
   const int i0 = qb * BQ;
 
-  // per row r: query i = i0 + r / Gc, head hk * G + g0 + r % Gc; lim = last visible kv row
-  int lim[kRows];
-  int kv_end = 0;
+  // per row r: query i = i0 + r / Gc, head hk * G + g0 + r % Gc; lo and lim
+  // = first and last visible kv row
+  int lo[kRows], lim[kRows];
+  int kv_end = 0, kv_start = a.Skv;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int i = i0 + r / Gc, g = g0 + r % Gc;
     const bool valid = r < BQ * Gc && i < a.Sq && g < G;
     int l = a.Skv - 1;
     if (a.causal && a.q_offset + i < l) l = a.q_offset + i;
+    int f = a.window ? a.q_offset + i - a.window + 1 : 0;
+    if (f < 0) f = 0;
     lim[r] = valid ? l : -1;
+    lo[r] = f;
     kv_end = lim[r] + 1 > kv_end ? lim[r] + 1 : kv_end;
+    if (valid && f < kv_start) kv_start = f;
   }
 
   const TQ* q = static_cast<const TQ*>(a.q);
@@ -184,14 +195,15 @@ flash_attention_kernel(const Args a) {
   const int col = owns ? lane * DPL : 0;
   float* P = Ps + warp * kRows * 32;
 
-  for (int t0 = 0; t0 < kv_end; t0 += kTile) {
+  for (int t0 = kv_start / kTile * kTile; t0 < kv_end; t0 += kTile) {
     load_tile<TKV, DH>(Ks, kb, a.k_ss, t0, kv_end);
     load_tile<TKV, DH>(Vs, vb, a.v_ss, t0, kv_end);
     __syncthreads();
 
     const int jj = warp * 32 + lane;  // this lane's row of the tile
     const int j = t0 + jj;
-    if (t0 + warp * 32 < kv_end) {  // warp-uniform: the warp's rows hold something visible
+    // warp-uniform: the warp's 32 rows hold something visible
+    if (t0 + warp * 32 < kv_end && t0 + warp * 32 + 31 >= kv_start) {
       float s[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) s[r] = 0.f;
@@ -210,7 +222,7 @@ flash_attention_kernel(const Args a) {
       }
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
-        const bool vis = j <= lim[r];
+        const bool vis = j <= lim[r] && j >= lo[r];
         const float sc = vis ? s[r] * a.scale : kNegInf;
         const float m_new = fmaxf(m[r], warp_max(sc));
         const float p = vis ? expf(sc - m_new) : 0.f;
@@ -327,18 +339,19 @@ int launch_dh(const Args& a, int B, int dh, cudaStream_t stream) {
 
 // q_bf16 / kv_bf16: 1 for bf16, 0 for fp32 (bf16 q with fp32 k/v is refused).
 // Strides are in elements; every pointer and stride must allow 16-byte loads
-// of k and v rows (checked by the Python wrapper).
+// of k and v rows (checked by the Python wrapper). window 0: no window.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int q_bf16, int kv_bf16, int dh,
     int B, int Sq, int Skv, int H, int Hkv,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
-    int causal, int q_offset, void* stream) {
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || H % Hkv != 0 || q_offset < 0)
+    int causal, int q_offset, int window, void* stream) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || H % Hkv != 0 || q_offset < 0 || window < 0)
     return (int)cudaErrorInvalidValue;
   Args a{q, k, v, o, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-         Sq, Skv, H, Hkv, q_offset, causal ? 1 : 0, (float)(1.0 / std::sqrt((double)dh))};
+         Sq, Skv, H, Hkv, q_offset, causal ? 1 : 0, window,
+         (float)(1.0 / std::sqrt((double)dh))};
   cudaStream_t s = (cudaStream_t)stream;
   if (!q_bf16 && !kv_bf16) return launch_dh<float, float>(a, B, dh, s);
   if (q_bf16 && kv_bf16) return launch_dh<__nv_bfloat16, __nv_bfloat16>(a, B, dh, s);

@@ -5,7 +5,8 @@ h // (H / Hkv)) it computes, per batch row, head and query i,
 
   out[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h // G] / sqrt(dh)) . v[b, j, h // G]
 
-over the visible j: all of them, or, when causal, j <= q_offset + i. Scores,
+over the visible j: all of them, or, when causal, j <= q_offset + i; with a
+sliding window (``window`` > 0) also j > q_offset + i - window. Scores,
 softmax and P.V are float32; the output has q's dtype.
 
 Counterpart of the Pallas kernel ``repro/kernels/flash_attention.py::
@@ -50,6 +51,12 @@ def visible_rows(Sq: int, Skv: int, causal: bool, q_offset: int) -> int:
     return min(Skv, q_offset + Sq) if causal else Skv
 
 
+def first_visible_row(q_offset: int, window: int) -> int:
+    """The first kv row any query sees: rows below it lie outside every
+    query's window (0 without a window)."""
+    return max(0, q_offset - window + 1) if window else 0
+
+
 def flash_attention_torch(
     q: torch.Tensor,  # [B, Sq, H, dh]
     k: torch.Tensor,  # [B, Skv, Hkv, dh]
@@ -57,27 +64,35 @@ def flash_attention_torch(
     *,
     causal: bool = True,
     q_offset: int = 0,
+    window: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the same mask (-1e30 on masked
     scores), float32 scores, softmax and P.V, the output in q's dtype. Rows
-    no query sees are left out before the product, as the kernel never
-    reads them (they would add exact zeros)."""
+    no query sees (past the last query, or below the first query's window)
+    are left out before the product, as the kernel never reads them (they
+    would add exact zeros)."""
     B, Sq, H, dh = q.shape
     Hkv = k.shape[2]
-    Skv = visible_rows(Sq, k.shape[1], causal, q_offset)
+    lo, Skv = first_visible_row(q_offset, window), visible_rows(Sq, k.shape[1], causal, q_offset)
     qf = q.float().reshape(B, Sq, Hkv, H // Hkv, dh)
-    kf, vf = k[:, :Skv].float(), v[:, :Skv].float()
+    kf, vf = k[:, lo:Skv].float(), v[:, lo:Skv].float()
     s = torch.einsum("bqhgd,bthd->bhgqt", qf, kf) * (1.0 / math.sqrt(dh))
+    q_pos = q_offset + torch.arange(Sq, device=q.device)[:, None]
+    kv_pos = torch.arange(lo, Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv - lo), dtype=torch.bool, device=q.device)
     if causal:
-        q_pos = q_offset + torch.arange(Sq, device=q.device)
-        mask = q_pos[:, None] >= torch.arange(Skv, device=q.device)[None, :]
+        mask &= q_pos >= kv_pos
+    if window:
+        mask &= kv_pos > q_pos - window
+    if causal or window:
         s = s.masked_fill(~mask, NEG_INF)
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqt,bthd->bqhgd", w, vf)
     return out.reshape(B, Sq, H, dh).to(q.dtype)
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
+           window: int) -> None:
     """Raise on anything the kernel does not take."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("q must be [B, Sq, H, dh] and k, v [B, Skv, Hkv, dh]")
@@ -101,6 +116,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int) -> 
         raise ValueError("no kv rows")
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0 (0: no window), got {window}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(-1) != 1:
             raise ValueError(f"{name} needs a contiguous last dim, strides {x.stride()}")
@@ -116,7 +133,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_launch
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 9
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -130,18 +147,20 @@ def flash_attention(
     *,
     causal: bool = True,
     q_offset: int = 0,
+    window: int = 0,
 ) -> torch.Tensor:
     """Attention out [B, Sq, H, dh] in q's dtype (see the module docstring).
 
     On CUDA tensors the kernel runs on PyTorch's current stream and reads
-    only the visible kv rows; ``Sq == 0`` returns an empty output without
-    a launch. CPU tensors go to the plain version.
+    only the visible kv rows (with a window, from the first tile that holds
+    a row some query of the CTA sees); ``Sq == 0`` returns an empty output
+    without a launch. CPU tensors go to the plain version.
     """
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    _check(q, k, v, q_offset)
+    _check(q, k, v, q_offset, window)
     if q.device.type == "cpu":
-        return flash_attention_torch(q, k, v, causal=causal, q_offset=q_offset)
+        return flash_attention_torch(q, k, v, causal=causal, q_offset=q_offset, window=window)
     B, Sq, H, dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, H, dh), dtype=q.dtype, device=q.device)
@@ -154,7 +173,7 @@ def flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16), dh,
             B, Sq, Skv, H, Hkv, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            int(causal), int(q_offset), stream)
+            int(causal), int(q_offset), int(window), stream)
     if err:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention launch failed: {msg} ({err})")

@@ -11,6 +11,8 @@ import torch
 
 from .consolidation import consolidation_scores, consolidation_scores_torch
 from .flash_attention import flash_attention, flash_attention_torch
+from .mamba_scan import (mamba_scan, mamba_scan_torch, mamba_selective_scan,
+                         mamba_selective_scan_torch)
 from .rwkv6_scan import rwkv6_scan, rwkv6_scan_torch
 from .telemetry import pair_scatter, pair_scatter_torch
 
@@ -63,16 +65,18 @@ def gqa_flash_attention(
     *,
     causal: bool = True,
     q_offset: int = 0,
+    window: int = 0,
     mode: str = "cuda",
 ) -> torch.Tensor:
     """Model-layout attention [B, Sq, H, dh]; the kernel maps each query
     head to its kv head itself, so k and v are neither repeated nor
-    transposed (the JAX wrapper does both)."""
+    transposed (the JAX wrapper does both). ``window`` > 0 keeps only the
+    last ``window`` keys up to each query's position."""
     if mode == "cuda":
         _require_cuda(q)
-        return flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+        return flash_attention(q, k, v, causal=causal, q_offset=q_offset, window=window)
     if mode == "torch":
-        return flash_attention_torch(q, k, v, causal=causal, q_offset=q_offset)
+        return flash_attention_torch(q, k, v, causal=causal, q_offset=q_offset, window=window)
     raise ValueError(f"mode must be cuda|torch, got {mode!r}")
 
 
@@ -95,4 +99,45 @@ def rwkv6_wkv(
         return rwkv6_scan(r, k, v, wlog, u, s0)
     if mode == "torch":
         return rwkv6_scan_torch(r, k, v, wlog, u, s0)
+    raise ValueError(f"mode must be cuda|torch, got {mode!r}")
+
+
+def mamba_ssm_scan(
+    da: torch.Tensor,  # [B, S, E, N] float32
+    dbu: torch.Tensor,  # [B, S, E, N] float32
+    c: torch.Tensor,  # [B, S, N] float32
+    h0: torch.Tensor,  # [B, E, N] float32
+    *,
+    mode: str = "cuda",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Pallas kernel's contract: (y [B, S, E], hT [B, E, N]), both
+    float32, for any S >= 1 and any E (the Pallas kernel asserts block
+    divisibility and starts from h0 as this does)."""
+    if mode == "cuda":
+        _require_cuda(da)
+        return mamba_scan(da, dbu, c, h0)
+    if mode == "torch":
+        return mamba_scan_torch(da, dbu, c, h0)
+    raise ValueError(f"mode must be cuda|torch, got {mode!r}")
+
+
+def selective_scan(
+    delta: torch.Tensor,  # [B, S, E] float32
+    u: torch.Tensor,  # [B, S, E]
+    bm: torch.Tensor,  # [B, S, N]
+    cm: torch.Tensor,  # [B, S, N]
+    A: torch.Tensor,  # [E, N] float32
+    h0: torch.Tensor,  # [B, E, N] float32
+    *,
+    mode: str = "cuda",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba block's scan: (y [B, S, E], hT [B, E, N]), both float32,
+    with da = exp(delta * A) and dbu = (delta * u) * B formed inside the
+    kernel, so [B, S, E, N] is never materialised; B and C may be strided
+    views of the block's projection."""
+    if mode == "cuda":
+        _require_cuda(delta)
+        return mamba_selective_scan(delta, u, bm, cm, A, h0)
+    if mode == "torch":
+        return mamba_selective_scan_torch(delta, u, bm, cm, A, h0)
     raise ValueError(f"mode must be cuda|torch, got {mode!r}")

@@ -3,7 +3,8 @@
 
 ``pair_scatter_ref`` is the tests' oracle for ``kernels.telemetry`` and the
 estimator's ``scatter='numpy'`` backend; ``attention_ref`` is the oracle
-for ``kernels.flash_attention`` and ``rwkv6_ref`` for ``kernels.rwkv6_scan``.
+for ``kernels.flash_attention``, ``rwkv6_ref`` for ``kernels.rwkv6_scan``
+and ``mamba_ref`` for ``kernels.mamba_scan``.
 """
 from __future__ import annotations
 
@@ -49,6 +50,21 @@ def rwkv6_ref(r, k, v, wlog, u, s0):
         s, y = step(s, t)
         ys.append(y)
     return torch.stack(ys, dim=1), s
+
+
+def mamba_ref(da, dbu, c, h0=None):
+    """Sequential selective-scan recurrence (the definition). da, dbu
+    [B, S, E, N]; c [B, S, N]; h0 [B, E, N] or None for a zero state (the
+    JAX reference always starts from zero). Returns (y [B, S, E], hT
+    [B, E, N]), computed in the dtype of the inputs (float64 makes it the
+    tests' oracle)."""
+    B, S, E, N = da.shape
+    h = torch.zeros((B, E, N), dtype=da.dtype, device=da.device) if h0 is None else h0
+    ys = []
+    for t in range(S):  # python loop: this is an oracle, clarity over speed
+        h = da[:, t] * h + dbu[:, t]
+        ys.append(torch.einsum("ben,bn->be", h, c[:, t]))
+    return torch.stack(ys, dim=1), h
 
 
 def pair_scatter_ref(types, cbar, vals):

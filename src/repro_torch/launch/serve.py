@@ -4,8 +4,11 @@
 Request streams are admitted onto the serving hosts by the paper's engine
 (``admission_check``), then one batch of requests runs batched prefill and
 greedy decode on one device: a dense LM against its KV cache, attention
-through the hand-written CUDA flash kernel on the card, or RWKV6 against its
-recurrent state, the WKV through the hand-written CUDA scan:
+through the hand-written CUDA flash kernel on the card; RWKV6 against its
+recurrent state, the WKV through the hand-written CUDA scan; or the Jamba
+hybrid against its KV cache and Mamba states, with windowed attention
+through the flash kernel and Mamba's selective scan through the
+hand-written CUDA ``mamba_scan``:
 
   python -m repro_torch.launch.serve --arch tinyllama-1.1b --requests 8 \\
       --prompt-len 512 --gen 32
@@ -13,8 +16,15 @@ recurrent state, the WKV through the hand-written CUDA scan:
       --prompt-len 512 --gen 32
   python -m repro_torch.launch.serve --arch rwkv6-7b --device cpu --smoke \\
       --requests 2 --prompt-len 16 --gen 8
+  python -m repro_torch.launch.serve --arch jamba-v0.1-52b --device cpu --smoke \\
+      --requests 2 --prompt-len 16 --gen 8
 
-Weights are drawn at random from ``--seed`` (nothing is downloaded).
+The full ``jamba-v0.1-52b`` (32 layers, 51.57 B parameters) does not fit
+one 80 GB card even in bf16 (103 GB); ``chip_smoke.py`` serves it cut to
+16 layers with ``param_dtype=bfloat16`` (``dataclasses.replace`` of the
+CONFIG, 52.1 GB), and ``--arch jamba-v0.1-52b`` without ``--smoke`` asks
+for the whole model. Weights are drawn at random from ``--seed`` (nothing
+is downloaded).
 """
 from __future__ import annotations
 
@@ -64,8 +74,8 @@ def admission_check(arch: str, n_streams: int, *, host: ServerSpec = H100_HOST,
 def prepare(cfg: ModelConfig, *, requests: int, prompt_len: int, seed: int = 0,
             device: str | torch.device | None = None) -> tuple[Model, LM, torch.Tensor]:
     """(model, lm, prompts [requests, prompt_len]): the LM of ``cfg``'s family
-    (dense or ssm), weights and prompts drawn from one generator seeded with
-    ``seed`` on ``device``."""
+    (dense, ssm or hybrid), weights and prompts drawn from one generator
+    seeded with ``seed`` on ``device``."""
     device = resolve_device(device)
     model = build_model(cfg)
     gen = torch.Generator(device).manual_seed(seed)

@@ -1,5 +1,6 @@
 """Uniform model API (counterpart of ``repro/models/api.py``) over the
-dense family (``transformer``) and the ssm family (``rwkv``).
+dense family (``transformer``), the ssm family (``rwkv``) and the hybrid
+family (``hybrid``).
 
 ``build_model(cfg)`` returns a :class:`Model` whose steps take the LM
 module where the JAX ``Model`` takes its parameter tree:
@@ -21,15 +22,16 @@ import torch
 from ..configs.base import ModelConfig
 from ..configs.registry import not_ported
 from ..device import resolve_device
-from . import rwkv, transformer
+from . import hybrid, rwkv, transformer
 from .params import ParamInfo, map_infos, materialize
 
 #: extra cache rows beyond the nominal context (decode writes at len)
 CACHE_PAD = 128
 
 #: each ported family's module (``lm_infos``, ``cache_infos``) and LM class
-FAMILIES = {"dense": (transformer, transformer.TransformerLM), "ssm": (rwkv, rwkv.RWKVLM)}
-LM = transformer.TransformerLM | rwkv.RWKVLM
+FAMILIES = {"dense": (transformer, transformer.TransformerLM), "ssm": (rwkv, rwkv.RWKVLM),
+            "hybrid": (hybrid, hybrid.HybridLM)}
+LM = transformer.TransformerLM | rwkv.RWKVLM | hybrid.HybridLM
 
 
 def _apply_param_dtype(infos, cfg):
@@ -49,6 +51,8 @@ class Model:
 
     # --- declarations -------------------------------------------------------
     def param_infos(self):
+        """The JAX parameter tree's declaration, big matrices in
+        ``cfg.param_dtype``."""
         module, _ = FAMILIES[self.cfg.family]
         return _apply_param_dtype(module.lm_infos(self.cfg), self.cfg)
 

@@ -1,5 +1,6 @@
-"""Layers of the dense LM (counterpart of ``repro/models/layers.py``): norms,
-RoPE, GQA attention with a KV cache, and the dense MLP.
+"""Layers of the LMs (counterpart of ``repro/models/layers.py``): norms,
+RoPE, GQA attention with a KV cache and an optional sliding window, the
+dense MLP, and the top-k routed MoE FFN.
 
 Each layer is a plain function on tensors (``*_apply``, taking a mapping
 from the JAX parameter names to tensors, cast to the compute dtype inside
@@ -12,8 +13,10 @@ Attention runs through ``kernels.ops.gqa_flash_attention``: the
 hand-written CUDA kernel for CUDA tensors, its plain PyTorch version for
 CPU tensors (or wherever ``mode='torch'`` is asked for).
 ``chunked_attention``, the JAX models' own attention, is kept as a plain
-function for the tests; it is not on the path. The sliding window, the
-int8 KV cache and MoE raise ``NotImplementedError``.
+function for the tests; it is not on the path. MoE is the JAX package's
+single-device path (sort-based dispatch into per-expert capacity buffers);
+its expert-parallel ``shard_map`` path is not ported. The int8 KV cache
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ from ..kernels.flash_attention import NEG_INF
 from .params import ParamInfo
 
 #: what brings the parts of the JAX layers that the port does not have yet
-WINDOW_KV_ITEM = "ROADMAP Queue 1 item 10e (the sliding window and the int8 KV cache)"
+INT8_KV_ITEM = "ROADMAP Queue 1 item 10e (the int8 KV cache)"
 MOE_ITEM = "ROADMAP Queue 1 item 10d (MoE, encdec and vlm)"
 
 
@@ -227,12 +230,14 @@ def attention_apply(
     With a cache, k and v are written in place into its rows
     [len, len + S) (the returned cache shares the tensors) and attention
     reads the cache's first len + S rows where they lie, with q_offset =
-    len. ``mode`` picks the kernel route ('cuda') or the plain one
-    ('torch'); ``None`` takes 'cuda' for CUDA tensors and 'torch' for CPU
-    tensors. ``rope_cs`` reuses RoPE tables of ``positions``.
+    len. ``window`` > 0 is a sliding window: a query sees only the last
+    ``window`` keys up to its position. The kernel masks the rows below it
+    and starts reading at the first tile a query sees, which equals the JAX
+    layer's read of the cache's last window + S rows. ``mode`` picks the
+    kernel route ('cuda') or the plain one ('torch'); ``None`` takes 'cuda'
+    for CUDA tensors and 'torch' for CPU tensors. ``rope_cs`` reuses RoPE
+    tables of ``positions``.
     """
-    if window:
-        raise NotImplementedError(f"sliding-window attention: {WINDOW_KV_ITEM}")
     if rope_cs is None:
         rope_cs = rope_tables(positions, cfg.d_head, cfg.rope_theta)
     q, k, v = qkv(p, x, cfg, rope_cs)
@@ -240,16 +245,17 @@ def attention_apply(
         mode = "cuda" if x.is_cuda else "torch"
     B, S = x.shape[:2]
     if cache is None:
-        out = ops.gqa_flash_attention(q.contiguous(), k, v, causal=True, mode=mode)
+        out = ops.gqa_flash_attention(q.contiguous(), k, v, causal=True, window=window,
+                                      mode=mode)
         new_cache = None
     else:
         ck, cv, idx = cache["k"], cache["v"], int(cache["len"])
         if ck.dtype != torch.bfloat16:
-            raise NotImplementedError(f"a {ck.dtype} KV cache: {WINDOW_KV_ITEM}")
+            raise NotImplementedError(f"a {ck.dtype} KV cache: {INT8_KV_ITEM}")
         ck[:, idx:idx + S] = k
         cv[:, idx:idx + S] = v
         out = ops.gqa_flash_attention(q.contiguous(), ck[:, :idx + S], cv[:, :idx + S],
-                                      causal=True, q_offset=idx, mode=mode)
+                                      causal=True, q_offset=idx, window=window, mode=mode)
         new_cache = {"k": ck, "v": cv, "len": idx + S}
     wo = p["wo"].to(cfg.compute_dtype)
     y = out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
@@ -304,3 +310,124 @@ class MLP(Weights):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return mlp_apply(self.c, x, self.cfg)
+
+
+# --- Mixture of Experts -------------------------------------------------------------
+
+def moe_infos(cfg) -> dict:
+    D, E, Fh = cfg.d_model, cfg.moe_experts, cfg.moe_dff
+    return {
+        "router": ParamInfo((D, E), ("dmodel", "expert"), "small"),
+        "wi": ParamInfo((E, D, 2, Fh), ("expert", "expert_dmodel", None, None)),
+        "wo": ParamInfo((E, Fh, D), ("expert", None, "expert_dmodel")),
+    }
+
+
+def moe_capacity(cfg, tokens_per_group: int) -> int:
+    """Slots per expert for one dispatch group of ``tokens_per_group``."""
+    c = math.ceil(tokens_per_group * cfg.moe_topk * cfg.moe_capacity_factor / cfg.moe_experts)
+    return max(4, int(c))
+
+
+def top_k(gates: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest along the last dim, ties to the
+    lower index (as ``jax.lax.top_k``): a stable descending sort."""
+    vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _dispatch_tokens(tokens: torch.Tensor, expert_idx: torch.Tensor, gate_w: torch.Tensor,
+                     E: int, C: int):
+    """Sort-based dispatch of token groups (JAX ``layers._dispatch_tokens``,
+    batched over any leading group dims).
+
+    tokens [..., N, D]; expert_idx, gate_w [..., N, K]. Expert ids >= E (the
+    dropped bucket) or beyond capacity are dropped. Returns
+      buf   [..., E, C, D]  tokens gathered per expert (capacity-truncated)
+      meta  (src [..., E, C] token index or -1, w [..., E, C] float32 gate weight)
+    """
+    *lead, N, K = expert_idx.shape
+    D = tokens.shape[-1]
+    G = math.prod(lead)
+    dev = tokens.device
+    flat_e = expert_idx.reshape(G, N * K).clamp_max(E)
+    flat_w = gate_w.reshape(G, N * K)
+    flat_tok = torch.arange(N, device=dev).repeat_interleave(K)
+    se, order = torch.sort(flat_e, dim=-1, stable=True)
+    sw, st = flat_w.gather(1, order), flat_tok[order]
+    counts = torch.zeros((G, E + 1), dtype=torch.long, device=dev)
+    counts.scatter_add_(1, se, torch.ones_like(se))
+    seg_start = counts.cumsum(1) - counts
+    pos = torch.arange(N * K, device=dev) - seg_start.gather(1, se)  # place in the expert
+    keep = (pos < C) & (se < E)
+    slot = torch.where(keep, se * C + pos, E * C)  # E * C: the overflow slot, dropped
+    src = torch.full((G, E * C + 1), -1, dtype=torch.long, device=dev).scatter_(1, slot, st)
+    w = torch.zeros((G, E * C + 1), dtype=torch.float32, device=dev).scatter_(1, slot, sw.float())
+    src, w = src[:, :-1], w[:, :-1]
+    rows = tokens.reshape(G, N, D).gather(1, src.clamp_min(0)[..., None].expand(G, E * C, D))
+    buf = torch.where(src[..., None] >= 0, rows, 0.0)
+    return (buf.reshape(*lead, E, C, D),
+            (src.reshape(*lead, E, C), w.reshape(*lead, E, C)))
+
+
+def _experts(p: Mapping[str, torch.Tensor], buf: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """The SwiGLU experts on capacity buffers [G, E, C, D]: one batched
+    product per weight over the experts, [G, E, C, D] out."""
+    G, E, C, D = buf.shape
+    wi, wo = p["wi"].to(dt), p["wo"].to(dt)  # [E, D, 2, F], [E, F, D]
+    x = buf.transpose(0, 1).reshape(E, G * C, D)
+    h = torch.bmm(x, wi.reshape(E, D, -1)).view(E, G * C, 2, -1)
+    h = F.silu(h[..., 0, :]) * h[..., 1, :]
+    return torch.bmm(h, wo).view(E, G, C, D).transpose(0, 1)
+
+
+def moe_apply(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg, *,
+              group: str = "seq") -> torch.Tensor:
+    """Top-k routed MoE FFN (SwiGLU experts), sort-based dispatch: the JAX
+    package's single-device path.
+
+    group='seq'   dispatch each sequence on its own (prefill): capacity is
+                  per (sequence, expert);
+    group='batch' dispatch the whole [B * S] token set at once (decode, S = 1).
+
+    The router runs in float32 on the float32 cast of x (JAX's einsum
+    promotes x); gate weights are renormalised over the top k. The combine
+    adds at most top-k contributions per token onto zeros in the compute
+    dtype, so its order does not change the result.
+    """
+    B, S, D = x.shape
+    E, K = cfg.moe_experts, cfg.moe_topk
+    dt = cfg.compute_dtype
+    gates = torch.softmax(x.float() @ p["router"].float(), dim=-1)
+    gate_w, expert_idx = top_k(gates, K)
+    gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    if group == "seq":
+        n_tok, C = S, moe_capacity(cfg, S)
+        tok, eidx, gw = x, expert_idx, gate_w
+    elif group == "batch":
+        n_tok, C = B * S, moe_capacity(cfg, B * S)
+        tok, eidx, gw = x.reshape(1, B * S, D), expert_idx.reshape(1, B * S, K), \
+            gate_w.reshape(1, B * S, K)
+    else:
+        raise ValueError(f"group must be seq|batch, got {group!r}")
+    buf, (src, w) = _dispatch_tokens(tok, eidx, gw, E, C)  # [G, E, C, D]
+    out = _experts(p, buf.to(dt), dt)
+    G = out.shape[0]
+    flat = (out * w[..., None].to(dt)).reshape(G, E * C, D)
+    srcf = src.reshape(G, E * C)
+    flat = torch.where(srcf[..., None] >= 0, flat, 0.0)
+    rows = srcf.clamp_min(0) + n_tok * torch.arange(G, device=x.device)[:, None]
+    y = torch.zeros((G * n_tok, D), dtype=dt, device=x.device)
+    y.index_add_(0, rows.reshape(-1), flat.reshape(G * E * C, D))
+    return y.reshape(B, S, D)
+
+
+class MoE(Weights):
+    """The MoE FFN; the router stays float32 (JAX casts it to float32)."""
+
+    def __init__(self, cfg, params: Mapping[str, torch.Tensor]):
+        super().__init__(params, cfg.compute_dtype, keep=("router",))
+        self.cfg = cfg
+
+    def forward(self, x: torch.Tensor, group: str = "seq") -> torch.Tensor:
+        return moe_apply(self.c, x, self.cfg, group=group)

@@ -47,7 +47,7 @@ def lm_infos(cfg) -> dict:
 
 def cache_infos(cfg, batch: int, max_len: int) -> dict:
     if cfg.kv_cache_dtype != "bf16":
-        raise NotImplementedError(f"a {cfg.kv_cache_dtype} KV cache: {L.WINDOW_KV_ITEM}")
+        raise NotImplementedError(f"a {cfg.kv_cache_dtype} KV cache: {L.INT8_KV_ITEM}")
     kv = ParamInfo((cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head),
                    ("layer", "batch", None, "kv_heads", None), "zeros", dtype=torch.bfloat16)
     return {"k": kv, "v": kv}

@@ -5,7 +5,8 @@ its plain version there). Here the plain version, and the wrapper's CPU
 route, are held to the JAX Pallas kernel in interpret mode and to
 ``attention_ref`` on the shapes of ``tests/test_kernels.py``, and to
 ``attention_ref`` alone on the ragged shapes and decode offsets that the
-Pallas kernel's block divisibility refuses; the wrapper's contract (the
+Pallas kernel's block divisibility refuses, and to the port's and JAX's
+``chunked_attention`` with a sliding window; the wrapper's contract (the
 kernel's dtypes, head dims and layouts) is tested.
 """
 import jax.numpy as jnp
@@ -15,9 +16,11 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.models import layers as JL
 from repro_torch.kernels import flash_attention as kf
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import attention_ref
+from repro_torch.models import layers as TL
 
 #: f32: sums of dh products in another order; bf16: the output's rounding
 #: (tests/test_kernels.py's bounds for the Pallas kernel)
@@ -106,6 +109,73 @@ def test_ragged_and_decode_offsets_match_ref(B, Sq, Skv, H, Hkv, dh, causal, q_o
     got = ops.gqa_flash_attention(q, k, v, causal=causal, q_offset=q_offset, mode="torch")
     np.testing.assert_allclose(got.double().numpy(), want.numpy(), atol=TOL[dtype],
                                rtol=TOL[dtype])
+
+
+# sliding windows narrower than the rows a query sees; (B, Sq, Skv, H, Hkv,
+# dh, causal, q_offset, window)
+WINDOWED = [
+    (2, 24, 24, 4, 2, 16, True, 0, 8),  # a prefill, tests/test_models_decode.py's window
+    (2, 17, 45, 4, 2, 16, True, 28, 8),  # a chunk appended to a cache
+    (3, 1, 45, 8, 2, 64, True, 40, 16),  # decode: rows below 25 outside the window
+    (2, 5, 300, 32, 4, 64, True, 200, 130),  # kv tiles of 128: the first tile skipped
+    (1, 9, 20, 6, 3, 32, True, 11, 1),  # a window of one: each query sees itself
+    (1, 6, 12, 2, 1, 16, True, 6, 64),  # a window wider than the cache: no effect
+    (2, 8, 30, 4, 2, 32, False, 0, 5),  # non-causal: a lower limit only
+]
+
+
+def _chunked(q, k, v, causal, q_offset, window, lib):
+    """``chunked_attention`` of the port or of JAX on the model layout, from
+    q [B, Sq, H, dh], over all Skv rows (kv_valid = Skv)."""
+    B, Sq, H, dh = q.shape
+    Hkv = k.shape[2]
+    kw = dict(causal=causal, q_offset=q_offset, window=window, kv_valid=k.shape[1], chunk=4)
+    if lib == "port":
+        out = TL.chunked_attention(q.reshape(B, Sq, Hkv, H // Hkv, dh), k, v, **kw)
+        return out.reshape(B, Sq, H, dh).float().numpy()
+    jq, jk, jv = (jnp.asarray(x.float().numpy(), jnp.bfloat16 if q.dtype == torch.bfloat16
+                              else jnp.float32) for x in (q, k, v))
+    out = JL.chunked_attention(jq.reshape(B, Sq, Hkv, H // Hkv, dh), jk, jv, **kw)
+    return np.asarray(out, np.float32).reshape(B, Sq, H, dh)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,dh,causal,q_offset,window", WINDOWED)
+def test_window_matches_chunked_attention(B, Sq, Skv, H, Hkv, dh, causal, q_offset, window,
+                                          dtype):
+    """The plain version and the CPU route with a window against the port's
+    and JAX's ``chunked_attention`` with the same window (the JAX models'
+    attention; its P.V in the input dtype rounds once more in bf16)."""
+    q, k, v = _torch(_inputs(B, Sq, Skv, H, Hkv, dh, seed=Sq * 7 + Skv + window), dtype)
+    kw = dict(causal=causal, q_offset=q_offset, window=window)
+    kf.reset_launches()
+    for fn in (kf.flash_attention_torch, kf.flash_attention):
+        got = fn(q, k, v, **kw)
+        assert got.dtype == q.dtype and tuple(got.shape) == (B, Sq, H, dh)
+        for lib in ("port", "jax"):
+            np.testing.assert_allclose(got.float().numpy(),
+                                       _chunked(q, k, v, causal, q_offset, window, lib),
+                                       atol=TOL[dtype], rtol=TOL[dtype])
+    assert not kf.LAUNCHES
+
+
+def test_window_masks_rows_below_it():
+    """Rows below every query's window change nothing (the kernel never
+    reads them), rows inside it do; ``first_visible_row`` is the first row
+    any query sees."""
+    q, k, v = _torch(_inputs(2, 3, 40, 4, 2, 16, seed=9), "float32")
+    kw = dict(causal=True, q_offset=30, window=8)
+    assert kf.first_visible_row(30, 8) == 23 and kf.first_visible_row(30, 0) == 0
+    assert kf.first_visible_row(3, 8) == 0
+    a = kf.flash_attention(q, k, v, **kw)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :23] = 1e4
+    v2[:, :23] = float("nan")
+    assert torch.equal(kf.flash_attention(q, k2, v2, **kw), a)
+    k2[:, 23] = 5.0
+    assert not torch.equal(kf.flash_attention(q, k2, v2, **kw), a)
+    with pytest.raises(ValueError, match="window"):
+        kf.flash_attention(q, k, v, window=-1)
 
 
 def test_unseen_cache_rows_do_not_matter():

@@ -27,6 +27,7 @@ from repro_torch.distributed.serve_step import greedy_generate
 from repro_torch.launch import serve
 from repro_torch.models import build_model, materialize
 from repro_torch.models import layers as TL
+from repro_torch.models import hybrid as TH
 from repro_torch.models import rwkv as TR
 from repro_torch.models import transformer as TT
 from repro_torch.models.params import ParamInfo, map_infos
@@ -324,30 +325,48 @@ def test_param_declarations_and_init_rules_match_jax():
 
 
 def test_other_families_and_options_raise():
-    """The dense family and rwkv6 (family ssm) are ported; the other
-    families' ids and families raise, naming the ROADMAP item that brings
-    them."""
+    """The dense family, rwkv6 (family ssm) and jamba (family hybrid) are
+    ported, and the dense LM takes a sliding window; the other families'
+    ids and families, MoE on the dense LM and the int8 cache raise, naming
+    the ROADMAP item that brings them."""
     _, tcfg = _configs("tinyllama-1.1b")
     rwkv = get_config("rwkv6-7b")
     assert rwkv.family == "ssm" and (rwkv.n_layers, rwkv.d_model) == (32, 4096)
     assert get_config("rwkv6-7b", smoke=True).rwkv_head_size == 16
     assert isinstance(build_model(get_config("rwkv6-7b", smoke=True)).init(device="cpu"),
                       TR.RWKVLM)
-    for arch, item in (("jamba-v0.1-52b", "10c"), ("kimi-k2-1t-a32b", "10d"),
-                       ("whisper-medium", "10d"), ("internvl2-2b", "10d")):
+    jamba = get_config("jamba-v0.1-52b")
+    assert jamba.family == "hybrid" and (jamba.n_layers, jamba.d_model) == (32, 4096)
+    assert (jamba.sliding_window, jamba.moe_experts, jamba.moe_topk) == (32768, 16, 2)
+    smoke = get_config("jamba-v0.1-52b", smoke=True)
+    hybrid_lm = build_model(smoke).init(device="cpu")
+    assert isinstance(hybrid_lm, TH.HybridLM)
+    logits, _ = hybrid_lm(torch.zeros(1, 4, dtype=torch.long))
+    assert tuple(logits.shape) == (1, 4, 256) and bool(torch.isfinite(logits.float()).all())
+    for arch, item in (("kimi-k2-1t-a32b", "10d"), ("whisper-medium", "10d"),
+                       ("internvl2-2b", "10d")):
         with pytest.raises(KeyError, match=f"ROADMAP Queue 1 item {item}"):
             get_config(arch)
     with pytest.raises(KeyError, match="unknown"):
         get_config("gpt-5")
-    for family, item in (("hybrid", "10c"), ("moe", "10d"), ("encdec", "10d"), ("vlm", "10d")):
+    for family, item in (("moe", "10d"), ("encdec", "10d"), ("vlm", "10d")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             build_model(dataclasses.replace(tcfg, family=family))
+    assert isinstance(build_model(dataclasses.replace(tcfg, family="hybrid", n_layers=8,
+                                                      moe_experts=0)).init(device="cpu"),
+                      TH.HybridLM)
     with pytest.raises(NotImplementedError, match="item 10d"):
         build_model(dataclasses.replace(tcfg, moe_experts=4)).param_infos()
-    with pytest.raises(NotImplementedError, match="item 10e"):
-        build_model(dataclasses.replace(tcfg, kv_cache_dtype="int8")).init_cache(1, 4,
-                                                                                  device="cpu")
+    for cfg in (tcfg, smoke):
+        with pytest.raises(NotImplementedError, match="item 10e"):
+            build_model(dataclasses.replace(cfg, kv_cache_dtype="int8")).init_cache(
+                1, 4, device="cpu")
+    # the windowed dense LM runs: its first 8 positions see what the full
+    # attention sees, the later ones do not
     windowed = dataclasses.replace(tcfg, sliding_window=8)
-    lm = build_model(windowed).init(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10e"):
-        lm(torch.zeros(1, 4, dtype=torch.long))
+    params = materialize(build_model(windowed).param_infos(), torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (1, 12)))
+    logits, _ = build_model(windowed).build(params)(tokens)
+    full, _ = build_model(tcfg).build(params)(tokens)
+    assert tuple(logits.shape) == (1, 12, 256) and bool(torch.isfinite(logits.float()).all())
+    assert torch.equal(logits[:, :8], full[:, :8]) and not torch.equal(logits[:, 8:], full[:, 8:])

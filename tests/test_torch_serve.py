@@ -16,10 +16,12 @@ from repro.core import Workload as JaxWorkload
 from repro.core.units import KB, MB
 from repro.launch.serve import admission_check as jax_admission_check
 from repro_torch.configs import get_config
-from repro_torch.convert import kv_cache_from_numpy, lm_params_from_numpy, rwkv_cache_from_numpy
+from repro_torch.convert import (hybrid_cache_from_numpy, kv_cache_from_numpy,
+                                 lm_params_from_numpy, rwkv_cache_from_numpy)
 from repro_torch.core import H100_HOST, TPU_V5E_HOST
 from repro_torch.distributed.serve_step import greedy_generate, make_serve_steps
 from repro_torch.kernels import flash_attention as kf
+from repro_torch.kernels import mamba_scan as km
 from repro_torch.kernels import rwkv6_scan as ks
 from repro_torch.launch import serve
 from repro_torch.models import build_model
@@ -64,6 +66,35 @@ def test_main_serves_rwkv_on_cpu():
     assert torch.equal(run.tokens, gen) and len(run.decode_s) == 7
     assert tuple(run.logits[0].shape) == (2, 256) and run.logits[0].dtype == torch.bfloat16
     assert not ks.LAUNCHES  # the CPU route never launches the kernel
+
+
+JAMBA_ARGS = ["--arch", "jamba-v0.1-52b", "--smoke", "--requests", "2", "--prompt-len", "16",
+              "--gen", "8", "--device", "cpu"]
+
+
+def test_main_serves_jamba_on_cpu():
+    """``--arch jamba-v0.1-52b --smoke --device cpu``: the same admission,
+    then the hybrid's prefill and greedy decode against its KV cache and
+    Mamba states, equal to the library's greedy loop on the same weights
+    and prompts; the admission is the JAX driver's."""
+    km.reset_launches()
+    kf.reset_launches()
+    gen = serve.main(JAMBA_ARGS)
+    assert tuple(gen.shape) == (2, 8) and gen.dtype == torch.int64
+    assert bool(((gen >= 0) & (gen < 256)).all())
+    assert torch.equal(serve.main(JAMBA_ARGS), gen)
+    cfg = get_config("jamba-v0.1-52b", smoke=True)
+    model, lm, prompts = serve.prepare(cfg, requests=2, prompt_len=16, device="cpu")
+    toks, cache = greedy_generate(model, lm, {"tokens": prompts},
+                                  model.init_cache(2, 24, device="cpu"), 8)
+    assert torch.equal(toks, gen) and cache["len"] == 23
+    assert set(cache) == {"k", "v", "h", "conv", "len"}
+    run = serve.generate(model, lm, prompts, 8, keep_logits=True)
+    assert torch.equal(run.tokens, gen) and len(run.decode_s) == 7
+    assert tuple(run.logits[0].shape) == (2, 256) and run.logits[0].dtype == torch.bfloat16
+    assert serve.admission_check("jamba-v0.1-52b", 3, host=TPU_V5E_HOST, device="cpu") == \
+        jax_admission_check("jamba-v0.1-52b", 3)
+    assert not km.LAUNCHES and not kf.LAUNCHES  # the CPU route never launches a kernel
 
 
 def test_generate_keeps_logits_and_times():
@@ -158,6 +189,10 @@ def test_serving_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
                                        "shift_c": np.zeros(1), "len": 0}),
         lambda: build_model(get_config("rwkv6-7b", smoke=True)).init_cache(1, 4),
         lambda: serve.main(RWKV_ARGS[:-2]),
+        lambda: hybrid_cache_from_numpy({"k": np.zeros(1), "v": np.zeros(1), "h": np.zeros(1),
+                                         "conv": np.zeros(1), "len": 0}),
+        lambda: build_model(get_config("jamba-v0.1-52b", smoke=True)).init(),
+        lambda: serve.main(JAMBA_ARGS[:-2]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
