@@ -100,8 +100,11 @@ flash kernel -- in thirteen phases:
      and flash_attention 2 x 32 times; a shadow rerun holds every one of
      those launches to its plain version on its own inputs; the
      teacher-forced plain-route replay is measured beside a witness with
-     attention and the scan in float64 (MoE routing flips on last-bit
-     differences, so no limit holds there); at float32 compute on a
+     attention and the scan in float64 on three prompt seeds (MoE routing
+     flips on last-bit differences, so no limit holds there), in which
+     each kernel, launch by launch, must lie no further from float64 than
+     twice its plain version (flash: outputs over one bf16 ulp; the scan:
+     largest error); at float32 compute on a
      one-period cut (8 layers, 53.2 GB), decode steps from one state must
      agree across the routes (1e-4 of the logits' scale); prefill ms,
      decode ms per step, tokens/s, peak memory, device kernels per decode
@@ -1044,7 +1047,7 @@ def jax_scale_witness(cfg, prompts, device) -> dict:
         plain64 = prefill_logits()
     finally:
         ops.gqa_flash_attention = real
-    lm.attn_mode = "torch"
+    lm.mode = "torch"
     plain = prefill_logits()
     del lm
     gap = lambda a, b: float((a - b).abs().max()) / float(b.abs().max())  # noqa: E731
@@ -1227,9 +1230,9 @@ def phase_serve(device, smoke: bool = False, requests: int = 8, prompt_len: int 
           f"flash_attention launches {n_launch} over {len(launches)} shapes")
 
     # the plain route, teacher-forced on the kernel route's tokens
-    lm.attn_mode = "torch"
+    lm.mode = "torch"
     gaps = replay_gaps(model, lm, prompts, run, tol)
-    lm.attn_mode = None
+    lm.mode = None
     for t, (rel, _, wide_flips) in enumerate(gaps):
         check(rel <= tol, f"step {t}: plain and kernel routes' logits differ by {rel:.3g} of "
               f"their scale")
@@ -1428,9 +1431,9 @@ def rwkv_witness(model, lm, prompts, kern_logits) -> dict:
         return model.prefill(lm, {"tokens": prompts}, cache)[0][:, -1, :].float()
 
     real = ops.rwkv6_wkv
-    lm.wkv_mode = "torch"
+    lm.mode = "torch"
     plain = logits()
-    lm.wkv_mode = None
+    lm.mode = None
     try:
         ops.rwkv6_wkv = rwkv_f64
         plain64 = logits()
@@ -1441,18 +1444,10 @@ def rwkv_witness(model, lm, prompts, kern_logits) -> dict:
                 kernel_vs_f64=gap(kern_logits, plain64))
 
 
-def set_route(lm, mode, routes=("wkv_mode",)) -> None:
-    """Point every route attribute of ``lm`` (``wkv_mode``, ``attn_mode``,
-    ``scan_mode``) at ``mode``: 'torch' for the plain route, None for the
-    kernels."""
-    for name in routes:
-        setattr(lm, name, mode)
-
-
-def twin_decode_gaps(model, lm, prompts, tol: float, steps: int = 8,
-                     routes=("wkv_mode",)) -> list[tuple[float, int, int]]:
+def twin_decode_gaps(model, lm, prompts, tol: float,
+                     steps: int = 8) -> list[tuple[float, int, int]]:
     """A kernel-route prefill, then ``steps`` greedy decode steps, each run
-    also on the plain route (``routes`` set to 'torch') from a copy of the
+    also on the plain route (``lm.mode`` 'torch') from a copy of the
     same state: ``logit_gap`` of the plain step's logits from the kernel
     step's, per step."""
     import torch
@@ -1464,9 +1459,9 @@ def twin_decode_gaps(model, lm, prompts, tol: float, steps: int = 8,
     for _ in range(steps):
         tok = logits[:, -1, :].float().argmax(-1)[:, None]
         twin = {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in cache.items()}
-        set_route(lm, "torch", routes)
+        lm.mode = "torch"
         plain, _ = model.decode_step(lm, twin, tok)
-        set_route(lm, None, routes)
+        lm.mode = None
         logits, cache = model.decode_step(lm, cache, tok)
         gaps.append(logit_gap(plain[:, -1, :].float(), logits[:, -1, :].float(), tol))
     return gaps
@@ -1580,9 +1575,9 @@ def phase_serve_rwkv(device, smoke: bool = False, requests: int = 8, prompt_len:
 
     # the plain route, teacher-forced on the kernel route's tokens: measured
     before = sum(ks.LAUNCHES.values())
-    lm.wkv_mode = "torch"
+    lm.mode = "torch"
     gaps = replay_gaps(model, lm, prompts, run, tol)
-    lm.wkv_mode = None
+    lm.mode = None
     check(sum(ks.LAUNCHES.values()) == before, "the plain route launched the kernel")
     witness = rwkv_witness(model, lm, prompts, run.logits[0].float())
     witness["bf16_decode_from_one_state"] = max(
@@ -1757,10 +1752,6 @@ def phase_mamba_scan(device) -> dict:
     return rows
 
 
-#: the routes of the hybrid LM: attention and Mamba's scan
-HYBRID_ROUTES = ("attn_mode", "scan_mode")
-
-
 def jamba_served(smoke: bool = False):
     """jamba-v0.1-52b at its published widths, cut in depth from 32 to 16
     layers (two of four periods) with bf16 weights: 52.1 GB, the deepest
@@ -1830,30 +1821,70 @@ def shadow_rerun_hybrid(model, lm, prompts, run) -> dict:
                 rerun_gap=max(g[0] for g in gaps))
 
 
-def hybrid_witness(model, lm, prompts, kern_logits) -> dict:
-    """The serving prefill's last-position logits by three routes: the
-    kernels' (``kern_logits``), the plain versions', and the plain route
-    with attention and the scan in float64. A gap between the kernel and
-    plain routes that the plain route shows against float64 too is the
-    model's amplification of last-bit differences, not the kernels'."""
+#: prompt seeds of the hybrid witness: the served prompts' and two more
+WITNESS_SEEDS = (SEED, SEED + 1, SEED + 2)
+
+
+def hybrid_witness(model, lm, prompts) -> dict:
+    """The serving prefill of ``prompts`` by three routes: the kernels', the
+    plain versions', and the plain route with attention and the scan in
+    float64; the gaps of their last-position logits. Inside the kernel
+    route every launch is also computed by its plain version and in float64
+    on the same inputs: for attention, the outputs more than one bf16 ulp
+    from float64 (rounded to bf16) are counted for the kernel and for the
+    plain version; for the scan, each one's largest error from float64 on
+    y and the final state. Kernels no further from float64 than their
+    plain versions, launch by launch, while the whole routes' logits lie
+    apart, show the model's amplification of last-bit differences, not a
+    fault of the kernels."""
+    import torch
     from repro_torch.kernels import ops
+
+    real_scan, real_attn = ops.selective_scan, ops.gqa_flash_attention
+    attn, scan = [], []
+
+    def counted_attn(q, k, v, *, mode="cuda", **kw):
+        out = real_attn(q, k, v, mode=mode, **kw)
+        plain = real_attn(q, k, v, mode="torch", **kw)
+        ref = attention64(q, k, v, **kw)
+        ku, pu = bf16_ulps(out, ref), bf16_ulps(plain, ref)
+        attn.append((int((ku > 1).sum()), int((pu > 1).sum()), float(ku.max()), float(pu.max()),
+                     out.numel()))
+        return out
+
+    def counted_scan(delta, u, bm, cm, A, h0, *, mode="cuda"):
+        out = real_scan(delta, u, bm, cm, A, h0, mode=mode)
+        plain = real_scan(delta, u, bm, cm, A, h0, mode="torch")
+        ref = selective_scan_f64(delta, u, bm, cm, A, h0)
+        err = lambda got: max(float((g - r).abs().max()) for g, r in zip(got, ref))  # noqa: E731
+        scan.append((err(out), err(plain)))
+        return out
 
     def logits():
         cache = model.init_cache(prompts.shape[0], prompts.shape[1] + 1, device=prompts.device)
         return model.prefill(lm, {"tokens": prompts}, cache)[0][:, -1, :].float()
 
-    real_scan, real_attn = ops.selective_scan, ops.gqa_flash_attention
-    set_route(lm, "torch", HYBRID_ROUTES)
     try:
+        ops.selective_scan, ops.gqa_flash_attention = counted_scan, counted_attn
+        kern = logits()
+        lm.mode = "torch"
+        ops.selective_scan, ops.gqa_flash_attention = real_scan, real_attn
         plain = logits()
         ops.selective_scan, ops.gqa_flash_attention = selective_scan_f64, attention64
         plain64 = logits()
     finally:
         ops.selective_scan, ops.gqa_flash_attention = real_scan, real_attn
-        set_route(lm, None, HYBRID_ROUTES)
+        lm.mode = None
     gap = lambda a, b: float((a - b).abs().max()) / float(b.abs().max())  # noqa: E731
-    return dict(kernel_vs_plain=gap(kern_logits, plain), plain_vs_f64=gap(plain, plain64),
-                kernel_vs_f64=gap(kern_logits, plain64))
+    return dict(kernel_vs_plain=gap(kern, plain), plain_vs_f64=gap(plain, plain64),
+                kernel_vs_f64=gap(kern, plain64),
+                attn_outputs=sum(a[4] for a in attn),
+                attn_kernel_over_1ulp=sum(a[0] for a in attn),
+                attn_plain_over_1ulp=sum(a[1] for a in attn),
+                attn_kernel_max_ulps=max(a[2] for a in attn),
+                attn_plain_max_ulps=max(a[3] for a in attn),
+                scan_launches=len(scan), scan_kernel_err=max(e[0] for e in scan),
+                scan_plain_err=max(e[1] for e in scan))
 
 
 def jamba_f32_decode_check(device, requests: int, prompt_len: int) -> float:
@@ -1872,7 +1903,7 @@ def jamba_f32_decode_check(device, requests: int, prompt_len: int) -> float:
     f32 = dc.replace(jamba_served(), n_layers=8, param_dtype=torch.float32, compute_dtype=torch.float32)
     model, lm, prompts = serve.prepare(f32, requests=requests, prompt_len=prompt_len, seed=SEED,
                                        device=device)
-    gaps = twin_decode_gaps(model, lm, prompts, tol, routes=HYBRID_ROUTES)
+    gaps = twin_decode_gaps(model, lm, prompts, tol)
     for t, (rel, _, wide_flips) in enumerate(gaps):
         check(rel <= tol, f"jamba f32 decode step {t} from one state: plain and kernel routes' "
               f"logits differ by {rel:.3g} of their scale (tol {tol})")
@@ -1894,8 +1925,10 @@ def phase_serve_jamba(device, smoke: bool = False, requests: int = 8, prompt_len
     MoE's top-2 routing and capacity drops flip on last-bit differences, so
     two correct bf16 routes give logits far apart. So every scan and
     attention launch of the served run is held to the plain version on its
-    own inputs (``shadow_rerun_hybrid``); the teacher-forced plain-route replay is
-    measured beside ``hybrid_witness``, not held to a limit; at float32
+    own inputs (``shadow_rerun_hybrid``); the teacher-forced plain-route
+    replay is measured beside ``hybrid_witness`` on ``WITNESS_SEEDS``, not
+    held to a limit, and each kernel must lie, launch by launch, no further
+    from float64 than twice its plain version there; at float32
     compute on a one-period cut, decode steps from one state must agree
     across the routes (``jamba_f32_decode_check``); a SMOKE run at f32
     compute with a prompt longer than SMOKE's window of 64, so the window
@@ -1978,28 +2011,51 @@ def phase_serve_jamba(device, smoke: bool = False, requests: int = 8, prompt_len
 
     # the plain route, teacher-forced on the kernel route's tokens: measured
     before = (sum(km.LAUNCHES.values()), sum(kf.LAUNCHES.values()))
-    set_route(lm, "torch", HYBRID_ROUTES)
+    lm.mode = "torch"
     gaps = replay_gaps(model, lm, prompts, run, tol)
-    set_route(lm, None, HYBRID_ROUTES)
+    lm.mode = None
     check((sum(km.LAUNCHES.values()), sum(kf.LAUNCHES.values())) == before,
           "the plain route launched a kernel")
-    witness = hybrid_witness(model, lm, prompts, run.logits[0].float())
-    witness["bf16_decode_from_one_state"] = max(
-        g[0] for g in twin_decode_gaps(model, lm, prompts, tol, routes=HYBRID_ROUTES))
-    check(all(math.isfinite(v) for v in witness.values()), f"witness: {witness}")
+    bf16_decode = max(g[0] for g in twin_decode_gaps(model, lm, prompts, tol))
     print(f"[13 serve jamba] plain route teacher-forced over {n_gen} calls (measured, not held "
           f"to {tol}): logits {gaps[0][0]:.4g} of their scale apart at the prefill, "
           f"{max(g[0] for g in gaps[1:]) if n_gen > 1 else 0.0:.4g} at most over the decode "
           f"steps; argmax differs in {sum(g[1] for g in gaps)} of {requests * n_gen} places, "
-          f"{sum(g[2] for g in gaps)} of them where the top-2 gap exceeds {tol} of the scale. "
-          f"Witness at the prefill: kernel vs plain {witness['kernel_vs_plain']:.4g}, plain vs "
-          f"attention and scan in float64 {witness['plain_vs_f64']:.4g}, kernel vs float64 "
-          f"{witness['kernel_vs_f64']:.4g}; 8 bf16 decode steps each from one state by both "
-          f"routes: logits up to {witness['bf16_decode_from_one_state']:.4g} apart")
+          f"{sum(g[2] for g in gaps)} of them where the top-2 gap exceeds {tol} of the scale; "
+          f"8 bf16 decode steps each from one state by both routes: logits up to "
+          f"{bf16_decode:.4g} apart")
+    witnesses = []
+    for seed in WITNESS_SEEDS:
+        seeded = prompts if seed == SEED else torch.randint(
+            0, cfg.vocab, tuple(prompts.shape), device=device,
+            generator=torch.Generator(device).manual_seed(seed))
+        w = hybrid_witness(model, lm, seeded)
+        check(all(math.isfinite(v) for v in w.values()), f"witness: {w}")
+        check(w["scan_launches"] == n_mamba, f"the witness read {w['scan_launches']} scans")
+        # a kernel that rounds where its plain version does not, or masks a
+        # row it should see, lands far more outputs away from float64
+        check(w["attn_kernel_over_1ulp"] <= 2 * w["attn_plain_over_1ulp"] + 64,
+              f"witness seed {seed}: {w['attn_kernel_over_1ulp']} flash outputs lie more than "
+              f"1 bf16 ulp from float64, the plain version's {w['attn_plain_over_1ulp']}")
+        check(w["scan_kernel_err"] <= 2 * w["scan_plain_err"] + 1e-8,
+              f"witness seed {seed}: the scan kernel is {w['scan_kernel_err']:.3g} from float64, "
+              f"the plain version {w['scan_plain_err']:.3g}")
+        print(f"[13 serve jamba] witness, prefill of the "
+              f"{'served prompts' if seed == SEED else f'prompts of seed {seed}'}: last-position "
+              f"logits kernel vs plain route {w['kernel_vs_plain']:.4g} of their scale, plain vs "
+              f"attention and scan in float64 {w['plain_vs_f64']:.4g}, kernel vs float64 "
+              f"{w['kernel_vs_f64']:.4g}; per launch on the kernel route's inputs, of "
+              f"{w['attn_outputs']} attention outputs {w['attn_kernel_over_1ulp']} lie more than "
+              f"1 bf16 ulp from float64 by the kernel (max {w['attn_kernel_max_ulps']:.4g} ulps) "
+              f"and {w['attn_plain_over_1ulp']} by the plain version (max "
+              f"{w['attn_plain_max_ulps']:.4g}); the {w['scan_launches']} scans' largest error "
+              f"from float64 {w['scan_kernel_err']:.3g} by the kernel, "
+              f"{w['scan_plain_err']:.3g} by the plain version")
+        witnesses.append(w)
     out = dict(launches_scan=scans, launches_flash=flashes, prefill_ms=1e3 * run.prefill_s,
                decode_ms=statistics.mean(decode_ms), tokens_per_s=requests * n_gen / total,
-               replay_gaps=[g[0] for g in gaps], witness=witness,
-               shadow_err=shadow["max_abs_err"], peak_gib=peak / 2**30)
+               replay_gaps=[g[0] for g in gaps], witnesses=witnesses,
+               bf16_decode_from_one_state=bf16_decode, shadow_err=shadow["max_abs_err"], peak_gib=peak / 2**30)
     if not on_card:
         return out
 
@@ -2054,7 +2110,6 @@ def main() -> int:
     served_rwkv = phase_serve_rwkv(device)
     free_card()
     scan = phase_mamba_scan(device)
-    free_card()
     served_jamba = phase_serve_jamba(device)
 
     q = 1024

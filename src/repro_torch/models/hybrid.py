@@ -94,8 +94,7 @@ def cache_infos(cfg, batch: int, max_len: int) -> dict:
 
 
 def _period_apply(pp: Mapping, x: torch.Tensor, cfg, *, positions: torch.Tensor, rope_cs,
-                  pcache: dict | None, group: str, attn_mode: str | None = None,
-                  scan_mode: str | None = None) -> torch.Tensor:
+                  pcache: dict | None, group: str, mode: str | None = None) -> torch.Tensor:
     """Run the 8 sub-layers of one period on x [B, S, D]. ``pp`` maps
     sub0..sub7 to their blocks' parameter mappings; ``pcache`` is this
     period's {'k', 'v', 'h', 'conv', 'len'} (first axis: the attention or
@@ -108,11 +107,11 @@ def _period_apply(pp: Mapping, x: torch.Tensor, cfg, *, positions: torch.Tensor,
             cache_i = None if pcache is None else {"k": pcache["k"][ai], "v": pcache["v"][ai],
                                                    "len": pcache["len"]}
             a, _ = L.attention_apply(p["attn"], h, cfg, positions=positions, cache=cache_i,
-                                     window=cfg.sliding_window, mode=attn_mode, rope_cs=rope_cs)
+                                     window=cfg.sliding_window, mode=mode, rope_cs=rope_cs)
             ai += 1
         else:
             st = None if pcache is None else {"h": pcache["h"][mi], "conv": pcache["conv"][mi]}
-            a, new = mamba.apply(p["mamba"], h, cfg, st, mode=scan_mode)
+            a, new = mamba.apply(p["mamba"], h, cfg, st, mode=mode)
             if pcache is not None:
                 pcache["h"][mi].copy_(new["h"])
                 pcache["conv"][mi].copy_(new["conv"])
@@ -149,14 +148,13 @@ class HybridLM(L.Weights):
     """The hybrid LM on the device its weights lie on.
 
     ``params`` is the JAX parameter tree (``lm_infos``) as tensors. The
-    attributes ``attn_mode`` and ``scan_mode`` pick the attention and the
-    Mamba scan routes for every layer: ``None`` (the default) follows the
-    tensors' device ('cuda' launches the kernel, 'torch' runs its plain
-    version); setting them to 'torch' on the card replays the plain route.
+    attribute ``mode`` picks the route of attention and of the Mamba scan
+    for every layer: ``None`` (the default) follows the tensors' device
+    ('cuda' launches the kernels, 'torch' runs their plain versions);
+    setting it to 'torch' on the card replays the plain route.
     """
 
-    attn_mode: str | None = None
-    scan_mode: str | None = None
+    mode: str | None = None
 
     def __init__(self, cfg, params: Mapping):
         super().__init__({"embed": params["embed"], "lm_head": params["lm_head"]},
@@ -188,8 +186,7 @@ class HybridLM(L.Weights):
             if pcache is not None:
                 pcache["len"] = offset
             x = _period_apply(period.weights(), x, cfg, positions=positions, rope_cs=rope_cs,
-                              pcache=pcache, group=group, attn_mode=self.attn_mode,
-                              scan_mode=self.scan_mode)
+                              pcache=pcache, group=group, mode=self.mode)
         new_cache = None if cache is None else dict(cache, len=offset + S)
         if last_only:  # the norm is per position: normalise only what is kept
             x = x[:, -1:, :]

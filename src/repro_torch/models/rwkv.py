@@ -207,13 +207,13 @@ class RWKVLM(L.Weights):
     """The RWKV6 LM on the device its weights lie on.
 
     ``params`` is the JAX parameter tree (``lm_infos``) as tensors. The
-    attribute ``wkv_mode`` picks the WKV route for every layer: ``None``
+    attribute ``mode`` picks the WKV route for every layer: ``None``
     (the default) follows the tensors' device ('cuda' launches the kernel,
     'torch' runs its plain version); setting it to 'torch' on the card
     replays the plain route.
     """
 
-    wkv_mode: str | None = None
+    mode: str | None = None
 
     def __init__(self, cfg, params: Mapping):
         super().__init__({"embed": params["embed"], "lm_head": params["lm_head"]},
@@ -236,7 +236,7 @@ class RWKVLM(L.Weights):
         for i, layer in enumerate(self.layers):
             state = None if cache is None else {n: cache[n][i]
                                                 for n in ("wkv", "shift_t", "shift_c")}
-            x, new = layer(x, state, mode=self.wkv_mode)
+            x, new = layer(x, state, mode=self.mode)
             if cache is not None:
                 for n in ("wkv", "shift_t", "shift_c"):
                     cache[n][i].copy_(new[n])

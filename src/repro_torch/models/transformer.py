@@ -72,13 +72,13 @@ class TransformerLM(L.Weights):
     """The dense LM on the device its weights lie on.
 
     ``params`` is the JAX parameter tree (``lm_infos``) as tensors. The
-    attribute ``attn_mode`` picks the attention route for every layer:
+    attribute ``mode`` picks the attention route for every layer:
     ``None`` (the default) follows the tensors' device ('cuda' launches the
     kernel, 'torch' runs its plain version); setting it to 'torch' on the
     card replays the plain route.
     """
 
-    attn_mode: str | None = None
+    mode: str | None = None
 
     def __init__(self, cfg, params: Mapping):
         top = {"embed": params["embed"]}
@@ -111,7 +111,7 @@ class TransformerLM(L.Weights):
         for i, layer in enumerate(self.layers):
             lc = None if cache is None else {"k": cache["k"][i], "v": cache["v"][i],
                                              "len": offset}
-            x = layer(x, positions=positions, rope_cs=rope_cs, cache=lc, mode=self.attn_mode)
+            x = layer(x, positions=positions, rope_cs=rope_cs, cache=lc, mode=self.mode)
         new_cache = None if cache is None else dict(cache, len=offset + S)
         if last_only:  # the norm is per position: normalise only what is kept
             x = x[:, -1:, :]

@@ -33,6 +33,7 @@ from repro.configs.registry import get_config as jax_config
 from repro.distributed.serve_step import make_serve_steps as jax_serve_steps
 from repro.models import build_model as jax_build
 from repro.models import layers as JL
+from repro.models import mamba as JM
 from repro.models import materialize as jax_materialize
 from repro_torch.configs import get_config
 from repro_torch.convert import hybrid_cache_from_numpy, lm_params_from_numpy
@@ -224,35 +225,120 @@ def test_greedy_tokens_match_jax():
     np.testing.assert_array_equal(run.tokens.numpy(), np.stack(want, axis=1))
 
 
-def test_lm_bf16_logits_beside_the_reference():
-    """bf16 compute on JAX's own SMOKE weights: the port's prefill logits
-    against JAX's, measured beside the reference's own bf16 logits against
-    its float32 ones. This random model amplifies last-bit differences
-    (std-0.88 matrices; MoE's top-2 routing and capacity drops flip on
-    them), so the reference's own bf16 logits lie beyond 2e-2 of its
-    float32 ones and no 2e-2 limit can hold between two bf16 routes; each
-    block is held to 2e-2 at bf16 instead (``tests/test_torch_mamba.py``,
-    ``tests/test_torch_moe.py``, the windowed attention above)."""
-    gaps = {}
-    for compute in ("float32", "bfloat16"):
-        jcfg, tcfg = _configs(compute)
-        jm = jax_build(jcfg)
-        params = jax.tree_util.tree_map(np.array, jax_materialize(jm.param_infos(),
-                                                                  jax.random.PRNGKey(0)))
-        toks = np.random.default_rng(0).integers(0, jcfg.vocab, (2, 16)).astype(np.int32)
-        jc = jax_materialize(jm.cache_infos(2, 16), jax.random.PRNGKey(0))
-        jl, _ = jax.jit(jm.prefill)(jax.tree_util.tree_map(jnp.asarray, params),
-                                    {"tokens": jnp.asarray(toks)}, jc)
-        tm, lm = build_model(tcfg), lm_params_from_numpy(tcfg, params, device="cpu")
+#: prompt and weight seeds of the bf16 LM comparison
+BF16_SEEDS = range(8)
+#: the port's bf16 logits may lie this many times as far from JAX's float32
+#: logits as JAX's own bf16 logits do, on average over ``BF16_SEEDS``
+BF16_REL_LIMIT = 1.5
+
+
+@pytest.fixture(scope="module")
+def bf16_refs():
+    """Per seed: JAX's own SMOKE weights drawn from it (numpy), a 16-token
+    prompt for 2 requests, and JAX's prefill logits at float32 and bf16
+    compute."""
+    jm = {c: jax_build(_configs(c)[0]) for c in ("float32", "bfloat16")}
+    prefill = {c: jax.jit(m.prefill) for c, m in jm.items()}
+    refs = []
+    for seed in BF16_SEEDS:
+        params = jax.tree_util.tree_map(np.array, jax_materialize(jm["float32"].param_infos(),
+                                                                  jax.random.PRNGKey(seed)))
+        toks = np.random.default_rng(seed).integers(0, jm["float32"].cfg.vocab,
+                                                    (2, 16)).astype(np.int32)
+        logits = {c: np.asarray(prefill[c](jax.tree_util.tree_map(jnp.asarray, params),
+                                           {"tokens": jnp.asarray(toks)},
+                                           jax_materialize(jm[c].cache_infos(2, 16),
+                                                           jax.random.PRNGKey(0)))[0], np.float32)
+                  for c in jm}
+        refs.append((params, toks, logits))
+    return refs
+
+
+def _bf16_gaps(refs) -> tuple[list[float], list[float]]:
+    """(the port's bf16 prefill logits from JAX's float32 ones, JAX's bf16
+    from its float32), each seed's max |diff| over the float32 logits'
+    max |.|."""
+    _, tcfg = _configs("bfloat16")
+    tm, port, ref = build_model(tcfg), [], []
+    for params, toks, logits in refs:
+        lm = lm_params_from_numpy(tcfg, params, device="cpu")
         tl, _ = tm.prefill(lm, {"tokens": torch.from_numpy(toks)}, tm.init_cache(2, 16,
                                                                                 device="cpu"))
-        gaps[compute] = (tl.float().numpy(), np.asarray(jl, np.float32))
-    port16, jax16 = gaps["bfloat16"]
-    jax32 = gaps["float32"][1]
-    print(f"{ARCH} SMOKE bf16 prefill logits: port vs JAX {_gap(port16, jax16):.4g}, JAX bf16 "
-          f"vs JAX f32 {_gap(jax16, jax32):.4g}, port bf16 vs JAX f32 {_gap(port16, jax32):.4g}")
-    assert np.isfinite(port16).all()
-    assert _gap(jax16, jax32) > 2e-2
+        assert tl.dtype == torch.bfloat16 and np.isfinite(tl.float().numpy()).all()
+        port.append(_gap(tl, logits["float32"]))
+        ref.append(_gap(logits["bfloat16"], logits["float32"]))
+    return port, ref
+
+
+def test_lm_bf16_logits_beside_the_reference(bf16_refs):
+    """bf16 compute on JAX's own SMOKE weights, eight seeds: the port's
+    prefill logits lie, on average, no more than 1.5 times as far from
+    JAX's float32 logits as JAX's own bf16 logits do. This random model
+    amplifies last-bit differences (std-0.88 matrices; MoE's top-2 routing
+    and capacity drops flip on them), so JAX's bf16 logits lie 0.02-0.6 of
+    their scale from its float32 ones, seed by seed, and no fixed 2e-2
+    limit holds between two bf16 routes; a relative one over seeds does.
+    Each block is also held to JAX at 2e-2 at bf16
+    (``tests/test_torch_mamba.py``, ``tests/test_torch_moe.py``, the
+    windowed attention above)."""
+    port, ref = _bf16_gaps(bf16_refs)
+    print(f"{ARCH} SMOKE bf16 prefill logits from JAX's float32, mean over {len(BF16_SEEDS)} "
+          f"seeds: port {np.mean(port):.4g}, JAX {np.mean(ref):.4g}; by seed port "
+          f"{np.round(port, 4).tolist()}, JAX {np.round(ref, 4).tolist()}")
+    assert np.mean(port) <= BF16_REL_LIMIT * np.mean(ref), (port, ref)
+
+
+def test_bf16_logits_limit_rejects_fp8_residual(bf16_refs, monkeypatch):
+    """Control for the limit above: a port that reads its residual stream
+    at float8 (e4m3), a precision below bf16, before every norm fails it."""
+    norm = TL.norm_apply
+    monkeypatch.setattr(TL, "norm_apply", lambda p, x, cfg: norm(
+        p, x.to(torch.float8_e4m3fn).to(x.dtype), cfg))
+    port, ref = _bf16_gaps(bf16_refs)
+    print(f"{ARCH} SMOKE bf16 prefill logits with a float8 residual from JAX's float32, mean: "
+          f"port {np.mean(port):.4g}, JAX {np.mean(ref):.4g}")
+    assert np.mean(port) > BF16_REL_LIMIT * np.mean(ref), (port, ref)
+
+
+@pytest.mark.parametrize("block", ["mamba", "moe", "mlp", "attn"])
+def test_bf16_block_as_close_to_float32_as_jax(block):
+    """Each block at bf16 compute, on the port's weights (one layer's
+    fan-in) and a bf16 input, six seeds: the port's output lies no further
+    from JAX's float32 output, in RMS over the float32 output's max |.|
+    and on average over the seeds, than 1.25 times JAX's own bf16 output
+    does. So the LM's distance above comes from the model's amplification,
+    not from a block that rounds more than the reference."""
+    jc16, tc16 = _configs("bfloat16")
+    jc32, _ = _configs("float32")
+    sub = {"mamba": "sub0", "moe": "sub1", "mlp": "sub0", "attn": "sub4"}[block]
+    pos = np.arange(16)
+    run = {
+        "mamba": (lambda c, x, p: JM.apply(p, x, c, None)[0],
+                  lambda x, p: TH.mamba.apply(p, x, tc16, None)[0]),
+        "moe": (lambda c, x, p: JL.moe_apply(p, x, c, group="seq"),
+                lambda x, p: TL.moe_apply(p, x, tc16, group="seq")),
+        "mlp": (lambda c, x, p: JL.mlp_apply(p, x, c), lambda x, p: TL.mlp_apply(p, x, tc16)),
+        "attn": (lambda c, x, p: JL.attention_apply(p, x, c, positions=jnp.asarray(pos),
+                                                     window=c.sliding_window)[0],
+                 lambda x, p: TL.attention_apply(p, x, tc16, positions=torch.from_numpy(pos),
+                                                 window=tc16.sliding_window)[0]),
+    }[block]
+    rms = lambda a, ref: float(np.sqrt(((a - ref) ** 2).mean()) / np.abs(ref).max())  # noqa: E731
+    port, ref = [], []
+    for seed in range(6):
+        leaves = {n: a[0] for n, a in _port_params(tc16, seed)["periods"][sub][block].items()}
+        x = np.array(jnp.asarray(np.random.default_rng(seed).normal(size=(2, 16, 64)),
+                                 jnp.bfloat16).astype(jnp.float32))
+        jp = {n: jnp.asarray(a) for n, a in leaves.items()}
+        want = np.asarray(run[0](jc32, jnp.asarray(x), jp), np.float64)
+        ref.append(rms(np.asarray(run[0](jc16, jnp.asarray(x, jnp.bfloat16), jp), np.float64),
+                       want))
+        got = run[1](torch.from_numpy(x).bfloat16(), {n: torch.from_numpy(a)
+                                                      for n, a in leaves.items()})
+        port.append(rms(got.double().numpy(), want))
+    print(f"{block} at bf16, RMS from JAX's float32 over its max |.|, mean over 6 seeds: port "
+          f"{np.mean(port):.4g}, JAX {np.mean(ref):.4g}")
+    assert np.mean(port) <= 1.25 * np.mean(ref), (port, ref)
 
 
 # --- the port against itself ---------------------------------------------------------------
@@ -306,8 +392,8 @@ def test_layer_pattern_and_launch_routes(monkeypatch):
     """One period: attention at sub-layer 4, Mamba elsewhere; MoE on odd
     sub-layers, the dense MLP on even ones. A forward on the kernel route
     would go through the attention op once and the scan op seven times per
-    period (counted here on the plain route), and the route attributes
-    reach every layer."""
+    period (counted here on the plain route), and the route attribute
+    reaches every layer."""
     _, tcfg = _configs("bfloat16")
     infos = TH.period_infos(tcfg)
     assert [("attn" in infos[f"sub{i}"], "moe" in infos[f"sub{i}"]) for i in range(8)] == [
@@ -320,7 +406,7 @@ def test_layer_pattern_and_launch_routes(monkeypatch):
                             *a, mode=mode, **kw))
     monkeypatch.setattr(TH.mamba.ops, "selective_scan",
                         lambda *a, mode: calls["scan"].append(mode) or real_scan(*a, mode=mode))
-    lm.attn_mode = lm.scan_mode = "torch"
+    lm.mode = "torch"
     lm(torch.zeros(2, 5, dtype=torch.long))
     assert calls == {"attn": ["torch"] * 2, "scan": ["torch"] * 14}
     assert not km.LAUNCHES and not kf.LAUNCHES
