@@ -14,15 +14,19 @@ flash kernel -- in thirteen phases:
 
   1. environment: torch and CUDA versions, the card's name and power limit;
   2. build: nvcc builds every kernel under ``src/repro_torch/kernels/csrc``;
-  3. kernel vs plain version: ``consolidation_scores`` against
-     ``consolidation_scores_torch`` on the same inputs (64 servers, Q = 1, 8,
-     512, 1024; max abs error <= 1e-5 on both outputs), with median times;
+  3. kernel vs plain version: ``consolidation_scores`` by both of its paths
+     (the single pass and the table path, whose outputs must be bitwise
+     equal) against ``consolidation_scores_torch`` on the same inputs (64
+     servers, Q = 1, 8, 16, 32, 64, 128, 512, 1024, 4096, on either side of
+     the crossover; max abs error <= 1e-5 on both outputs), with median
+     device times of each path;
   4. main path, rack scale: 64 servers, 1024 arrivals through the engine;
      the kernel route must place exactly as the plain-version route, the
      criterion-1 queue and a full queue rescan must occur, and a small trace
      must place exactly as the port does on the CPU;
-  5. main path, fleet scale: 1024 servers, 4096 arrivals: the kernel against
-     its plain version at this width and the rescans' Q = 4096 (<= 1e-5),
+  5. main path, fleet scale: 1024 servers, 4096 arrivals: the kernel by both
+     paths against its plain version at this width, at Q = 1, 8 and the
+     rescans' Q = 4096 (<= 1e-5, the paths bitwise equal),
      then the engine with the kernel route, which must place exactly as the
      plain-version route on the same trace;
   6. pair_scatter vs plain version: ``pair_scatter`` against
@@ -48,13 +52,17 @@ flash kernel -- in thirteen phases:
      non-causal shape, the llama3.2 width (H 24, Hkv 8, dh 128), dh 16
      and 32, jamba's width (H 32, Hkv 8, dh 128) with sliding windows of
      64 and 256 at the prefill and 64 at decode@511, and f32 q on a bf16
-     cache at dh 64, 128, 16 and 32 and under a window; device times
-     of the kernel, the plain version and ``scaled_dot_product_attention``
-     (the library call, never used by the port), beside the bound;
+     cache at dh 64, 128, 16 and 32 and under a window; every bf16 call
+     must run a tensor-core entry (the split one at decode, whose outputs
+     must be bitwise equal on a rerun) and every f32-q call the CUDA-core
+     one; device times of the kernel, the plain version and
+     ``scaled_dot_product_attention`` (the library call, never used by the
+     port), beside the bound;
   9. serving, ``tinyllama-1.1b`` at full width with weights drawn on the
      card: admission of 8 streams on two H100 hosts through the CUDA
      scorer, then 8 requests of 512 prompt tokens and 32 greedy tokens by
-     the kernel route, which must launch flash_attention 22 x 32 times; a
+     the kernel route, which must launch flash_attention 22 x 32 times, all
+     on the tensor-core entries; a
      teacher-forced replay on the plain route must give the same logits
      (within 2e-2 of their scale) and argmax wherever the top-2 gap is
      wider; prefill ms, decode ms per step, tokens/s, peak memory and the
@@ -97,14 +105,16 @@ flash kernel -- in thirteen phases:
      layers with bf16 weights (52.1 GB, drawn on the card): admission of 8
      streams on two H100 hosts, then 8 requests of 512 prompt tokens and 32
      greedy tokens by the kernel route, which must launch mamba_scan 14 x 32
-     and flash_attention 2 x 32 times; a shadow rerun holds every one of
+     and flash_attention 2 x 32 times (on the tensor-core entries); a
+     shadow rerun holds every one of
      those launches to its plain version on its own inputs; the
      teacher-forced plain-route replay is measured beside a witness with
      attention and the scan in float64 on three prompt seeds (MoE routing
      flips on last-bit differences, so no limit holds there), in which
      each kernel, launch by launch, must lie no further from float64 than
-     twice its plain version (flash: outputs over one bf16 ulp; the scan:
-     largest error); at float32 compute on a
+     twice its plain version (flash: outputs over one bf16 ulp, counted
+     also with P in fewer bf16 parts; the scan: largest error); at float32
+     compute on a
      one-period cut (8 layers, 53.2 GB), decode steps from one state must
      agree across the routes (1e-4 of the logits' scale); prefill ms,
      decode ms per step, tokens/s, peak memory, device kernels per decode
@@ -221,7 +231,10 @@ def bound_ms(counts, wtypes) -> tuple[float, str]:
     """Least time for one call: every input byte the function needs read once
     (per server, the D rows of the types present there or scored there;
     counts, fs_resident, rs, budget, wtypes) and both outputs written once,
-    over HBM bandwidth; against the fp32 work over the fp32 peak."""
+    over HBM bandwidth; against the least fp32 work over the fp32 peak: col0
+    and comp0 per server, 5 T operations per (distinct candidate type,
+    server) -- both outputs depend on a candidate only through its type --
+    and one gathered value per output."""
     import numpy as np
 
     c = counts.cpu().numpy()
@@ -232,7 +245,7 @@ def bound_ms(counts, wtypes) -> tuple[float, str]:
     rows = int(((c > 0) | cand[None, :]).sum())  # distinct D rows needed
     nnz = int((c > 0).sum())
     nbytes = 4 * (rows * T + 2 * m * T + T + m + Q + 2 * Q * m)
-    flops = 2 * nnz * T + 2 * m * T + 5 * Q * m * T
+    flops = 2 * nnz * T + 2 * m * T + 5 * int(cand.sum()) * m * T + 2 * Q * m
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -307,17 +320,66 @@ def phase_build():
           + " | ".join(ptxas))
 
 
+#: the scorer's device kernels as torch.profiler names them: the single
+#: pass, and the table path's two passes
+SCORE_KERNELS = ("score_kernel", "score_table_kernel", "score_gather_kernel")
+
+
+def score_counts() -> dict:
+    """Launches of each of SCORE_KERNELS, from the wrapper's counts."""
+    from repro_torch.kernels import consolidation as kc
+
+    single = sum(n for (path, _), n in kc.LAUNCHES.items() if path == "single")
+    table = sum(kc.LAUNCHES.values()) - single
+    return {"score_kernel": single, "score_table_kernel": table, "score_gather_kernel": table}
+
+
 def kernel_error(args, label: str) -> float:
     """Max abs error of the kernel against its plain version on ``args``,
-    over both outputs; fails above TOL or on a non-finite score."""
+    over both outputs, by both paths, whose outputs must be bitwise equal;
+    fails above TOL or on a non-finite score."""
     import torch
     from repro_torch.kernels import consolidation as kc
 
-    got, want = kc.consolidation_scores(*args), kc.consolidation_scores_torch(*args)
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    check(all(bool(torch.isfinite(g).all()) for g in got), f"{label}: non-finite scores")
+    want = kc.consolidation_scores_torch(*args)
+    single, table = (kc.consolidation_scores(*args, path=p) for p in kc.PATHS)
+    check(all(torch.equal(a, b) for a, b in zip(single, table)),
+          f"{label}: the single pass and the table path differ")
+    err = max(float((g - w).abs().max()) for g, w in zip(single, want))
+    check(all(bool(torch.isfinite(g).all()) for g in single), f"{label}: non-finite scores")
     check(err <= TOL, f"{label}: kernel vs plain max abs err {err:.3g} > {TOL}")
     return err
+
+
+def score_row(args, counts, label: str, plain: str | None = "device") -> dict:
+    """The kernel against its plain version on ``args`` (both paths, bitwise
+    equal), and device ms of the wrapper's own path, of each path and of the
+    plain version (``plain``: "device", "call" -- per call only, where a CUDA
+    graph of its temporaries would not fit -- or None), per call with the
+    host launch in brackets, beside the bound."""
+    from repro_torch.kernels import consolidation as kc
+
+    Q = int(args[-1].shape[0])
+    row = dict(max_abs_err=kernel_error(args, label), path=kc.choose_path(Q))
+    for p in kc.PATHS:
+        fn = lambda p=p: kc.consolidation_scores(*args, path=p)  # noqa: E731
+        row[f"{p}_ms"], row[f"{p}_call_ms"] = device_ms(fn), call_ms(fn)
+    row["ms"], row["call_ms"] = row[f"{row['path']}_ms"], row[f"{row['path']}_call_ms"]
+    fn = lambda: kc.consolidation_scores_torch(*args)  # noqa: E731
+    if plain == "device":
+        row["plain_ms"] = device_ms(fn, reps=5)
+    if plain:
+        row["plain_call_ms"] = call_ms(fn, reps=5)
+    row["bound_ms"], row["bound_by"] = bound_ms(counts, args[-1])
+    return row
+
+
+def describe_scores(Q: int, r: dict) -> str:
+    plain = (f" plain {r['plain_ms']:.5f} ({r['plain_call_ms']:.4f})" if "plain_ms" in r
+             else f" plain ({r['plain_call_ms']:.4f})" if "plain_call_ms" in r else "")
+    return (f"Q={Q} err={r['max_abs_err']:.3g} path {r['path']}: single {r['single_ms']:.5f} "
+            f"({r['single_call_ms']:.4f}) table {r['table_ms']:.5f} ({r['table_call_ms']:.4f})"
+            f"{plain} bound {r['bound_ms']:.5f} by {r['bound_by']}")
 
 
 def phase_kernel(device) -> dict:
@@ -328,26 +390,20 @@ def phase_kernel(device) -> dict:
     rng = np.random.default_rng(SEED)
     cl, counts = kernel_inputs(64, device, rng)
     rows = {}
-    for Q in (1, 8, 512, 1024):  # 512: the adaptive queue run's full rescans
-        wt = candidate_types(counts, Q, rng)
-        args = kernel_args(cl, counts, wt)
-        err = kernel_error(args, f"m=64 Q={Q}")
-        bound, bound_by = bound_ms(counts, wt)
-        kernel = lambda: kc.consolidation_scores(*args)  # noqa: E731
-        plain = lambda: kc.consolidation_scores_torch(*args)  # noqa: E731
-        rows[Q] = dict(max_abs_err=err, ms=device_ms(kernel), plain_ms=device_ms(plain),
-                       call_ms=call_ms(kernel), plain_call_ms=call_ms(plain),
-                       bound_ms=bound, bound_by=bound_by)
-    print("[3 kernel] consolidation_scores vs plain, m=64 T=230, device ms (per call "
-          "with host launch): " + "; ".join(
-              f"Q={Q} err={r['max_abs_err']:.3g} kernel {r['ms']:.5f} ({r['call_ms']:.4f}) "
-              f"plain {r['plain_ms']:.5f} ({r['plain_call_ms']:.4f}) bound "
-              f"{r['bound_ms']:.5f} by {r['bound_by']}" for Q, r in rows.items()))
+    # 512: the adaptive queue run's full rescans; the crossover lies among
+    # 16..128; 4096: the fleet's Q at rack width
+    qs = sorted({1, 8, 16, kc.CROSSOVER_Q, 2 * kc.CROSSOVER_Q, 128, 512, 1024, 4096})
+    for Q in qs:
+        args = kernel_args(cl, counts, candidate_types(counts, Q, rng))
+        rows[Q] = score_row(args, counts, f"m=64 Q={Q}")
+    print(f"[3 kernel] consolidation_scores vs plain, m=64 T=230, both paths bitwise equal, "
+          f"crossover Q={kc.CROSSOVER_Q}; device ms (per call with host launch): "
+          + "; ".join(describe_scores(Q, r) for Q, r in rows.items()))
     return rows
 
 
 def drive(engine, arrivals, device):
-    """One timed run of the main path: (result, wall seconds, launches by Q,
+    """One timed run of the main path: (result, wall seconds, launches by (path, Q),
     peak device bytes). The launch counts are zeroed just before the run."""
     import gc
 
@@ -374,7 +430,7 @@ def describe(res, wall, launches, peak) -> str:
     return (f"wall {wall:.3f} s, {s.events} micro-events, {s.host_syncs} host syncs, "
             f"{s.drain_full_scans} full rescans, {1e6 * wall / n:.1f} us/decision, "
             f"queued {sum(res.was_queued)}/{n}, makespan {res.makespan:.6f} s, "
-            f"kernel launches by Q {launches}, peak device memory {peak / 2**20:.1f} MiB")
+            f"kernel launches by (path, Q) {launches}, peak device memory {peak / 2**20:.1f} MiB")
 
 
 def count_syncs(fn) -> int:
@@ -395,7 +451,7 @@ def count_syncs(fn) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def device_busy(fn, names=("score_kernel",)) -> tuple[float, dict, float, int]:
+def device_busy(fn, names=SCORE_KERNELS) -> tuple[float, dict, float, int]:
     """What torch.profiler saw of ``fn`` on the device: (seconds of all
     device kernels, {name: (seconds, launches)} of the kernels whose name
     contains each of ``names``, wall seconds of the profiled call, number of
@@ -431,6 +487,8 @@ def kernel_shares(busy: float, named: dict, wall: float, counted: dict, label: s
     for name, (sec, n) in named.items():
         check(n == counted[name], f"{label}: the profiler saw {n} {name} launches, "
               f"the wrapper counted {counted[name]}")
+        if n == 0:
+            continue
         parts.append(f"{name} {sec:.4f} s in {n} launches = {100 * sec / wall:.2f} % of the "
                      f"wall, {100 * sec / busy:.2f} % of device kernel time")
     return "; ".join(parts)
@@ -484,9 +542,8 @@ def phase_rack(device, m: int = 64, n: int = 1024, small=(16, 64)) -> int:
         # the first 256 arrivals only: parsing the trace of the whole run
         # takes minutes of host time
         kc.reset_launches()
-        busy, named, pwall_prof, _ = device_busy(lambda: eng.run(arrivals[:256]))
-        share = kernel_shares(busy, named, pwall_prof,
-                              {"score_kernel": sum(kc.LAUNCHES.values())}, "rack")
+        busy, named, pwall_prof, _ = device_busy(lambda: eng.run(arrivals[:256]), SCORE_KERNELS)
+        share = kernel_shares(busy, named, pwall_prof, score_counts(), "rack")
         print(f"[4 rack] profiled rerun of the first 256 arrivals: device kernels {busy:.4f} s "
               f"of {pwall_prof:.3f} s wall; {share}")
 
@@ -518,25 +575,23 @@ def phase_rack(device, m: int = 64, n: int = 1024, small=(16, 64)) -> int:
 
 
 def phase_fleet(device, m: int = 1024, n: int = 4096) -> dict:
-    """The kernel against its plain version at fleet width and the full
-    rescans' Q = n, then the fleet-scale main path by the kernel route and by
-    the plain-version route on the same trace. Returns the kernel check's
-    numbers."""
+    """The kernel by both paths against its plain version at fleet width, at
+    Q = 1, 8 and the full rescans' Q = n, then the fleet-scale main path by
+    the kernel route and by the plain-version route on the same trace.
+    Returns the kernel checks' numbers by Q."""
     import numpy as np
     from repro_torch.core import ConsolidationEngine, kernel_args
-    from repro_torch.kernels import consolidation as kc
 
     rng = np.random.default_rng(SEED + 1)
     cl, counts = kernel_inputs(m, device, rng)
-    args = kernel_args(cl, counts, candidate_types(counts, n, rng))
-    row = dict(max_abs_err=kernel_error(args, f"m={m} Q={n}"),
-               call_ms=call_ms(lambda: kc.consolidation_scores(*args), reps=10),
-               plain_call_ms=call_ms(lambda: kc.consolidation_scores_torch(*args), reps=10))
-    row["bound_ms"], row["bound_by"] = bound_ms(counts, args[-1])
+    rows = {}
+    for Q in (1, 8, n):  # the rescans' Q = n, and the engine's small Q at this width
+        args = kernel_args(cl, counts, candidate_types(counts, Q, rng))
+        rows[Q] = score_row(args, counts, f"m={m} Q={Q}", plain="call" if Q == n else None)
     del cl, counts, args
-    print(f"[5 fleet] consolidation_scores vs plain, m={m} T=230 Q={n}: err "
-          f"{row['max_abs_err']:.3g}, per call kernel {row['call_ms']:.5f} ms, plain "
-          f"{row['plain_call_ms']:.5f} ms, bound {row['bound_ms']:.5f} ms by {row['bound_by']}")
+    print(f"[5 fleet] consolidation_scores vs plain, m={m} T=230, both paths bitwise equal; "
+          f"device ms (per call with host launch): "
+          + "; ".join(describe_scores(Q, r) for Q, r in rows.items()))
 
     servers = rack(m)
     arrivals = trace(n, gap=1e-4 * 64 / m)
@@ -553,7 +608,7 @@ def phase_fleet(device, m: int = 1024, n: int = 4096) -> dict:
     print(f"[5 fleet] plain route: identical placements and queue decisions, makespan "
           f"rel diff {rel:.3g}, wall {pwall:.3f} s, peak device memory "
           f"{ppeak / 2**20:.1f} MiB")
-    return row
+    return rows
 
 
 def scatter_inputs(B: int, T: int, K: int | None, device, rng):
@@ -670,7 +725,7 @@ def adaptive_run(servers, arrivals, segments: int, drift, prior, device, label: 
     plain scatter, whose tables must agree after every segment, and the
     scatter launches must be exactly the updates that had a co-run.
     Returns (result, wall, per-segment walls, scatter launches by shape,
-    scorer launches by Q, peak, shadow gap)."""
+    scorer launches by (path, Q), peak, shadow gap)."""
     import gc
 
     import numpy as np
@@ -745,7 +800,7 @@ def describe_adaptive(label, res, wall, walls, scatter_launches, score_launches,
             f"{[r.stats.drain_full_scans for r in res.segments]}\n"
             f"[7 adaptive] {label}: launches pair_scatter {sum(scatter_launches.values())} "
             f"(= per-server updates with a co-run; B {sizes[0]}..{sizes[-1]}, "
-            f"{len(scatter_launches)} shapes), consolidation_scores by Q {score_launches}; "
+            f"{len(scatter_launches)} shapes), consolidation_scores by (path, Q) {score_launches}; "
             f"shadow estimators (plain scatter) within {worst:.3g} after every segment; peak "
             f"device memory {peak / 2**20:.1f} MiB")
 
@@ -818,7 +873,7 @@ def phase_adaptive(device, m: int = 64, segments: int = 8, per_segment: int = 25
     check(all(q > 0 for q in q_queued), f"{q_label}: a segment never queued ({q_queued})")
     check(all(r.stats.drain_full_scans > 0 for r in q_res.segments),
           f"{q_label}: a segment's drains never rescanned the whole queue")
-    check(8 in q_score, f"{q_label}: no drain scored at Q = 8")
+    check(any(q == 8 for _, q in q_score), f"{q_label}: no drain scored at Q = 8")
     print(describe_adaptive(q_label, *q_out))
 
     if on_card:
@@ -829,10 +884,9 @@ def phase_adaptive(device, m: int = 64, segments: int = 8, per_segment: int = 25
         kt.reset_launches()
         busy, named, pwall, _ = device_busy(
             lambda: prof.run(arrivals[:per_segment], segments=1),
-            ("pair_scatter_kernel", "score_kernel"))
+            ("pair_scatter_kernel", *SCORE_KERNELS))
         share = kernel_shares(busy, named, pwall, {
-            "pair_scatter_kernel": sum(kt.LAUNCHES.values()),
-            "score_kernel": sum(kc.LAUNCHES.values())}, "adaptive")
+            "pair_scatter_kernel": sum(kt.LAUNCHES.values()), **score_counts()}, "adaptive")
         print(f"[7 adaptive] profiled rerun of segment 0: device kernels {busy:.4f} s of "
               f"{pwall:.3f} s wall; {share}")
 
@@ -927,8 +981,16 @@ def phase_flash(device) -> dict:
         k, v = (torch.randn(B, Skv, Hkv, dh, generator=gen, device=device)
                 .to(getattr(torch, kvdt)) for _ in range(2))
         kw = dict(causal=causal, q_offset=off, window=win)
+        kf.reset_launches()
         got = kf.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
+        entries = {key[0] for key in kf.LAUNCHES}
+        want_entry = ("simt" if qdt == "float32" else "mma_split" if Sq == 1 else "mma")
+        check(entries == {want_entry}, f"flash {label} {qdt}/{kvdt}: ran entries {entries}, "
+              f"want {want_entry}")
+        if Sq == 1:  # the split entry's fixed-order combine: bitwise equal run to run
+            again = kf.flash_attention(q, k, v, **kw)
+            check(torch.equal(got, again), f"flash {label} {qdt}/{kvdt}: two runs differ")
         want = kf.flash_attention_torch(q, k, v, **kw)
         tol = FLASH_TOL[qdt]
         diff = (got.double() - want.double()).abs()
@@ -936,7 +998,7 @@ def phase_flash(device) -> dict:
         check(bool(torch.isfinite(got).all()), f"flash {label} {qdt}: non-finite output")
         check(bool((diff <= tol + tol * want.double().abs()).all()),
               f"flash {label} {qdt}/{kvdt}: kernel vs plain max abs err {err:.3g} > {tol}")
-        row = dict(max_abs_err=err, tol=tol,
+        row = dict(max_abs_err=err, tol=tol, entry=want_entry,
                    ms=device_ms(lambda: kf.flash_attention(q, k, v, **kw)),
                    plain_ms=device_ms(lambda: kf.flash_attention_torch(q, k, v, **kw)))
         if qdt == kvdt:
@@ -953,7 +1015,8 @@ def phase_flash(device) -> dict:
         rows[(label, qdt if qdt == kvdt else f"{qdt}/{kvdt}")] = row
         lib_text = ("SDPA n/a" if row["library_ms"] is None else
                     f"SDPA {row['library_ms']:.5f} (err {row['library_err']:.3g})")
-        print(f"[8 flash] {label} {qdt}/{kvdt}: err {err:.3g} (tol {tol}), device ms kernel "
+        print(f"[8 flash] {label} {qdt}/{kvdt}: entry {want_entry}, err {err:.3g} (tol {tol}), "
+              f"{'bitwise equal on a rerun, ' if Sq == 1 else ''}device ms kernel "
               f"{row['ms']:.5f} plain {row['plain_ms']:.5f} {lib_text} bound "
               f"{row['bound_ms']:.5f} by {row['bound_by']}")
     return rows
@@ -1002,6 +1065,7 @@ def jax_scale_witness(cfg, prompts, device) -> dict:
     import math
 
     import torch
+    from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import ops
     from repro_torch.models.api import build_model
     from repro_torch.models.params import materialize
@@ -1026,7 +1090,12 @@ def jax_scale_witness(cfg, prompts, device) -> dict:
         ref = attention64(q, k, v, causal=causal, q_offset=q_offset, window=window).double()
         far = lambda x, y: (x.double() - y).abs() > tol + tol * y.abs()  # noqa: E731
         plain_far = far(plain, ref)
+        # the same launch with P in fewer bf16 parts (measured, not gated)
+        fewer = {t: kf.flash_attention(q, k, v, causal=causal, q_offset=q_offset, window=window,
+                                       p_terms=t) for t in range(1, kf.P_TERMS) if q.is_cuda}
         layers.append(dict(
+            parts={t: (int((bf16_ulps(x, plain) > 1).sum()),
+                       int((far(x, plain.double()) & ~plain_far).sum())) for t, x in fewer.items()},
             kernel_ulps=float(bf16_ulps(out, plain).max()),
             over_1ulp=int((bf16_ulps(out, plain) > 1).sum()),
             kernel_far=int(far(out, plain.double()).sum()),
@@ -1055,6 +1124,8 @@ def jax_scale_witness(cfg, prompts, device) -> dict:
                kernel_vs_plain64=gap(kern, plain64),
                layer_kernel_ulps=max(r["kernel_ulps"] for r in layers),
                layer_over_1ulp=sum(r["over_1ulp"] for r in layers),
+               layer_parts={t: tuple(sum(r["parts"][t][i] for r in layers) for i in range(2))
+                            for t in layers[0]["parts"]},
                layer_kernel_far=sum(r["kernel_far"] for r in layers),
                layer_plain_far=sum(r["plain_far_from_f64"] for r in layers),
                layer_kernel_vs_f64_ulps=max(r["kernel_vs_f64_ulps"] for r in layers),
@@ -1066,7 +1137,9 @@ def jax_scale_witness(cfg, prompts, device) -> dict:
     print(f"[9 serve] JAX init scale, each layer's attention on the kernel route's inputs, "
           f"{n_out} outputs over {len(layers)} layers: kernel vs plain max "
           f"{out['layer_kernel_ulps']:.4g} bf16 ulps, {out['layer_over_1ulp']} outputs over "
-          f"1 ulp, {out['layer_kernel_far']} beyond the phase-8 tolerance; plain vs float64 "
+          f"1 ulp, {out['layer_kernel_far']} beyond the phase-8 tolerance (P in {kf.P_TERMS} bf16 "
+          f"parts; by P in t parts, (over 1 ulp, beyond it where plain is near float64): "
+          f"{out['layer_parts']}); plain vs float64 "
           f"max {out['layer_plain_vs_f64_ulps']:.4g} ulps ({out['layer_plain_far']} beyond "
           f"it), kernel vs float64 max {out['layer_kernel_vs_f64_ulps']:.4g} ulps")
     for i, r in enumerate(layers):
@@ -1074,7 +1147,8 @@ def jax_scale_witness(cfg, prompts, device) -> dict:
               f"JAX init scale, layer {i}: the kernel is beyond the phase-8 tolerance of the "
               f"plain version at {r['kernel_far_where_plain_near']} outputs where the plain "
               f"version is within it of float64")
-    check(all(math.isfinite(v) for v in out.values()), f"JAX init scale: {out}")
+    check(all(math.isfinite(v) for v in out.values() if isinstance(v, float)),
+          f"JAX init scale: {out}")
     return out
 
 
@@ -1108,25 +1182,56 @@ def logit_gap(other, kern, tol: float) -> tuple[float, int, int]:
             int((differ & wide).sum()))
 
 
+def by_entry(launches: dict) -> dict:
+    """Launch counts summed by their key's first element (entry or path)."""
+    out: collections.Counter = collections.Counter()
+    for key, n in launches.items():
+        out[key[0]] += n
+    return dict(out)
+
+
+def launch_counts(name: str, km):
+    """The launch counts of a kernel module with one device kernel, by name."""
+    return lambda: {name: sum(km.LAUNCHES.values())}
+
+
+#: flash_attention's device kernels as torch.profiler names them, by entry
+FLASH_KERNELS = {"simt": ("flash_attention_kernel",), "mma": ("flash_attention_mma_kernel",),
+                 "mma_split": ("flash_attention_split_kernel", "flash_attention_combine_kernel")}
+
+
+def flash_counts() -> dict:
+    """Launches of each of flash_attention's device kernels, from the
+    wrapper's counts by entry."""
+    from repro_torch.kernels import flash_attention as kf
+
+    out = {name: 0 for names in FLASH_KERNELS.values() for name in names}
+    for key, n in kf.LAUNCHES.items():
+        for name in FLASH_KERNELS[key[0]]:
+            out[name] += n
+    return out
+
+
 def profile_serving(model, lm, prompts, run, kernels: dict, tag: str) -> dict:
     """Prints each kernel's share of device time under torch.profiler, for
     one prefill and then 8 decode steps of ``run``'s tokens; ``kernels``
-    maps a kernel's name to its module (whose ``LAUNCHES`` must match what
-    the trace saw). Returns the device kernels per decode step and the busy
-    shares."""
+    maps a kernel module to a function that gives its device kernels'
+    launches by name, from its ``LAUNCHES`` (which must match what the trace
+    saw). Returns the device kernels per decode step and the busy shares."""
     from repro_torch.launch import serve
 
     def counted():
-        return {name: sum(km.LAUNCHES.values()) for name, km in kernels.items()}
+        return {name: n for counts in kernels.values() for name, n in counts().items()}
 
     def reset():
-        for km in kernels.values():
+        for km in kernels:
             km.reset_launches()
 
     requests, n_gen = run.tokens.shape
     reset()
+    names = tuple(counted())
     busy_p, named_p, wall_p, n_p = device_busy(lambda: serve.generate(model, lm, prompts, 1),
-                                               tuple(kernels))
+                                               names)
     share_p = kernel_shares(busy_p, named_p, wall_p, counted(), f"{tag} prefill")
     cache = model.init_cache(requests, prompts.shape[1] + n_gen, device=prompts.device)
     _, cache = model.prefill(lm, {"tokens": prompts}, cache)
@@ -1137,7 +1242,7 @@ def profile_serving(model, lm, prompts, run, kernels: dict, tag: str) -> dict:
             _, c = model.decode_step(lm, c, run.tokens[:, i:i + 1])
 
     reset()
-    busy_d, named_d, wall_d, n_d = device_busy(decode8, tuple(kernels))
+    busy_d, named_d, wall_d, n_d = device_busy(decode8, names)
     share_d = kernel_shares(busy_d, named_d, wall_d, counted(), f"{tag} decode")
     print(f"[{tag}] profiled prefill: {n_p} device kernels, {busy_p:.5f} s of {wall_p:.4f} s "
           f"wall; {share_p}\n[{tag}] profiled 8 decode steps: {n_d} device kernels "
@@ -1218,6 +1323,8 @@ def phase_serve(device, smoke: bool = False, requests: int = 8, prompt_len: int 
     n_launch = sum(launches.values())
     check(n_launch == cfg.n_layers * n_gen or not on_card,
           f"serving launched flash_attention {n_launch} times, want {cfg.n_layers} x {n_gen}")
+    check(all(key[0] in ("mma", "mma_split") for key in launches),
+          f"serving's flash launches left the tensor-core entries: {sorted(launches)}")
     check(tuple(run.tokens.shape) == (requests, n_gen), f"tokens {tuple(run.tokens.shape)}")
     check(bool(((run.tokens >= 0) & (run.tokens < cfg.vocab)).all()), "token out of the vocab")
     decode_ms = [1e3 * t for t in run.decode_s]
@@ -1227,7 +1334,8 @@ def phase_serve(device, smoke: bool = False, requests: int = 8, prompt_len: int 
           f"{statistics.mean(decode_ms):.3f} ms/step (median {statistics.median(decode_ms):.3f}, "
           f"min {min(decode_ms):.3f}, max {max(decode_ms):.3f}), {requests * n_gen / total:.1f} "
           f"tokens/s over {total:.3f} s, peak device memory {peak / 2**30:.3f} GiB; "
-          f"flash_attention launches {n_launch} over {len(launches)} shapes")
+          f"flash_attention launches {n_launch} over {len(launches)} shapes, by entry "
+          f"{by_entry(launches)}")
 
     # the plain route, teacher-forced on the kernel route's tokens
     lm.mode = "torch"
@@ -1248,7 +1356,7 @@ def phase_serve(device, smoke: bool = False, requests: int = 8, prompt_len: int 
     if not on_card:
         return dict(launches=n_launch, prefill_ms=1e3 * run.prefill_s,
                     decode_ms=statistics.mean(decode_ms), worst_rel=worst_rel)
-    profile_serving(model, lm, prompts, run, {"flash_attention_kernel": kf}, "9 serve")
+    profile_serving(model, lm, prompts, run, {kf: flash_counts}, "9 serve")
 
     del lm
     gc.collect()
@@ -1598,7 +1706,8 @@ def phase_serve_rwkv(device, smoke: bool = False, requests: int = 8, prompt_len:
     if not on_card:
         return out
 
-    profile_serving(model, lm, prompts, run, {"rwkv6_scan_kernel": ks}, "11 serve rwkv")
+    profile_serving(model, lm, prompts, run, {ks: launch_counts("rwkv6_scan_kernel", ks)},
+                    "11 serve rwkv")
     del lm, run
     gc.collect()
     torch.cuda.empty_cache()
@@ -1838,6 +1947,7 @@ def hybrid_witness(model, lm, prompts) -> dict:
     apart, show the model's amplification of last-bit differences, not a
     fault of the kernels."""
     import torch
+    from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import ops
 
     real_scan, real_attn = ops.selective_scan, ops.gqa_flash_attention
@@ -1848,8 +1958,11 @@ def hybrid_witness(model, lm, prompts) -> dict:
         plain = real_attn(q, k, v, mode="torch", **kw)
         ref = attention64(q, k, v, **kw)
         ku, pu = bf16_ulps(out, ref), bf16_ulps(plain, ref)
+        # the same launch with P in fewer bf16 parts (measured)
+        parts = {t: int((bf16_ulps(kf.flash_attention(q, k, v, p_terms=t, **kw), ref) > 1).sum())
+                 for t in range(1, kf.P_TERMS) if q.is_cuda}
         attn.append((int((ku > 1).sum()), int((pu > 1).sum()), float(ku.max()), float(pu.max()),
-                     out.numel()))
+                     out.numel(), parts))
         return out
 
     def counted_scan(delta, u, bm, cm, A, h0, *, mode="cuda"):
@@ -1882,6 +1995,7 @@ def hybrid_witness(model, lm, prompts) -> dict:
                 attn_kernel_over_1ulp=sum(a[0] for a in attn),
                 attn_plain_over_1ulp=sum(a[1] for a in attn),
                 attn_kernel_max_ulps=max(a[2] for a in attn),
+                attn_parts_over_1ulp={t: sum(a[5][t] for a in attn) for t in attn[0][5]},
                 attn_plain_max_ulps=max(a[3] for a in attn),
                 scan_launches=len(scan), scan_kernel_err=max(e[0] for e in scan),
                 scan_plain_err=max(e[1] for e in scan))
@@ -1983,6 +2097,8 @@ def phase_serve_jamba(device, smoke: bool = False, requests: int = 8, prompt_len
     check(flashes == n_attn * n_gen or not on_card,
           f"serving launched flash_attention {flashes} times, want {n_attn} x {n_gen}")
     check(all(key[0] == "model" for key in km.LAUNCHES), f"scan entries {sorted(km.LAUNCHES)}")
+    check(all(key[0] in ("mma", "mma_split") for key in kf.LAUNCHES),
+          f"serving's flash launches left the tensor-core entries: {sorted(kf.LAUNCHES)}")
     check(tuple(run.tokens.shape) == (requests, n_gen), f"tokens {tuple(run.tokens.shape)}")
     check(bool(((run.tokens >= 0) & (run.tokens < cfg.vocab)).all()), "token out of the vocab")
     check(all(bool(torch.isfinite(x.float()).all()) for x in run.logits), "non-finite logits")
@@ -1997,7 +2113,8 @@ def phase_serve_jamba(device, smoke: bool = False, requests: int = 8, prompt_len
           f"min {min(decode_ms):.3f}, max {max(decode_ms):.3f}), {requests * n_gen / total:.1f} "
           f"tokens/s over {total:.3f} s, peak device memory {peak / 2**30:.3f} GiB (cache and "
           f"states {state_bytes / 1e6:.1f} MB); mamba_scan launches {scans} over "
-          f"{len(km.LAUNCHES)} shapes {sorted(km.LAUNCHES)}, flash_attention launches {flashes}")
+          f"{len(km.LAUNCHES)} shapes {sorted(km.LAUNCHES)}, flash_attention launches {flashes} "
+          f"by entry {by_entry(kf.LAUNCHES)}")
 
     shadow = shadow_rerun_hybrid(model, lm, prompts, run)
     check(shadow["launches"] == n_mamba * n_gen and shadow["attn_launches"] == n_attn * n_gen,
@@ -2030,8 +2147,20 @@ def phase_serve_jamba(device, smoke: bool = False, requests: int = 8, prompt_len
             0, cfg.vocab, tuple(prompts.shape), device=device,
             generator=torch.Generator(device).manual_seed(seed))
         w = hybrid_witness(model, lm, seeded)
-        check(all(math.isfinite(v) for v in w.values()), f"witness: {w}")
+        check(all(math.isfinite(v) for v in w.values() if isinstance(v, float)), f"witness: {w}")
         check(w["scan_launches"] == n_mamba, f"the witness read {w['scan_launches']} scans")
+        print(f"[13 serve jamba] witness, prefill of the "
+              f"{'served prompts' if seed == SEED else f'prompts of seed {seed}'}: last-position "
+              f"logits kernel vs plain route {w['kernel_vs_plain']:.4g} of their scale, plain vs "
+              f"attention and scan in float64 {w['plain_vs_f64']:.4g}, kernel vs float64 "
+              f"{w['kernel_vs_f64']:.4g}; per launch on the kernel route's inputs, of "
+              f"{w['attn_outputs']} attention outputs {w['attn_kernel_over_1ulp']} lie more than "
+              f"1 bf16 ulp from float64 by the kernel (max {w['attn_kernel_max_ulps']:.4g} ulps; "
+              f"P in {kf.P_TERMS} bf16 parts; by P in t parts {w['attn_parts_over_1ulp']}) and "
+              f"{w['attn_plain_over_1ulp']} by the plain version (max "
+              f"{w['attn_plain_max_ulps']:.4g}); the {w['scan_launches']} scans' largest error "
+              f"from float64 {w['scan_kernel_err']:.3g} by the kernel, "
+              f"{w['scan_plain_err']:.3g} by the plain version")
         # a kernel that rounds where its plain version does not, or masks a
         # row it should see, lands far more outputs away from float64
         check(w["attn_kernel_over_1ulp"] <= 2 * w["attn_plain_over_1ulp"] + 64,
@@ -2040,17 +2169,6 @@ def phase_serve_jamba(device, smoke: bool = False, requests: int = 8, prompt_len
         check(w["scan_kernel_err"] <= 2 * w["scan_plain_err"] + 1e-8,
               f"witness seed {seed}: the scan kernel is {w['scan_kernel_err']:.3g} from float64, "
               f"the plain version {w['scan_plain_err']:.3g}")
-        print(f"[13 serve jamba] witness, prefill of the "
-              f"{'served prompts' if seed == SEED else f'prompts of seed {seed}'}: last-position "
-              f"logits kernel vs plain route {w['kernel_vs_plain']:.4g} of their scale, plain vs "
-              f"attention and scan in float64 {w['plain_vs_f64']:.4g}, kernel vs float64 "
-              f"{w['kernel_vs_f64']:.4g}; per launch on the kernel route's inputs, of "
-              f"{w['attn_outputs']} attention outputs {w['attn_kernel_over_1ulp']} lie more than "
-              f"1 bf16 ulp from float64 by the kernel (max {w['attn_kernel_max_ulps']:.4g} ulps) "
-              f"and {w['attn_plain_over_1ulp']} by the plain version (max "
-              f"{w['attn_plain_max_ulps']:.4g}); the {w['scan_launches']} scans' largest error "
-              f"from float64 {w['scan_kernel_err']:.3g} by the kernel, "
-              f"{w['scan_plain_err']:.3g} by the plain version")
         witnesses.append(w)
     out = dict(launches_scan=scans, launches_flash=flashes, prefill_ms=1e3 * run.prefill_s,
                decode_ms=statistics.mean(decode_ms), tokens_per_s=requests * n_gen / total,
@@ -2059,9 +2177,8 @@ def phase_serve_jamba(device, smoke: bool = False, requests: int = 8, prompt_len
     if not on_card:
         return out
 
-    out.update(profile_serving(model, lm, prompts, run, {"mamba_scan_kernel": km,
-                                                         "flash_attention_kernel": kf},
-                               "13 serve jamba"))
+    out.update(profile_serving(model, lm, prompts, run, {
+        km: launch_counts("mamba_scan_kernel", km), kf: flash_counts}, "13 serve jamba"))
     del lm, run
     gc.collect()
     torch.cuda.empty_cache()
@@ -2118,7 +2235,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/consolidation_scores.cu",
         "replaces": "src/repro/kernels/consolidation.py:65",
         "launches": n_launch,
-        "max_abs_err": max(r["max_abs_err"] for r in [*rows.values(), fleet]),
+        "max_abs_err": max(r["max_abs_err"] for r in [*rows.values(), *fleet.values()]),
         "ms": rows[q]["ms"], "plain_ms": rows[q]["plain_ms"],
         "bound_ms": rows[q]["bound_ms"], "bound_by": rows[q]["bound_by"],
         "library_ms": None,

@@ -21,6 +21,11 @@ device, or when the build or the launch fails, it raises. Both check the
 kernel's contract: q float32 or bf16, k and v of one dtype, float32 or bf16
 (not float32 with a bf16 q), dh in {16, 32, 64, 128}, the last dim
 contiguous, and k/v strides that allow 16-byte loads.
+
+The kernel has three entries (``entry``): CUDA cores for a float32 q, and
+tensor cores for bf16 -- one for prefill, and for decode (Sq = 1) one that
+splits the visible kv rows over CTAs (``split_plan``) and combines their
+partials in a fixed order.
 """
 from __future__ import annotations
 
@@ -37,7 +42,21 @@ NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
-#: kernel launches per shape (B, Sq, Skv, H, Hkv, dh), counted where the
+#: the kernel's entries: CUDA cores (float32 q), tensor cores (bf16, Sq > 1),
+#: tensor cores with the kv rows split over CTAs (bf16, Sq = 1)
+ENTRIES = ("simt", "mma", "mma_split")
+#: kv rows per tile of the tensor-core entries; a split covers whole tiles
+KV_TILE = 64
+#: query rows (queries x heads of one group) of a split CTA
+SPLIT_ROWS = 16
+#: CTAs the split entry aims for: two per SM of an H100
+TARGET_CTAS = 2 * 132
+#: bf16 parts of P in the tensor-core entries' P.V (1..3): three hold an
+#: fp32 p exactly; fewer land many more near-zero outputs more than one
+#: bf16 ulp from float64 (see the source)
+P_TERMS = 3
+
+#: kernel launches per (entry, B, Sq, Skv, H, Hkv, dh), counted where the
 #: kernel is launched and nowhere else (``reset_launches`` zeroes it)
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -55,6 +74,41 @@ def first_visible_row(q_offset: int, window: int) -> int:
     """The first kv row any query sees: rows below it lie outside every
     query's window (0 without a window)."""
     return max(0, q_offset - window + 1) if window else 0
+
+
+def entry(q_dtype: torch.dtype, kv_dtype: torch.dtype, Sq: int) -> str:
+    """The kernel entry for these dtypes (a pair ``_check`` accepts) and Sq."""
+    if q_dtype == torch.float32:
+        return "simt"
+    return "mma_split" if Sq == 1 else "mma"
+
+
+def split_grid(B: int, Sq: int, H: int, Hkv: int) -> int:
+    """CTAs of the split entry per split: query blocks x head groups x B x
+    Hkv, SPLIT_ROWS rows (queries x heads of one group) each."""
+    G = H // Hkv
+    Gc = min(G, SPLIT_ROWS)
+    return B * Hkv * -(-G // Gc) * -(-Sq // (SPLIT_ROWS // Gc))
+
+
+def split_plan(B: int, Sq: int, Skv: int, H: int, Hkv: int, causal: bool, q_offset: int,
+               window: int) -> tuple[int, int]:
+    """(splits, kv rows per split) of the split entry: the visible rows, from
+    the first one's tile on, cut into whole-tile splits, enough that the
+    grid reaches TARGET_CTAS where there are tiles for it."""
+    base = first_visible_row(q_offset, window) // KV_TILE * KV_TILE
+    tiles = max(1, -(-(visible_rows(Sq, Skv, causal, q_offset) - base) // KV_TILE))
+    per = -(-tiles // min(tiles, -(-TARGET_CTAS // split_grid(B, Sq, H, Hkv))))
+    return -(-tiles // per), per * KV_TILE
+
+
+def split_ranges(Sq: int, Skv: int, causal: bool, q_offset: int, window: int, splits: int,
+                 rows: int) -> list[tuple[int, int]]:
+    """The kv rows [start, end) each split reads, as the kernel cuts them
+    for a CTA whose queries are those of a decode step (Sq = 1)."""
+    lo, hi = first_visible_row(q_offset, window), visible_rows(Sq, Skv, causal, q_offset)
+    base = lo // KV_TILE * KV_TILE
+    return [(max(lo, base + i * rows), min(hi, base + (i + 1) * rows)) for i in range(splits)]
 
 
 def flash_attention_torch(
@@ -128,16 +182,55 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
                              f"row loads")
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the launchers' C signatures on a loaded library."""
     fn = lib.flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 9
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.flash_attention_mma_launch
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    return bind(_build.load("flash_attention"))
+
+
+def launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+           q_offset: int, window: int, p_terms: int, stream: int) -> tuple[str, torch.Tensor]:
+    """One launch of ``lib``'s entry for these inputs (checked by ``_check``,
+    Sq >= 1): (the entry, out [B, Sq, H, dh] in q's dtype). Raises if the
+    launch fails."""
+    B, Sq, H, dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty((B, Sq, H, dh), dtype=q.dtype, device=q.device)
+    name = entry(q.dtype, k.dtype, Sq)
+    shape = (B, Sq, Skv, H, Hkv, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    if name == "simt":
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            int(k.dtype == torch.bfloat16), dh, *shape, int(causal), int(q_offset), int(window),
+            stream)
+    else:
+        splits, rows, part = 0, 0, None
+        if name == "mma_split":
+            splits, rows = split_plan(B, Sq, Skv, H, Hkv, causal, q_offset, window)
+            part = torch.empty(split_grid(B, Sq, H, Hkv) * splits * SPLIT_ROWS * (dh + 2),
+                               dtype=torch.float32, device=q.device)
+        err = lib.flash_attention_mma_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            0 if part is None else part.data_ptr(), dh, *shape, int(causal), int(q_offset),
+            int(window), splits, rows, int(p_terms), stream)
+    if err:
+        msg = lib.flash_attention_error_string(err).decode()
+        raise RuntimeError(f"flash_attention launch failed: {msg} ({err})")
+    return name, out
 
 
 def flash_attention(
@@ -148,34 +241,29 @@ def flash_attention(
     causal: bool = True,
     q_offset: int = 0,
     window: int = 0,
+    p_terms: int | None = None,
 ) -> torch.Tensor:
     """Attention out [B, Sq, H, dh] in q's dtype (see the module docstring).
 
     On CUDA tensors the kernel runs on PyTorch's current stream and reads
     only the visible kv rows (with a window, from the first tile that holds
     a row some query of the CTA sees); ``Sq == 0`` returns an empty output
-    without a launch. CPU tensors go to the plain version.
+    without a launch. ``p_terms`` (default P_TERMS) sets the bf16 parts of P
+    in the tensor-core entries. CPU tensors go to the plain version.
     """
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     _check(q, k, v, q_offset, window)
+    p_terms = P_TERMS if p_terms is None else p_terms
+    if p_terms not in (1, 2, 3):
+        raise ValueError(f"p_terms must be 1, 2 or 3, got {p_terms}")
     if q.device.type == "cpu":
         return flash_attention_torch(q, k, v, causal=causal, q_offset=q_offset, window=window)
     B, Sq, H, dh = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
-    out = torch.empty((B, Sq, H, dh), dtype=q.dtype, device=q.device)
     if Sq == 0 or B == 0:
-        return out
-    lib = _lib()
+        return torch.empty((B, Sq, H, dh), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16), dh,
-            B, Sq, Skv, H, Hkv, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            int(causal), int(q_offset), int(window), stream)
-    if err:
-        msg = lib.flash_attention_error_string(err).decode()
-        raise RuntimeError(f"flash_attention launch failed: {msg} ({err})")
-    LAUNCHES[(B, Sq, Skv, H, Hkv, dh)] += 1
+        name, out = launch(_lib(), q, k, v, causal, q_offset, window, p_terms,
+                           torch.cuda.current_stream().cuda_stream)
+    LAUNCHES[(name, B, Sq, k.shape[1], H, k.shape[2], dh)] += 1
     return out

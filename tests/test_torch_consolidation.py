@@ -109,3 +109,83 @@ def test_build_names_library_by_source_hash():
     assert path == _build.library_path("consolidation_scores")
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("Q", [1, 8, kc.CROSSOVER_Q, kc.CROSSOVER_Q + 1, 1024, 4096])
+def test_path_choice(Q):
+    """Small Q takes the single pass (one launch), larger Q the table path."""
+    assert kc.choose_path(Q) == ("single" if Q <= kc.CROSSOVER_Q else "table")
+    assert kc.choose_path(Q) in kc.PATHS
+
+
+@pytest.mark.parametrize("m,want", [(1, 8), (2, 8), (33, 8), (34, 8), (64, 5), (132, 2),
+                                    (264, 1), (1024, 1)])
+def test_table_shares_fill_the_card(m, want):
+    assert kc.table_shares(m) == want
+    assert m * want >= 264 or want == 8
+
+
+@pytest.mark.parametrize("which", ["Q > T", "every type"])
+def test_candidates_of_one_type_score_alike(which):
+    """Both outputs depend on a candidate only through its type (the table
+    path's premise): rows of one type are identical, for Q > T and for a
+    batch that holds every type."""
+    counts, f, _ = _inputs(6, 1, seed=11)
+    T = counts.shape[1]
+    rng = np.random.default_rng(12)
+    wtypes = (rng.integers(0, T, size=3 * T) if which == "Q > T"
+              else np.concatenate([rng.permutation(T), rng.integers(0, T, size=40)]))
+    wtypes = wtypes.astype(np.int32)
+    cache, maxd = kc.consolidation_scores_torch(*_torch_args(counts, f, wtypes))
+    first = {}
+    for q, t in enumerate(wtypes.tolist()):
+        first.setdefault(t, q)
+    assert len(first) < len(wtypes)
+    for q, t in enumerate(wtypes.tolist()):
+        assert torch.equal(cache[q], cache[first[t]]) and torch.equal(maxd[q], maxd[first[t]])
+
+
+def test_argument_checks_leave_invalid_types_to_the_kernel():
+    """Types outside [0, T) pass the card path's checks: the kernel writes
+    NaN for them (both paths), so one bad candidate does not fail a batch."""
+    args = _torch_args(*_inputs(4, 3, seed=4))
+    T = args[0].shape[1]
+    kc._check(*args[:-1], torch.tensor([-1, T, 10 * T, 0], dtype=torch.int32))
+
+
+class _FakeLib:
+    """Records the launchers' arguments in place of the built library."""
+
+    def __init__(self):
+        self.calls = []
+
+    def consolidation_scores_launch(self, *args):
+        self.calls.append(("single", args))
+        return 0
+
+    def consolidation_scores_table_launch(self, *args):
+        self.calls.append(("table", args))
+        return 0
+
+
+@pytest.mark.parametrize("path", kc.PATHS)
+def test_launch_passes_each_path_its_arguments(path):
+    args = _torch_args(*_inputs(4, 40, seed=5))
+    m, T = args[0].shape
+    lib = _FakeLib()
+    cache, maxd = kc.launch(lib, args, path, 0)
+    assert cache.shape == maxd.shape == (40, m)
+    (fn, got), = lib.calls
+    assert fn == path
+    assert got[:6] == tuple(x.data_ptr() for x in args)
+    if path == "single":
+        assert got[8:12] == (m, T, 40, kc.Q_CHUNK)
+    else:
+        assert got[10:15] == (m, T, 40, kc.table_shares(m), kc.GATHER_BLOCKS)
+        assert got[9] - got[8] == 4 * T * m  # two [T, m] float32 tables
+
+
+def test_wrapper_refuses_an_unknown_path():
+    args = _torch_args(*_inputs(4, 3, seed=6))
+    with pytest.raises(ValueError, match="path"):
+        kc.consolidation_scores(*args, path="dense")

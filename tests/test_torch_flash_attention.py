@@ -7,8 +7,13 @@ route, are held to the JAX Pallas kernel in interpret mode and to
 ``attention_ref`` alone on the ragged shapes and decode offsets that the
 Pallas kernel's block divisibility refuses, and to the port's and JAX's
 ``chunked_attention`` with a sliding window; the wrapper's contract (the
-kernel's dtypes, head dims and layouts) is tested.
+kernel's dtypes, head dims and layouts), its choice of entry and the
+decode split plan, and the arguments it passes each entry are tested.
 """
+import collections
+import importlib.util
+import pathlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -228,3 +233,116 @@ def test_modes_and_contract():
         kf.flash_attention(q, k, v, q_offset=-1)
     with pytest.raises(ValueError, match="cuda or cpu"):
         kf.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+# ---- the wrapper's choice of kernel entry and the decode split plan ----
+
+@pytest.mark.parametrize("dh", kf.HEAD_DIMS)
+@pytest.mark.parametrize("q_dtype,kv_dtype,Sq,want", [
+    (torch.float32, torch.float32, 512, "simt"),
+    (torch.float32, torch.float32, 1, "simt"),
+    (torch.float32, torch.bfloat16, 512, "simt"),
+    (torch.float32, torch.bfloat16, 1, "simt"),
+    (torch.bfloat16, torch.bfloat16, 512, "mma"),
+    (torch.bfloat16, torch.bfloat16, 17, "mma"),
+    (torch.bfloat16, torch.bfloat16, 2, "mma"),
+    (torch.bfloat16, torch.bfloat16, 1, "mma_split"),
+])
+def test_entry_by_dtypes(q_dtype, kv_dtype, Sq, want, dh):
+    """Every bf16 call takes a tensor-core entry, the split one at decode;
+    a float32 q stays on the CUDA cores, whatever its cache's dtype."""
+    assert kf.entry(q_dtype, kv_dtype, Sq) == want
+    assert want in kf.ENTRIES
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# every decode shape of chip_smoke.FLASH_SHAPES, and decode offsets and
+# windows around the tile edges; (B, Skv, H, Hkv, q_offset, window)
+DECODES = [(B, Skv, H, Hkv, off, win) for _, B, Sq, Skv, H, Hkv, _, _, off, win
+           in _chip_smoke().FLASH_SHAPES if Sq == 1] + [
+    (8, 672, 32, 4, 63, 0), (8, 672, 32, 4, 64, 0), (8, 672, 32, 4, 671, 0),
+    (8, 672, 32, 4, 700, 0), (1, 45, 8, 2, 30, 0), (2, 200, 32, 1, 150, 0),
+    (8, 672, 32, 8, 511, 1), (8, 672, 32, 8, 511, 65), (8, 672, 32, 8, 100, 64),
+    (1, 4096, 32, 8, 4095, 0), (64, 672, 32, 4, 511, 0),
+]
+
+
+@pytest.mark.parametrize("B,Skv,H,Hkv,q_offset,window", DECODES)
+def test_split_plan_reads_every_visible_row_once(B, Skv, H, Hkv, q_offset, window):
+    splits, rows = kf.split_plan(B, 1, Skv, H, Hkv, True, q_offset, window)
+    assert splits >= 1 and rows > 0 and rows % kf.KV_TILE == 0
+    ranges = kf.split_ranges(1, Skv, True, q_offset, window, splits, rows)
+    seen = collections.Counter(j for lo, hi in ranges for j in range(lo, hi))
+    lo, hi = kf.first_visible_row(q_offset, window), kf.visible_rows(1, Skv, True, q_offset)
+    assert seen == collections.Counter(range(lo, hi))  # each visible row exactly once
+    assert all(lo < hi for lo, hi in ranges)  # no split is empty
+    ctas = B * Hkv * splits * -(-(H // Hkv) // kf.SPLIT_ROWS)
+    tiles = -(-(hi - lo // kf.KV_TILE * kf.KV_TILE) // kf.KV_TILE)
+    # fills the card where there are tiles for it, within the rounding of
+    # whole tiles per split
+    assert 2 * ctas >= min(kf.TARGET_CTAS, B * Hkv * tiles)
+
+
+def test_split_plan_at_the_serving_decode():
+    """tinyllama's decode@511 (B 8, Hkv 4, 512 rows): >= 132 CTAs."""
+    splits, rows = kf.split_plan(8, 1, 672, 32, 4, True, 511, 0)
+    assert 8 * 4 * splits >= 132 and splits * rows >= 512
+
+
+class _FakeLib:
+    """Records the launchers' arguments in place of the built library."""
+
+    def __init__(self):
+        self.calls = []
+
+    def flash_attention_launch(self, *args):
+        self.calls.append(("simt", args))
+        return 0
+
+    def flash_attention_mma_launch(self, *args):
+        self.calls.append(("mma", args))
+        return 0
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,dh,q_offset,window,qdt", [
+    (2, 17, 70, 4, 2, 16, 20, 0, "bfloat16"),
+    (2, 1, 70, 8, 2, 64, 60, 0, "bfloat16"),
+    (1, 1, 300, 32, 8, 128, 250, 64, "bfloat16"),
+    (2, 5, 40, 4, 2, 32, 30, 0, "float32"),
+])
+def test_launch_passes_each_entry_its_arguments(B, Sq, Skv, H, Hkv, dh, q_offset, window, qdt):
+    q, k, v = _torch(_inputs(B, Sq, Skv, H, Hkv, dh, seed=1), qdt)
+    lib = _FakeLib()
+    name, out = kf.launch(lib, q, k, v, True, q_offset, window, kf.P_TERMS, 0)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert name == kf.entry(q.dtype, k.dtype, Sq)
+    (fn, args), = lib.calls
+    assert fn == ("simt" if name == "simt" else "mma")
+    if fn == "mma":
+        part, dh_arg, shape = args[4], args[5], args[6:11]
+        splits, rows, p_terms = args[-4:-1]
+        assert (dh_arg, shape, p_terms) == (dh, (B, Sq, Skv, H, Hkv), kf.P_TERMS)
+        want = kf.split_plan(B, Sq, Skv, H, Hkv, True, q_offset, window) if Sq == 1 else (0, 0)
+        assert (splits, rows) == want
+        assert (part != 0) == (Sq == 1)
+    else:
+        assert args[4:6] == (0, dh)  # float32 k/v
+
+
+def test_p_terms_contract():
+    """The CPU route takes any valid ``p_terms`` (its P.V is float32) and
+    the wrapper refuses others."""
+    q, k, v = _torch(_inputs(1, 4, 8, 2, 1, 16, seed=3), "bfloat16")
+    base = kf.flash_attention(q, k, v)
+    for t in (1, 2, 3):
+        assert torch.equal(kf.flash_attention(q, k, v, p_terms=t), base)
+    for t in (0, 4):
+        with pytest.raises(ValueError, match="p_terms"):
+            kf.flash_attention(q, k, v, p_terms=t)
