@@ -112,9 +112,8 @@ flash kernel -- in thirteen phases:
      attention and the scan in float64 on three prompt seeds (MoE routing
      flips on last-bit differences, so no limit holds there), in which
      each kernel, launch by launch, must lie no further from float64 than
-     twice its plain version (flash: outputs over one bf16 ulp, counted
-     also with P in fewer bf16 parts; the scan: largest error); at float32
-     compute on a
+     twice its plain version (flash: outputs over one bf16 ulp; the scan:
+     largest error); at float32 compute on a
      one-period cut (8 layers, 53.2 GB), decode steps from one state must
      agree across the routes (1e-4 of the logits' scale); prefill ms,
      decode ms per step, tokens/s, peak memory, device kernels per decode
@@ -1065,7 +1064,6 @@ def jax_scale_witness(cfg, prompts, device) -> dict:
     import math
 
     import torch
-    from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import ops
     from repro_torch.models.api import build_model
     from repro_torch.models.params import materialize
@@ -1090,12 +1088,7 @@ def jax_scale_witness(cfg, prompts, device) -> dict:
         ref = attention64(q, k, v, causal=causal, q_offset=q_offset, window=window).double()
         far = lambda x, y: (x.double() - y).abs() > tol + tol * y.abs()  # noqa: E731
         plain_far = far(plain, ref)
-        # the same launch with P in fewer bf16 parts (measured, not gated)
-        fewer = {t: kf.flash_attention(q, k, v, causal=causal, q_offset=q_offset, window=window,
-                                       p_terms=t) for t in range(1, kf.P_TERMS) if q.is_cuda}
         layers.append(dict(
-            parts={t: (int((bf16_ulps(x, plain) > 1).sum()),
-                       int((far(x, plain.double()) & ~plain_far).sum())) for t, x in fewer.items()},
             kernel_ulps=float(bf16_ulps(out, plain).max()),
             over_1ulp=int((bf16_ulps(out, plain) > 1).sum()),
             kernel_far=int(far(out, plain.double()).sum()),
@@ -1124,8 +1117,6 @@ def jax_scale_witness(cfg, prompts, device) -> dict:
                kernel_vs_plain64=gap(kern, plain64),
                layer_kernel_ulps=max(r["kernel_ulps"] for r in layers),
                layer_over_1ulp=sum(r["over_1ulp"] for r in layers),
-               layer_parts={t: tuple(sum(r["parts"][t][i] for r in layers) for i in range(2))
-                            for t in layers[0]["parts"]},
                layer_kernel_far=sum(r["kernel_far"] for r in layers),
                layer_plain_far=sum(r["plain_far_from_f64"] for r in layers),
                layer_kernel_vs_f64_ulps=max(r["kernel_vs_f64_ulps"] for r in layers),
@@ -1137,9 +1128,7 @@ def jax_scale_witness(cfg, prompts, device) -> dict:
     print(f"[9 serve] JAX init scale, each layer's attention on the kernel route's inputs, "
           f"{n_out} outputs over {len(layers)} layers: kernel vs plain max "
           f"{out['layer_kernel_ulps']:.4g} bf16 ulps, {out['layer_over_1ulp']} outputs over "
-          f"1 ulp, {out['layer_kernel_far']} beyond the phase-8 tolerance (P in {kf.P_TERMS} bf16 "
-          f"parts; by P in t parts, (over 1 ulp, beyond it where plain is near float64): "
-          f"{out['layer_parts']}); plain vs float64 "
+          f"1 ulp, {out['layer_kernel_far']} beyond the phase-8 tolerance; plain vs float64 "
           f"max {out['layer_plain_vs_f64_ulps']:.4g} ulps ({out['layer_plain_far']} beyond "
           f"it), kernel vs float64 max {out['layer_kernel_vs_f64_ulps']:.4g} ulps")
     for i, r in enumerate(layers):
@@ -1147,8 +1136,7 @@ def jax_scale_witness(cfg, prompts, device) -> dict:
               f"JAX init scale, layer {i}: the kernel is beyond the phase-8 tolerance of the "
               f"plain version at {r['kernel_far_where_plain_near']} outputs where the plain "
               f"version is within it of float64")
-    check(all(math.isfinite(v) for v in out.values() if isinstance(v, float)),
-          f"JAX init scale: {out}")
+    check(all(math.isfinite(v) for v in out.values()), f"JAX init scale: {out}")
     return out
 
 
@@ -1947,7 +1935,6 @@ def hybrid_witness(model, lm, prompts) -> dict:
     apart, show the model's amplification of last-bit differences, not a
     fault of the kernels."""
     import torch
-    from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import ops
 
     real_scan, real_attn = ops.selective_scan, ops.gqa_flash_attention
@@ -1958,11 +1945,8 @@ def hybrid_witness(model, lm, prompts) -> dict:
         plain = real_attn(q, k, v, mode="torch", **kw)
         ref = attention64(q, k, v, **kw)
         ku, pu = bf16_ulps(out, ref), bf16_ulps(plain, ref)
-        # the same launch with P in fewer bf16 parts (measured)
-        parts = {t: int((bf16_ulps(kf.flash_attention(q, k, v, p_terms=t, **kw), ref) > 1).sum())
-                 for t in range(1, kf.P_TERMS) if q.is_cuda}
         attn.append((int((ku > 1).sum()), int((pu > 1).sum()), float(ku.max()), float(pu.max()),
-                     out.numel(), parts))
+                     out.numel()))
         return out
 
     def counted_scan(delta, u, bm, cm, A, h0, *, mode="cuda"):
@@ -1995,7 +1979,6 @@ def hybrid_witness(model, lm, prompts) -> dict:
                 attn_kernel_over_1ulp=sum(a[0] for a in attn),
                 attn_plain_over_1ulp=sum(a[1] for a in attn),
                 attn_kernel_max_ulps=max(a[2] for a in attn),
-                attn_parts_over_1ulp={t: sum(a[5][t] for a in attn) for t in attn[0][5]},
                 attn_plain_max_ulps=max(a[3] for a in attn),
                 scan_launches=len(scan), scan_kernel_err=max(e[0] for e in scan),
                 scan_plain_err=max(e[1] for e in scan))
@@ -2147,7 +2130,7 @@ def phase_serve_jamba(device, smoke: bool = False, requests: int = 8, prompt_len
             0, cfg.vocab, tuple(prompts.shape), device=device,
             generator=torch.Generator(device).manual_seed(seed))
         w = hybrid_witness(model, lm, seeded)
-        check(all(math.isfinite(v) for v in w.values() if isinstance(v, float)), f"witness: {w}")
+        check(all(math.isfinite(v) for v in w.values()), f"witness: {w}")
         check(w["scan_launches"] == n_mamba, f"the witness read {w['scan_launches']} scans")
         print(f"[13 serve jamba] witness, prefill of the "
               f"{'served prompts' if seed == SEED else f'prompts of seed {seed}'}: last-position "
@@ -2155,9 +2138,8 @@ def phase_serve_jamba(device, smoke: bool = False, requests: int = 8, prompt_len
               f"attention and scan in float64 {w['plain_vs_f64']:.4g}, kernel vs float64 "
               f"{w['kernel_vs_f64']:.4g}; per launch on the kernel route's inputs, of "
               f"{w['attn_outputs']} attention outputs {w['attn_kernel_over_1ulp']} lie more than "
-              f"1 bf16 ulp from float64 by the kernel (max {w['attn_kernel_max_ulps']:.4g} ulps; "
-              f"P in {kf.P_TERMS} bf16 parts; by P in t parts {w['attn_parts_over_1ulp']}) and "
-              f"{w['attn_plain_over_1ulp']} by the plain version (max "
+              f"1 bf16 ulp from float64 by the kernel (max {w['attn_kernel_max_ulps']:.4g} ulps) "
+              f"and {w['attn_plain_over_1ulp']} by the plain version (max "
               f"{w['attn_plain_max_ulps']:.4g}); the {w['scan_launches']} scans' largest error "
               f"from float64 {w['scan_kernel_err']:.3g} by the kernel, "
               f"{w['scan_plain_err']:.3g} by the plain version")

@@ -65,13 +65,13 @@
 //    jax.lax.dot(p, v) is float32); rounding P to bf16 before P.V (as FA2,
 //    FA3 and SDPA do) moves a near-zero output by up to 2^-9 of the terms
 //    that cancel in it, many bf16 ulps of the output. So P is split into
-//    p_terms bf16 parts, P_hi = bf16(p), P_lo = bf16(p - P_hi), and a third
+//    three bf16 parts, P_hi = bf16(p), P_lo = bf16(p - P_hi), and a third
 //    from the rest, each an MMA against the same V fragments: two parts
-//    carry ~16 bits of p, three all 24 (exact). The wrapper's default is
-//    three: with two, ~20x more outputs of the served hybrid's attention
-//    land more than one bf16 ulp from float64 than the plain version's
-//    (~10x when P_hi rounds; its gate allows 2x + 64); with three, fewer
-//    than the plain version's. Each tile's P.V starts from zero on the tensor cores and
+//    carry ~16 bits of p, three all 24 (exact). With two parts, ~20x more
+//    outputs of the served hybrid's attention landed more than one bf16 ulp
+//    from float64 than the plain version's (~10x when P_hi rounds; its gate
+//    allows 2x + 64); with three, fewer than the plain version's. Each
+//    tile's P.V starts from zero on the tensor cores and
 //    joins acc by one fp32 FMA (acc * alpha + PV), so the tensor cores' own
 //    accumulation spans 64 kv rows at a time. l is summed from the fp32 p.
 //
@@ -133,9 +133,9 @@ struct Args {
   float scale;       // 1 / sqrt(dh)
   float scale_log2;  // scale * log2(e): the tensor-core entries' softmax runs in base 2
   // tensor-core entries: split partials [grid x, y, n_split][16][dh + 2] (decode),
-  // kv rows per split (a multiple of the kv tile), bf16 parts of P
+  // kv rows per split (a multiple of the kv tile)
   void* part;
-  int n_split, split_rows, p_terms;
+  int n_split, split_rows;
 };
 
 template <typename TKV, int DH>
@@ -400,7 +400,7 @@ __host__ __device__ constexpr int min_ctas() {
 }
 constexpr int kPrefillRows = 64;   // query rows of a prefill CTA: 16 per warp
 constexpr int kSplitRows = 16;     // query rows of a split CTA, shared by its warps
-constexpr int kMaxPTerms = 3;  // bf16 parts of P: 3 x 8 bits hold an fp32 p
+constexpr int kPTerms = 3;  // bf16 parts of P in P.V: 3 x 8 bits hold an fp32 p
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -522,13 +522,13 @@ constexpr int mma_smem_bytes(int rows) {
   return (rows + stages<DH>() * 2 * kKvTile) * (DH + 8) * 2;
 }
 
-// The shared body of both tensor-core kernels, with P in PT bf16 parts.
+// The shared body of both tensor-core kernels.
 // PREFILL (SPLIT false): a CTA owns 64 query rows, warp w rows 16w..16w+15,
 // and every warp walks the whole of each kv tile. SPLIT: a CTA owns 16 query
 // rows and one range of kv rows (split blockIdx.z); warp w takes kv columns
 // 16w..16w+15 of each tile, and the four warps' states are merged in warp
 // order into one partial (m, l, acc) per CTA.
-template <int DH, int PT, bool SPLIT>
+template <int DH, bool SPLIT>
 __device__ __forceinline__ void mma_body(const Args& a) {
   constexpr int LDS = DH + 8;  // smem row stride: 16 bytes of padding keep ldmatrix conflict-free
   constexpr int ROWS = SPLIT ? kSplitRows : kPrefillRows;
@@ -691,17 +691,17 @@ __device__ __forceinline__ void mma_body(const Args& a) {
         for (int n = 0; n < NH; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
 #pragma unroll
         for (int j = 0; j < NS / 2; ++j) {
-          // P over these 16 kv rows as PT bf16 parts (P_hi = bf16(p), P_lo =
+          // P over these 16 kv rows as kPTerms bf16 parts (P_hi = bf16(p), P_lo =
           // bf16(p - P_hi), ...), each an A fragment
-          unsigned pf[PT][4];
+          unsigned pf[kPTerms][4];
           float x[8] = {s[2 * j][0], s[2 * j][1], s[2 * j][2], s[2 * j][3],
                         s[2 * j + 1][0], s[2 * j + 1][1], s[2 * j + 1][2], s[2 * j + 1][3]};
 #pragma unroll
-          for (int t = 0; t < PT; ++t)
+          for (int t = 0; t < kPTerms; ++t)
 #pragma unroll
             for (int i = 0; i < 4; ++i)
-              pf[t][i] = t + 1 < PT ? split_bf16x2<false>(x[2 * i], x[2 * i + 1])
-                                    : split_bf16x2<true>(x[2 * i], x[2 * i + 1]);
+              pf[t][i] = t + 1 < kPTerms ? split_bf16x2<false>(x[2 * i], x[2 * i + 1])
+                                         : split_bf16x2<true>(x[2 * i], x[2 * i + 1]);
 #pragma unroll
           for (int n = 0; n < NH; n += 2) {
             unsigned bv[4];
@@ -710,7 +710,7 @@ __device__ __forceinline__ void mma_body(const Args& a) {
                                    8 * (n0 + n) + 8 * (lane >> 4)),
                           bv);
 #pragma unroll
-            for (int t = PT - 1; t >= 0; --t) {  // the smallest part first
+            for (int t = kPTerms - 1; t >= 0; --t) {  // the smallest part first
               mma_bf16(pv[n], pf[t], bv[0], bv[1]);
               mma_bf16(pv[n + 1], pf[t], bv[2], bv[3]);
             }
@@ -788,16 +788,16 @@ __device__ __forceinline__ void mma_body(const Args& a) {
   }
 }
 
-template <int DH, int PT>
+template <int DH>
 __global__ void __launch_bounds__(kMmaThreads, min_ctas<DH>())
 flash_attention_mma_kernel(const Args a) {
-  mma_body<DH, PT, false>(a);
+  mma_body<DH, false>(a);
 }
 
-template <int DH, int PT>
+template <int DH>
 __global__ void __launch_bounds__(kMmaThreads, min_ctas<DH>())
 flash_attention_split_kernel(const Args a) {
-  mma_body<DH, PT, true>(a);
+  mma_body<DH, true>(a);
 }
 
 constexpr int kCombineThreads = 256;
@@ -832,16 +832,16 @@ __global__ void __launch_bounds__(kCombineThreads) flash_attention_combine_kerne
   }
 }
 
-template <int DH, int PT>
+template <int DH>
 int launch_mma(const Args& a, int B, cudaStream_t stream) {
   const int rows = a.n_split ? kSplitRows : kPrefillRows;
   const int smem = mma_smem_bytes<DH>(rows);
   static bool configured[2] = {false, false};
   if (!configured[a.n_split ? 1 : 0]) {
     const cudaError_t err = a.n_split
-        ? cudaFuncSetAttribute(flash_attention_split_kernel<DH, PT>,
+        ? cudaFuncSetAttribute(flash_attention_split_kernel<DH>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
-        : cudaFuncSetAttribute(flash_attention_mma_kernel<DH, PT>,
+        : cudaFuncSetAttribute(flash_attention_mma_kernel<DH>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     configured[a.n_split ? 1 : 0] = true;
@@ -855,28 +855,18 @@ int launch_mma(const Args& a, int B, cudaStream_t stream) {
   if (nx > 0x7fffffffLL || ny > 65535 || a.n_split > 65535)
     return (int)cudaErrorInvalidConfiguration;
   if (!a.n_split) {
-    flash_attention_mma_kernel<DH, PT><<<dim3((unsigned)nx, (unsigned)ny), kMmaThreads, smem,
-                                         stream>>>(a);
+    flash_attention_mma_kernel<DH><<<dim3((unsigned)nx, (unsigned)ny), kMmaThreads, smem,
+                                     stream>>>(a);
     return (int)cudaGetLastError();
   }
-  flash_attention_split_kernel<DH, PT><<<dim3((unsigned)nx, (unsigned)ny, (unsigned)a.n_split),
-                                         kMmaThreads, smem, stream>>>(a);
+  flash_attention_split_kernel<DH><<<dim3((unsigned)nx, (unsigned)ny, (unsigned)a.n_split),
+                                     kMmaThreads, smem, stream>>>(a);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   flash_attention_combine_kernel<DH>
       <<<dim3((unsigned)nx, (unsigned)ny, (kSplitRows * DH + kCombineThreads - 1) / kCombineThreads),
          kCombineThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();
-}
-
-template <int DH>
-int launch_mma_pt(const Args& a, int B, cudaStream_t stream) {
-  switch (a.p_terms) {
-    case 1: return launch_mma<DH, 1>(a, B, stream);
-    case 2: return launch_mma<DH, 2>(a, B, stream);
-    case 3: return launch_mma<DH, 3>(a, B, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -896,7 +886,7 @@ extern "C" int flash_attention_launch(
     return (int)cudaErrorInvalidValue;
   Args a{q, k, v, o, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
          Sq, Skv, H, Hkv, q_offset, causal ? 1 : 0, window,
-         (float)(1.0 / std::sqrt((double)dh)), 0.f, nullptr, 0, 0, 0};
+         (float)(1.0 / std::sqrt((double)dh)), 0.f, nullptr, 0, 0};
   cudaStream_t s = (cudaStream_t)stream;
   return kv_bf16 ? launch_dh<__nv_bfloat16>(a, B, dh, s) : launch_dh<float>(a, B, dh, s);
 }
@@ -905,30 +895,27 @@ extern "C" int flash_attention_launch(
 // >= 1: the split entry, kv rows [base + i split_rows, base + (i + 1)
 // split_rows) for split i (base: the first visible row rounded down to the
 // 64-row tile; split_rows a multiple of 64), partials in part (n_split x
-// 16 (dh + 2) floats per CTA of the grid), then the combine pass. p_terms
-// in 1..3: the bf16 parts of P in P.V.
+// 16 (dh + 2) floats per CTA of the grid), then the combine pass.
 extern "C" int flash_attention_mma_launch(
     const void* q, const void* k, const void* v, void* o, void* part, int dh,
     int B, int Sq, int Skv, int H, int Hkv,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
-    int causal, int q_offset, int window, int n_split, int split_rows, int p_terms,
-    void* stream) {
+    int causal, int q_offset, int window, int n_split, int split_rows, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || H % Hkv != 0 || q_offset < 0 || window < 0 ||
-      n_split < 0 || (n_split && (!part || split_rows <= 0 || split_rows % kKvTile)) ||
-      p_terms < 1 || p_terms > kMaxPTerms)
+      n_split < 0 || (n_split && (!part || split_rows <= 0 || split_rows % kKvTile)))
     return (int)cudaErrorInvalidValue;
   const double scale = 1.0 / std::sqrt((double)dh);
   Args a{q, k, v, o, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
          Sq, Skv, H, Hkv, q_offset, causal ? 1 : 0, window,
-         (float)scale, (float)(scale * 1.4426950408889634), part, n_split, split_rows, p_terms};
+         (float)scale, (float)(scale * 1.4426950408889634), part, n_split, split_rows};
   cudaStream_t s = (cudaStream_t)stream;
   switch (dh) {
-    case 16: return launch_mma_pt<16>(a, B, s);
-    case 32: return launch_mma_pt<32>(a, B, s);
-    case 64: return launch_mma_pt<64>(a, B, s);
-    case 128: return launch_mma_pt<128>(a, B, s);
+    case 16: return launch_mma<16>(a, B, s);
+    case 32: return launch_mma<32>(a, B, s);
+    case 64: return launch_mma<64>(a, B, s);
+    case 128: return launch_mma<128>(a, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

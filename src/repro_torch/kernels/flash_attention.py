@@ -51,11 +51,6 @@ KV_TILE = 64
 SPLIT_ROWS = 16
 #: CTAs the split entry aims for: two per SM of an H100
 TARGET_CTAS = 2 * 132
-#: bf16 parts of P in the tensor-core entries' P.V (1..3): three hold an
-#: fp32 p exactly; fewer land many more near-zero outputs more than one
-#: bf16 ulp from float64 (see the source)
-P_TERMS = 3
-
 #: kernel launches per (entry, B, Sq, Skv, H, Hkv, dh), counted where the
 #: kernel is launched and nowhere else (``reset_launches`` zeroes it)
 LAUNCHES: collections.Counter = collections.Counter()
@@ -100,15 +95,6 @@ def split_plan(B: int, Sq: int, Skv: int, H: int, Hkv: int, causal: bool, q_offs
     tiles = max(1, -(-(visible_rows(Sq, Skv, causal, q_offset) - base) // KV_TILE))
     per = -(-tiles // min(tiles, -(-TARGET_CTAS // split_grid(B, Sq, H, Hkv))))
     return -(-tiles // per), per * KV_TILE
-
-
-def split_ranges(Sq: int, Skv: int, causal: bool, q_offset: int, window: int, splits: int,
-                 rows: int) -> list[tuple[int, int]]:
-    """The kv rows [start, end) each split reads, as the kernel cuts them
-    for a CTA whose queries are those of a decode step (Sq = 1)."""
-    lo, hi = first_visible_row(q_offset, window), visible_rows(Sq, Skv, causal, q_offset)
-    base = lo // KV_TILE * KV_TILE
-    return [(max(lo, base + i * rows), min(hi, base + (i + 1) * rows)) for i in range(splits)]
 
 
 def flash_attention_torch(
@@ -190,7 +176,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn = lib.flash_attention_mma_launch
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -203,7 +189,7 @@ def _lib() -> ctypes.CDLL:
 
 
 def launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-           q_offset: int, window: int, p_terms: int, stream: int) -> tuple[str, torch.Tensor]:
+           q_offset: int, window: int, stream: int) -> tuple[str, torch.Tensor]:
     """One launch of ``lib``'s entry for these inputs (checked by ``_check``,
     Sq >= 1): (the entry, out [B, Sq, H, dh] in q's dtype). Raises if the
     launch fails."""
@@ -226,7 +212,7 @@ def launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
         err = lib.flash_attention_mma_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             0 if part is None else part.data_ptr(), dh, *shape, int(causal), int(q_offset),
-            int(window), splits, rows, int(p_terms), stream)
+            int(window), splits, rows, stream)
     if err:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention launch failed: {msg} ({err})")
@@ -241,29 +227,24 @@ def flash_attention(
     causal: bool = True,
     q_offset: int = 0,
     window: int = 0,
-    p_terms: int | None = None,
 ) -> torch.Tensor:
     """Attention out [B, Sq, H, dh] in q's dtype (see the module docstring).
 
     On CUDA tensors the kernel runs on PyTorch's current stream and reads
     only the visible kv rows (with a window, from the first tile that holds
     a row some query of the CTA sees); ``Sq == 0`` returns an empty output
-    without a launch. ``p_terms`` (default P_TERMS) sets the bf16 parts of P
-    in the tensor-core entries. CPU tensors go to the plain version.
+    without a launch. CPU tensors go to the plain version.
     """
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     _check(q, k, v, q_offset, window)
-    p_terms = P_TERMS if p_terms is None else p_terms
-    if p_terms not in (1, 2, 3):
-        raise ValueError(f"p_terms must be 1, 2 or 3, got {p_terms}")
     if q.device.type == "cpu":
         return flash_attention_torch(q, k, v, causal=causal, q_offset=q_offset, window=window)
     B, Sq, H, dh = q.shape
     if Sq == 0 or B == 0:
         return torch.empty((B, Sq, H, dh), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
-        name, out = launch(_lib(), q, k, v, causal, q_offset, window, p_terms,
+        name, out = launch(_lib(), q, k, v, causal, q_offset, window,
                            torch.cuda.current_stream().cuda_stream)
     LAUNCHES[(name, B, Sq, k.shape[1], H, k.shape[2], dh)] += 1
     return out

@@ -274,11 +274,20 @@ DECODES = [(B, Skv, H, Hkv, off, win) for _, B, Sq, Skv, H, Hkv, _, _, off, win
 ]
 
 
+def split_ranges(Skv, q_offset, window, splits, rows):
+    """The kv rows [start, end) split i of a causal decode step (Sq = 1)
+    reads, by the launcher's contract: [base + i rows, base + (i + 1) rows)
+    cut to the visible rows, base the first visible row's tile."""
+    lo, hi = kf.first_visible_row(q_offset, window), kf.visible_rows(1, Skv, True, q_offset)
+    base = lo // kf.KV_TILE * kf.KV_TILE
+    return [(max(lo, base + i * rows), min(hi, base + (i + 1) * rows)) for i in range(splits)]
+
+
 @pytest.mark.parametrize("B,Skv,H,Hkv,q_offset,window", DECODES)
 def test_split_plan_reads_every_visible_row_once(B, Skv, H, Hkv, q_offset, window):
     splits, rows = kf.split_plan(B, 1, Skv, H, Hkv, True, q_offset, window)
     assert splits >= 1 and rows > 0 and rows % kf.KV_TILE == 0
-    ranges = kf.split_ranges(1, Skv, True, q_offset, window, splits, rows)
+    ranges = split_ranges(Skv, q_offset, window, splits, rows)
     seen = collections.Counter(j for lo, hi in ranges for j in range(lo, hi))
     lo, hi = kf.first_visible_row(q_offset, window), kf.visible_rows(1, Skv, True, q_offset)
     assert seen == collections.Counter(range(lo, hi))  # each visible row exactly once
@@ -296,19 +305,26 @@ def test_split_plan_at_the_serving_decode():
     assert 8 * 4 * splits >= 132 and splits * rows >= 512
 
 
+class _FakeFn:
+    """One launcher of ``_FakeLib``: records its arguments, takes the
+    ``argtypes`` and ``restype`` that ``kf.bind`` declares."""
+
+    def __init__(self, calls, name):
+        self.calls, self.name = calls, name
+
+    def __call__(self, *args):
+        self.calls.append((self.name, args))
+        return 0
+
+
 class _FakeLib:
     """Records the launchers' arguments in place of the built library."""
 
     def __init__(self):
         self.calls = []
-
-    def flash_attention_launch(self, *args):
-        self.calls.append(("simt", args))
-        return 0
-
-    def flash_attention_mma_launch(self, *args):
-        self.calls.append(("mma", args))
-        return 0
+        self.flash_attention_launch = _FakeFn(self.calls, "simt")
+        self.flash_attention_mma_launch = _FakeFn(self.calls, "mma")
+        self.flash_attention_error_string = _FakeFn(self.calls, "error_string")
 
 
 @pytest.mark.parametrize("B,Sq,Skv,H,Hkv,dh,q_offset,window,qdt", [
@@ -319,16 +335,19 @@ class _FakeLib:
 ])
 def test_launch_passes_each_entry_its_arguments(B, Sq, Skv, H, Hkv, dh, q_offset, window, qdt):
     q, k, v = _torch(_inputs(B, Sq, Skv, H, Hkv, dh, seed=1), qdt)
-    lib = _FakeLib()
-    name, out = kf.launch(lib, q, k, v, True, q_offset, window, kf.P_TERMS, 0)
+    lib = kf.bind(_FakeLib())
+    name, out = kf.launch(lib, q, k, v, True, q_offset, window, 0)
     assert out.shape == q.shape and out.dtype == q.dtype
     assert name == kf.entry(q.dtype, k.dtype, Sq)
     (fn, args), = lib.calls
     assert fn == ("simt" if name == "simt" else "mma")
+    # as many arguments as the C signature that ``bind`` declares
+    launcher = lib.flash_attention_launch if fn == "simt" else lib.flash_attention_mma_launch
+    assert len(args) == len(launcher.argtypes)
     if fn == "mma":
         part, dh_arg, shape = args[4], args[5], args[6:11]
-        splits, rows, p_terms = args[-4:-1]
-        assert (dh_arg, shape, p_terms) == (dh, (B, Sq, Skv, H, Hkv), kf.P_TERMS)
+        splits, rows = args[-3:-1]
+        assert (dh_arg, shape) == (dh, (B, Sq, Skv, H, Hkv))
         want = kf.split_plan(B, Sq, Skv, H, Hkv, True, q_offset, window) if Sq == 1 else (0, 0)
         assert (splits, rows) == want
         assert (part != 0) == (Sq == 1)
@@ -336,13 +355,20 @@ def test_launch_passes_each_entry_its_arguments(B, Sq, Skv, H, Hkv, dh, q_offset
         assert args[4:6] == (0, dh)  # float32 k/v
 
 
-def test_p_terms_contract():
-    """The CPU route takes any valid ``p_terms`` (its P.V is float32) and
-    the wrapper refuses others."""
-    q, k, v = _torch(_inputs(1, 4, 8, 2, 1, 16, seed=3), "bfloat16")
-    base = kf.flash_attention(q, k, v)
-    for t in (1, 2, 3):
-        assert torch.equal(kf.flash_attention(q, k, v, p_terms=t), base)
-    for t in (0, 4):
-        with pytest.raises(ValueError, match="p_terms"):
-            kf.flash_attention(q, k, v, p_terms=t)
+
+class _FailingLib(_FakeLib):
+    """A library whose launchers return a CUDA error code."""
+
+    def __init__(self):
+        super().__init__()
+        self.flash_attention_launch = lambda *args: 9
+        self.flash_attention_mma_launch = lambda *args: 9
+        self.flash_attention_error_string = lambda err: b"invalid configuration argument"
+
+
+@pytest.mark.parametrize("qdt,Sq", [("float32", 4), ("bfloat16", 4), ("bfloat16", 1)])
+def test_launch_raises_on_a_launcher_error(qdt, Sq):
+    """No entry's failure passes silently: the code and its message raise."""
+    q, k, v = _torch(_inputs(1, Sq, 8, 2, 1, 16, seed=3), qdt)
+    with pytest.raises(RuntimeError, match=r"invalid configuration argument \(9\)"):
+        kf.launch(_FailingLib(), q, k, v, True, 4, 0, 0)

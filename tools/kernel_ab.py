@@ -3,14 +3,16 @@
     python3 tools/kernel_ab.py PARENT_ROOT [CHANGE_ROOT]
 
 CHANGE_ROOT defaults to this checkout. Runs parent, change, change, parent,
-each in a process of its own (the two checkouts' packages share a name),
-and each run times, by CUDA-graph replays on the same seeded inputs:
-``consolidation_scores`` at m = 64, Q = 1, 8, 1024 and m = 1024, Q = 1, 8,
-4096, and ``flash_attention`` in bf16 at the serving shapes of
-tinyllama-1.1b and jamba-v0.1-52b (prefill and decode@511), through the
-wrappers' default calls, which both checkouts have. Prints each run's
-device ms, then per shape the mean of each side and change / parent.
-Needs one CUDA card; imports nothing of JAX.
+each in a process of its own (the two checkouts' packages share a name).
+Each run times, through the wrappers' default calls (which both checkouts
+have), ``consolidation_scores`` at m = 64, Q = 1, 8, 1024 and m = 1024,
+Q = 1, 8, 4096, and ``flash_attention`` in bf16 at the serving rows of
+``chip_smoke.FLASH_SHAPES`` (tinyllama-1.1b and jamba-v0.1-52b, prefill and
+decode@511). The timer (``device_ms``), the inputs (``kernel_inputs``,
+``candidate_types``) and the shapes are this checkout's ``chip_smoke.py``
+ones, so both sides are timed as its phases 3, 5 and 8 time them. Prints
+each run's device ms, then per shape the mean of each side and change /
+parent. Needs one CUDA card; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -20,71 +22,39 @@ import statistics
 import subprocess
 import sys
 
-#: (label, m, Q) of the scorer; (label, B, Sq, Skv, H, Hkv, dh, q_offset) of
-#: flash_attention, causal, bf16
-SCORES = [("scores m=64 Q=1", 64, 1), ("scores m=64 Q=8", 64, 8),
-          ("scores m=64 Q=1024", 64, 1024), ("scores m=1024 Q=1", 1024, 1),
-          ("scores m=1024 Q=8", 1024, 8), ("scores m=1024 Q=4096", 1024, 4096)]
-FLASH = [("flash tinyllama prefill", 8, 512, 672, 32, 4, 64, 0),
-         ("flash tinyllama decode@511", 8, 1, 672, 32, 4, 64, 511),
-         ("flash jamba prefill", 8, 512, 672, 32, 8, 128, 0),
-         ("flash jamba decode@511", 8, 1, 672, 32, 8, 128, 511)]
-
-
-def device_ms(fn, reps: int = 20) -> float:
-    """Device ms of one call: ``reps`` calls captured in a CUDA graph and
-    replayed (median of 5 replays)."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    times = []
-    for _ in range(5):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
+HERE = pathlib.Path(__file__).resolve().parents[1]
+#: (m, Q) of the scorer; the labels of chip_smoke.FLASH_SHAPES timed in bf16
+SCORES = [(64, 1), (64, 8), (64, 1024), (1024, 1), (1024, 8), (1024, 4096)]
+FLASH = ("prefill", "decode@511", "jamba prefill", "jamba decode@511")
 
 
 def measure(root: pathlib.Path) -> dict:
     """Device ms of each shape by the kernels of the checkout at ``root``."""
-    sys.path.insert(0, str(root / "src"))
+    sys.path[:0] = [str(root / "src"), str(HERE)]
     import numpy as np
     import torch
-    from repro_torch.core import M1, M2, PackedCluster, kernel_args, profile_pairwise_fast
+
+    import chip_smoke as cs
+    from repro_torch.core import kernel_args
     from repro_torch.kernels import consolidation as kc
     from repro_torch.kernels import flash_attention as kf
 
     dev = torch.device("cuda")
     out = {}
-    D = {s: profile_pairwise_fast(s) for s in (M1, M2)}
-    for label, m, Q in SCORES:
-        rng = np.random.default_rng(m + Q)
-        servers = [M1, M2] * (m // 2)
-        cl = PackedCluster.build(servers, [D[s] for s in servers], device=dev)
-        counts = rng.integers(1, 4, size=(m, cl.T)) * (rng.random((m, cl.T)) < 0.04)
-        counts = torch.tensor(counts, dtype=torch.float32, device=dev)
-        wtypes = torch.tensor(rng.integers(0, cl.T, size=Q), dtype=torch.int32, device=dev)
-        args = kernel_args(cl, counts, wtypes)
-        out[label] = device_ms(lambda: kc.consolidation_scores(*args))
-    gen = torch.Generator(dev).manual_seed(0)
-    for label, B, Sq, Skv, H, Hkv, dh, off in FLASH:
+    for m, Q in SCORES:
+        rng = np.random.default_rng(cs.SEED)
+        cl, counts = cs.kernel_inputs(m, dev, rng)
+        args = kernel_args(cl, counts, cs.candidate_types(counts, Q, rng))
+        out[f"scores m={m} Q={Q}"] = cs.device_ms(lambda: kc.consolidation_scores(*args))
+    gen = torch.Generator(dev).manual_seed(cs.SEED + 3)
+    for label, B, Sq, Skv, H, Hkv, dh, causal, off, win in cs.FLASH_SHAPES:
+        if label not in FLASH:
+            continue
         q = torch.randn(B, Sq, H, dh, generator=gen, device=dev).bfloat16()
         k, v = (torch.randn(B, Skv, Hkv, dh, generator=gen, device=dev).bfloat16()
                 for _ in range(2))
-        out[label] = device_ms(lambda: kf.flash_attention(q, k, v, causal=True, q_offset=off))
+        kw = dict(causal=causal, q_offset=off, window=win)
+        out[f"flash {label}"] = cs.device_ms(lambda: kf.flash_attention(q, k, v, **kw))
     return out
 
 
@@ -96,8 +66,7 @@ def main() -> int:
         print(__doc__, file=sys.stderr)
         return 2
     parent = pathlib.Path(sys.argv[1]).resolve()
-    change = (pathlib.Path(sys.argv[2]) if len(sys.argv) == 3
-              else pathlib.Path(__file__).resolve().parents[1]).resolve()
+    change = (pathlib.Path(sys.argv[2]) if len(sys.argv) == 3 else HERE).resolve()
     runs = []
     for side, root in (("parent", parent), ("change", change), ("change", change),
                        ("parent", parent)):
