@@ -74,16 +74,22 @@ flash kernel -- in thirteen phases:
      the CPU;
  10. rwkv6_scan vs plain version: ``rwkv6_scan`` against
      ``rwkv6_scan_torch`` (atol 5e-4, rtol 1e-3 on y and the final state)
-     at the serving prefill (B 8, S 512, H 64, dh 64, bf16 r/k/v), decode
-     (S 1) from a nonzero state, ragged S = 17 and 33, the SMOKE head size
-     dh 16 and float32 r/k/v, both against the float64 recurrence at
-     S = 33; device times of the kernel and the plain version beside the
-     bound (no library call computes WKV6);
+     at the serving prefill (B 8, S 512, H 64, dh 64, bf16 r/k/v), the
+     same under strong decays (wlog = -exp(U[-6, 2])), decode (S 1) from a
+     nonzero state, ragged S = 17 and 33, the SMOKE head size dh 16 and
+     float32 r/k/v; every bf16 call with S > 1 must run the chunked
+     tensor-core entry and every other the sequential one; at the prefill,
+     under strong decays and at S = 33 the kernel may lie no further from
+     the float64 recurrence than twice the plain version; device times of
+     the kernel and the plain version beside the bound (no library call
+     computes WKV6);
  11. serving, ``rwkv6-7b`` at full width with weights drawn on the card
      and the decay's ``w_base`` / ``w_lora_b`` perturbed (at the init they
      make the decay uniform): admission of 8 streams on two H100 hosts,
      then 8 requests of 512 prompt tokens and 32 greedy tokens by the kernel
-     route, which must launch rwkv6_scan 32 x 32 times; a shadow rerun
+     route, which must launch rwkv6_scan 32 x 32 times (32 prefill calls
+     on the chunked entry, 992 decode steps on the sequential one); a
+     shadow rerun
      holds every one of those launches to the plain version on its own
      inputs; the teacher-forced plain-route replay is measured beside a
      witness with the WKV in float64 (this random model amplifies last-bit
@@ -99,8 +105,9 @@ flash kernel -- in thirteen phases:
      served prefill (B 8, S 512, E 8192, N 16, bf16 u/B/C), decode (S 1)
      from a nonzero state, a ragged S = 33 and E = 96 (both against the
      float64 recurrence), the SMOKE state N = 4 and float32 u/B/C at N = 8;
-     device times of the kernel and the plain versions beside the bound (no
-     library call computes the selective scan);
+     device times of the kernel and the plain versions beside the bound and,
+     for the model entry, the SFU's floor for its exponentials (no library
+     call computes the selective scan);
  13. serving, ``jamba-v0.1-52b`` at its published widths cut to 16 of 32
      layers with bf16 weights (52.1 GB, drawn on the card): admission of 8
      streams on two H100 hosts, then 8 requests of 512 prompt tokens and 32
@@ -145,6 +152,9 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+#: ex2 per second on the SFU: 16 per SM per clock, 132 SMs at the 1.98 GHz
+#: boost clock (H100 SXM; Hopper tuning guide's throughput table)
+SFU_EX2_PER_S = 16 * 132 * 1.98e9
 TOL = 1e-5
 #: pair_scatter vs its plain version: f32 sums of B products in a different
 #: order (tests/test_kernels.py's bound for the Pallas kernel)
@@ -460,14 +470,18 @@ def device_busy(fn, names=SCORE_KERNELS) -> tuple[float, dict, float, int]:
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # one synchronized launch first: launches right after the tracer
-        # starts can go unrecorded
+        # one synchronized launch and a pause first, a pause last: launches
+        # right after the tracer starts can go unrecorded (a profiled
+        # prefill once missed two of its 22 attention launches with the
+        # launch alone)
         torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
+        time.sleep(0.05)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        time.sleep(0.05)
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     seconds = lambda evs: 1e-6 * sum(e.self_device_time_total for e in evs)  # noqa: E731
     named = {}
@@ -1183,21 +1197,22 @@ def launch_counts(name: str, km):
     return lambda: {name: sum(km.LAUNCHES.values())}
 
 
-#: flash_attention's device kernels as torch.profiler names them, by entry
+#: device kernels as torch.profiler names them, by the wrapper's entry
 FLASH_KERNELS = {"simt": ("flash_attention_kernel",), "mma": ("flash_attention_mma_kernel",),
                  "mma_split": ("flash_attention_split_kernel", "flash_attention_combine_kernel")}
+RWKV_KERNELS = {"sequential": ("rwkv6_scan_kernel",), "chunked": ("rwkv6_scan_chunked_kernel",)}
 
 
-def flash_counts() -> dict:
-    """Launches of each of flash_attention's device kernels, from the
-    wrapper's counts by entry."""
-    from repro_torch.kernels import flash_attention as kf
-
-    out = {name: 0 for names in FLASH_KERNELS.values() for name in names}
-    for key, n in kf.LAUNCHES.items():
-        for name in FLASH_KERNELS[key[0]]:
-            out[name] += n
-    return out
+def entry_counts(km, kernels: dict):
+    """Launches of each of a kernel module's device kernels (``kernels``:
+    their names by entry), from the wrapper's counts by entry."""
+    def counts() -> dict:
+        out = {name: 0 for names in kernels.values() for name in names}
+        for key, n in km.LAUNCHES.items():
+            for name in kernels[key[0]]:
+                out[name] += n
+        return out
+    return counts
 
 
 def profile_serving(model, lm, prompts, run, kernels: dict, tag: str) -> dict:
@@ -1344,7 +1359,7 @@ def phase_serve(device, smoke: bool = False, requests: int = 8, prompt_len: int 
     if not on_card:
         return dict(launches=n_launch, prefill_ms=1e3 * run.prefill_s,
                     decode_ms=statistics.mean(decode_ms), worst_rel=worst_rel)
-    profile_serving(model, lm, prompts, run, {kf: flash_counts}, "9 serve")
+    profile_serving(model, lm, prompts, run, {kf: entry_counts(kf, FLASH_KERNELS)}, "9 serve")
 
     del lm
     gc.collect()
@@ -1359,30 +1374,41 @@ def phase_serve(device, smoke: bool = False, requests: int = 8, prompt_len: int 
 #: rwkv6_scan vs its plain version and the float64 recurrence (tests/test_kernels.py's
 #: bounds for the Pallas kernel): float32 sums over dh terms and the tokens' decays
 RWKV_ATOL, RWKV_RTOL = 5e-4, 1e-3
-#: (label, B, S, H, dh, r/k/v dtype, nonzero s0): the serving path's shapes
-#: (rwkv6-7b, 8 requests, prompt 512: the prefill from a zero state, decode
-#: from the prefill's), ragged S, the SMOKE head size and float32 r/k/v
+#: (label, B, S, H, dh, r/k/v dtype, nonzero s0, strong decays): the
+#: serving path's shapes (rwkv6-7b, 8 requests, prompt 512: the prefill from
+#: a zero state, decode from the prefill's), the prefill under the strongest
+#: decays the served model can draw, ragged S, the SMOKE head size and
+#: float32 r/k/v
 RWKV_SHAPES = [
-    ("prefill", 8, 512, 64, 64, "bfloat16", False),
-    ("decode", 8, 1, 64, 64, "bfloat16", True),
-    ("ragged S=17", 8, 17, 64, 64, "bfloat16", True),
-    ("ragged S=33", 8, 33, 64, 64, "bfloat16", True),
-    ("SMOKE dh=16", 2, 33, 4, 16, "bfloat16", True),
-    ("SMOKE dh=16 decode", 2, 1, 4, 16, "float32", True),
-    ("f32", 2, 65, 8, 64, "float32", True),
+    ("prefill", 8, 512, 64, 64, "bfloat16", False, False),
+    ("strong decay", 8, 512, 64, 64, "bfloat16", False, True),
+    ("decode", 8, 1, 64, 64, "bfloat16", True, False),
+    ("ragged S=17", 8, 17, 64, 64, "bfloat16", True, False),
+    ("ragged S=33", 8, 33, 64, 64, "bfloat16", True, False),
+    ("SMOKE dh=16", 2, 33, 4, 16, "bfloat16", True, False),
+    ("SMOKE dh=16 decode", 2, 1, 4, 16, "float32", True, False),
+    ("f32", 2, 65, 8, 64, "float32", True, False),
 ]
+#: the shapes at which the kernel is held to float64 against its plain
+#: version: no further than twice the plain version's error
+RWKV_WITNESS = ("prefill", "strong decay", "ragged S=33")
 
 
-def rwkv_inputs(B, S, H, dh, dtype, nonzero_s0, gen, device):
+def rwkv_inputs(B, S, H, dh, dtype, nonzero_s0, strong, gen, device):
     """Seeded WKV inputs on ``device``: r, k, v ~ N(0, 1) in ``dtype``,
-    wlog = -exp(0.5 N(0, 1)) per channel and token, u ~ 0.1 N(0, 1), s0
+    wlog = -exp(0.5 N(0, 1)) per channel and token, or with ``strong``
+    -exp(U[-6, 2]) (down to -e^2 per token, as ``perturb_decay``'s
+    ``w_base`` up to 1 with its LoRA can give), u ~ 0.1 N(0, 1), s0
     ~ N(0, 1) or zeros."""
     import torch
 
     rand = lambda *shape: torch.randn(*shape, generator=gen, device=device)  # noqa: E731
     dt = getattr(torch, dtype)
     r, k, v = (rand(B, S, H, dh).to(dt) for _ in range(3))
-    wlog = -torch.exp(0.5 * rand(B, S, H, dh))
+    if strong:
+        wlog = -torch.exp(torch.rand(B, S, H, dh, generator=gen, device=device) * 8.0 - 6.0)
+    else:
+        wlog = -torch.exp(0.5 * rand(B, S, H, dh))
     u = 0.1 * rand(H, dh)
     s0 = rand(B, H, dh, dh) if nonzero_s0 else torch.zeros(B, H, dh, dh, device=device)
     return r, k, v, wlog, u, s0
@@ -1432,28 +1458,41 @@ def rwkv_ref64(r, k, v, wlog, u, s0):
 
 def phase_rwkv_scan(device) -> dict:
     """``rwkv6_scan`` against ``rwkv6_scan_torch`` at every RWKV_SHAPES
-    shape, both against ``rwkv6_ref`` in float64 at the ragged S = 33,
-    with device times of the kernel and the plain version beside the bound
-    (no PyTorch call computes WKV6). Returns the rows by label."""
+    shape, on the entry ``ks.entry`` picks (every bf16 call with S > 1 on
+    the chunked one); at RWKV_WITNESS both against ``rwkv6_ref`` in float64,
+    where the kernel may lie no further from it than twice the plain
+    version; device times of the kernel and the plain version beside the
+    bound (no PyTorch call computes WKV6). Returns the rows by label."""
     import torch
     from repro_torch.kernels import rwkv6_scan as ks
 
     on_card = device.type == "cuda"
     gen = torch.Generator(device).manual_seed(SEED + 4)
     rows = {}
-    for label, B, S, H, dh, dtype, nonzero in RWKV_SHAPES:
-        args = rwkv_inputs(B, S, H, dh, dtype, nonzero, gen, device)
+    for label, B, S, H, dh, dtype, nonzero, strong in RWKV_SHAPES:
+        args = rwkv_inputs(B, S, H, dh, dtype, nonzero, strong, gen, device)
+        ks.reset_launches()
         got = ks.rwkv6_scan(*args)
         if on_card:
             torch.cuda.synchronize()
+            name = ks.entry(args[0].dtype, S)
+            check(dict(ks.LAUNCHES) == {(name, B, S, H, dh): 1},
+                  f"rwkv6_scan {label}: launches {dict(ks.LAUNCHES)}, want one on the {name} entry")
+            check(name == ("chunked" if dtype == "bfloat16" and S > 1 else "sequential"),
+                  f"rwkv6_scan {label}: {dtype} S={S} ran the {name} entry")
         want = ks.rwkv6_scan_torch(*args)
         err = rwkv_err(got, want, f"rwkv6_scan {label}")
-        row = dict(max_abs_err=err, shape=f"B={B} S={S} H={H} dh={dh} {dtype} r/k/v, "
-                   f"{'nonzero' if nonzero else 'zero'} s0")
-        if label == "ragged S=33":
+        row = dict(max_abs_err=err, entry=ks.entry(args[0].dtype, S),
+                   shape=f"B={B} S={S} H={H} dh={dh} {dtype} r/k/v, "
+                   f"{'nonzero' if nonzero else 'zero'} s0{', strong decays' if strong else ''}")
+        if label in RWKV_WITNESS:
             ref = rwkv_ref64(*args)
-            row["ref_err"] = max(rwkv_err(got, ref, f"rwkv6_scan {label} vs float64"),
-                                 rwkv_err(want, ref, f"rwkv6_scan_torch {label} vs float64"))
+            row["ref_err"] = rwkv_err(got, ref, f"rwkv6_scan {label} vs float64")
+            row["plain_ref_err"] = rwkv_err(want, ref, f"rwkv6_scan_torch {label} vs float64")
+            check(row["ref_err"] <= 2 * row["plain_ref_err"],
+                  f"rwkv6_scan {label}: the kernel is {row['ref_err']:.3g} from float64, the "
+                  f"plain version {row['plain_ref_err']:.3g}")
+            del ref
         row["bound_ms"], row["bound_by"] = rwkv_bound_ms(B, S, H, dh, args[0].element_size())
         row["library_ms"] = None
         if on_card:
@@ -1463,10 +1502,11 @@ def phase_rwkv_scan(device) -> dict:
         rows[label] = row
         times = (f"device ms kernel {row['ms']:.5f} plain {row['plain_ms']:.5f}" if on_card
                  else "device ms not measured")
-        ref_text = f", vs float64 {row['ref_err']:.3g}" if "ref_err" in row else ""
-        print(f"[10 rwkv6_scan] {label} ({row['shape']}): err {err:.3g}{ref_text} (atol "
-              f"{RWKV_ATOL} rtol {RWKV_RTOL}), {times}, bound {row['bound_ms']:.5f} by "
-              f"{row['bound_by']}, library none")
+        ref_text = (f", vs float64 {row['ref_err']:.3g} (plain {row['plain_ref_err']:.3g})"
+                    if "ref_err" in row else "")
+        print(f"[10 rwkv6_scan] {label} ({row['shape']}): {row['entry']} entry, err {err:.3g}"
+              f"{ref_text} (atol {RWKV_ATOL} rtol {RWKV_RTOL}), {times}, bound "
+              f"{row['bound_ms']:.5f} by {row['bound_by']}, library none")
     return rows
 
 
@@ -1644,8 +1684,14 @@ def phase_serve_rwkv(device, smoke: bool = False, requests: int = 8, prompt_len:
     launches = dict(ks.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     n_launch = sum(launches.values())
+    entries = by_entry(launches)
     check(n_launch == cfg.n_layers * n_gen or not on_card,
           f"serving launched rwkv6_scan {n_launch} times, want {cfg.n_layers} x {n_gen}")
+    # the prefill's bf16 calls on the tensor cores, every decode step sequential
+    check(not on_card or entries == {"chunked": cfg.n_layers,
+                                     "sequential": cfg.n_layers * (n_gen - 1)},
+          f"serving's rwkv6_scan launches by entry {entries}, want {cfg.n_layers} chunked and "
+          f"{cfg.n_layers * (n_gen - 1)} sequential")
     check(tuple(run.tokens.shape) == (requests, n_gen), f"tokens {tuple(run.tokens.shape)}")
     check(bool(((run.tokens >= 0) & (run.tokens < cfg.vocab)).all()), "token out of the vocab")
     check(all(bool(torch.isfinite(x.float()).all()) for x in run.logits), "non-finite logits")
@@ -1658,8 +1704,8 @@ def phase_serve_rwkv(device, smoke: bool = False, requests: int = 8, prompt_len:
           f"{statistics.mean(decode_ms):.3f} ms/step (median {statistics.median(decode_ms):.3f}, "
           f"min {min(decode_ms):.3f}, max {max(decode_ms):.3f}), {requests * n_gen / total:.1f} "
           f"tokens/s over {total:.3f} s, peak device memory {peak / 2**30:.3f} GiB (states "
-          f"{state_bytes / 1e6:.1f} MB); rwkv6_scan launches {n_launch} over {len(launches)} "
-          f"shapes {sorted(launches)}")
+          f"{state_bytes / 1e6:.1f} MB); rwkv6_scan launches {n_launch} by entry {entries} over "
+          f"{len(launches)} shapes {sorted(launches)}")
 
     shadow = shadow_rerun(model, lm, prompts, run)
     check(shadow["launches"] == cfg.n_layers * n_gen,
@@ -1688,13 +1734,13 @@ def phase_serve_rwkv(device, smoke: bool = False, requests: int = 8, prompt_len:
           f"WKV in float64 {witness['plain_vs_f64']:.4g}, kernel vs float64 "
           f"{witness['kernel_vs_f64']:.4g}; 8 bf16 decode steps each from one state by both "
           f"routes: logits up to {witness['bf16_decode_from_one_state']:.4g} apart")
-    out = dict(launches=n_launch, prefill_ms=1e3 * run.prefill_s,
+    out = dict(launches=n_launch, by_entry=entries, prefill_ms=1e3 * run.prefill_s,
                decode_ms=statistics.mean(decode_ms), replay_gaps=[g[0] for g in gaps],
                witness=witness, shadow_err=shadow["max_abs_err"], peak_gib=peak / 2**30)
     if not on_card:
         return out
 
-    profile_serving(model, lm, prompts, run, {ks: launch_counts("rwkv6_scan_kernel", ks)},
+    profile_serving(model, lm, prompts, run, {ks: entry_counts(ks, RWKV_KERNELS)},
                     "11 serve rwkv")
     del lm, run
     gc.collect()
@@ -1834,6 +1880,8 @@ def phase_mamba_scan(device) -> dict:
                                      mamba_err(want, ref, f"{entry} plain {label} vs float64"))
             row["bound_ms"], row["bound_by"] = mamba_bound_ms(
                 B, S, E, N, margs[1].element_size(), entry == "model")
+            # the model entry's exponentials alone, one per (b, t, e, n), on the SFU
+            row["sfu_ms"] = 1e3 * B * S * E * N / SFU_EX2_PER_S if entry == "model" else None
             row["library_ms"] = None
             if on_card:
                 row["ms"] = device_ms(lambda: kernel(*args))
@@ -1842,9 +1890,11 @@ def phase_mamba_scan(device) -> dict:
             times = (f"device ms kernel {row['ms']:.5f} plain {row['plain_ms']:.5f}" if on_card
                      else "device ms not measured")
             ref_text = f", vs float64 {row['ref_err']:.3g}" if "ref_err" in row else ""
+            sfu_text = (f", SFU floor {row['sfu_ms']:.5f} ({B * S * E * N} ex2)"
+                        if row["sfu_ms"] is not None else "")
             print(f"[12 mamba_scan] {entry} {label} ({row['shape']}): err {err:.3g}{ref_text} "
                   f"(atol {MAMBA_ATOL} rtol {MAMBA_RTOL}), {times}, bound {row['bound_ms']:.5f} "
-                  f"by {row['bound_by']}, library none")
+                  f"by {row['bound_by']}{sfu_text}, library none")
         del margs, cargs
     return rows
 
@@ -2160,7 +2210,8 @@ def phase_serve_jamba(device, smoke: bool = False, requests: int = 8, prompt_len
         return out
 
     out.update(profile_serving(model, lm, prompts, run, {
-        km: launch_counts("mamba_scan_kernel", km), kf: flash_counts}, "13 serve jamba"))
+        km: launch_counts("mamba_scan_kernel", km), kf: entry_counts(kf, FLASH_KERNELS)},
+        "13 serve jamba"))
     del lm, run
     gc.collect()
     torch.cuda.empty_cache()
@@ -2246,13 +2297,16 @@ def main() -> int:
         "name": "rwkv6_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
         "replaces": "src/repro/kernels/rwkv6_scan.py:90",
-        "launches": served_rwkv["launches"],
+        "launches": served_rwkv["launches"], "launches_by_entry": served_rwkv["by_entry"],
         "max_abs_err": max(served_rwkv["shadow_err"],
                            *(max(r["max_abs_err"], r.get("ref_err", 0.0)) for r in wkv.values())),
         **{key: wkv["prefill"][key]
            for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
         "decode": {key: wkv["decode"][key]
                    for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+        "strong_decay": {key: wkv["strong decay"][key]
+                         for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                     "shape", "ref_err", "plain_ref_err")},
     }, {
         "name": "mamba_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
@@ -2262,6 +2316,7 @@ def main() -> int:
                            *(max(r["max_abs_err"], r.get("ref_err", 0.0)) for r in scan.values())),
         **{key: scan[("model", "prefill")][key]
            for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+        "sfu_ms": scan[("model", "prefill")]["sfu_ms"],
         "decode": {key: scan[("model", "decode")][key]
                    for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
         "contract": {key: scan[("contract", "prefill")][key]

@@ -28,7 +28,9 @@ Each launches the kernel on CUDA tensors and runs its plain PyTorch version
 the JAX model's chunked scan) on CPU tensors. On any other device, or when
 the build or the launch fails, they raise. Both check the kernel's
 contract: N in {4, 8, 16}, B <= 65535, the dtypes above, contiguous inputs
-(the last dim of B and C at least).
+(the last dim of B and C at least), and 16-byte aligned h0, A, da and dbu
+(each thread moves four states as one 16-byte access). The kernel's
+layout and bound are in ``csrc/mamba_scan.cu``.
 """
 from __future__ import annotations
 
@@ -116,8 +118,8 @@ def _check_state(B: int, S: int, E: int, N: int, h0: torch.Tensor) -> None:
         raise ValueError(f"h0 {tuple(h0.shape)}, want {(B, E, N)}")
     if h0.dtype != torch.float32:
         raise TypeError(f"h0 must be float32, got {h0.dtype}")
-    if not h0.is_contiguous():
-        raise ValueError(f"h0 must be contiguous, strides {h0.stride()}")
+    if not h0.is_contiguous() or h0.data_ptr() % 16:
+        raise ValueError(f"h0 must be contiguous and 16-byte aligned, strides {h0.stride()}")
 
 
 def _check(da, dbu, c, h0) -> None:
@@ -165,14 +167,15 @@ def _check_model(delta, u, bm, cm, A, h0) -> None:
     for name, x in (("delta", delta), ("u", u), ("A", A)):
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous, strides {x.stride()}")
+    if A.data_ptr() % 16:
+        raise ValueError("A must be 16-byte aligned")
     for name, x in (("B", bm), ("C", cm)):
         if x.stride(-1) != 1:
             raise ValueError(f"{name} needs a contiguous last dim, strides {x.stride()}")
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("mamba_scan")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the launchers' C signatures on a loaded library."""
     lib.mamba_scan_launch.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                                       + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
     lib.mamba_scan_launch.restype = ctypes.c_int
@@ -184,15 +187,44 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _device_check(x: torch.Tensor, name: str) -> None:
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    return bind(_build.load("mamba_scan"))
 
 
-def _raise_on(err: int, lib, name: str) -> None:
+def launch(lib: ctypes.CDLL, entry: str, inputs: tuple[torch.Tensor, ...],
+           stream: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of ``lib``'s ``entry`` ('contract': da, dbu, c, h0;
+    'model': delta, u, B, C, A, h0; checked by ``_check`` or
+    ``_check_model``): (y [B, S, E], hT [B, E, N]), both float32. Raises if
+    the launch fails."""
+    h0 = inputs[-1]
+    B, E, N = h0.shape
+    S = inputs[0].shape[1]
+    y = torch.empty((B, S, E), dtype=torch.float32, device=h0.device)
+    hT = torch.empty((B, E, N), dtype=torch.float32, device=h0.device)
+    if entry == "contract":
+        da, dbu, c, _ = inputs
+        err = lib.mamba_scan_launch(
+            da.data_ptr(), dbu.data_ptr(), c.data_ptr(), h0.data_ptr(), y.data_ptr(),
+            hT.data_ptr(), B, S, E, N, *c.stride()[:2], stream)
+        name = "mamba_scan"
+    else:
+        delta, u, bm, cm, A, _ = inputs
+        err = lib.mamba_selective_scan_launch(
+            delta.data_ptr(), u.data_ptr(), bm.data_ptr(), cm.data_ptr(), A.data_ptr(),
+            h0.data_ptr(), y.data_ptr(), hT.data_ptr(), int(u.dtype == torch.bfloat16),
+            B, S, E, N, *bm.stride()[:2], *cm.stride()[:2], stream)
+        name = "mamba_selective_scan"
     if err:
         msg = lib.mamba_scan_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: {msg} ({err})")
+    return y, hT
+
+
+def _device_check(x: torch.Tensor, name: str) -> None:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
 
 
 def mamba_scan(
@@ -208,17 +240,10 @@ def mamba_scan(
     _check(da, dbu, c, h0)
     if da.device.type == "cpu":
         return mamba_scan_torch(da, dbu, c, h0)
-    B, S, E, N = da.shape
-    y = torch.empty((B, S, E), dtype=torch.float32, device=da.device)
-    hT = torch.empty((B, E, N), dtype=torch.float32, device=da.device)
-    lib = _lib()
     with torch.cuda.device(da.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mamba_scan_launch(
-            da.data_ptr(), dbu.data_ptr(), c.data_ptr(), h0.data_ptr(), y.data_ptr(),
-            hT.data_ptr(), B, S, E, N, *c.stride()[:2], stream)
-    _raise_on(err, lib, "mamba_scan")
-    LAUNCHES[("contract", B, S, E, N)] += 1
+        y, hT = launch(_lib(), "contract", (da, dbu, c, h0),
+                       torch.cuda.current_stream().cuda_stream)
+    LAUNCHES[("contract", *da.shape)] += 1
     return y, hT
 
 
@@ -238,17 +263,8 @@ def mamba_selective_scan(
     _check_model(delta, u, bm, cm, A, h0)
     if delta.device.type == "cpu":
         return mamba_selective_scan_torch(delta, u, bm, cm, A, h0)
-    B, S, E = delta.shape
-    N = A.shape[1]
-    y = torch.empty((B, S, E), dtype=torch.float32, device=delta.device)
-    hT = torch.empty((B, E, N), dtype=torch.float32, device=delta.device)
-    lib = _lib()
     with torch.cuda.device(delta.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mamba_selective_scan_launch(
-            delta.data_ptr(), u.data_ptr(), bm.data_ptr(), cm.data_ptr(), A.data_ptr(),
-            h0.data_ptr(), y.data_ptr(), hT.data_ptr(), int(u.dtype == torch.bfloat16),
-            B, S, E, N, *bm.stride()[:2], *cm.stride()[:2], stream)
-    _raise_on(err, lib, "mamba_selective_scan")
-    LAUNCHES[("model", B, S, E, N)] += 1
+        y, hT = launch(_lib(), "model", (delta, u, bm, cm, A, h0),
+                       torch.cuda.current_stream().cuda_stream)
+    LAUNCHES[("model", *delta.shape, A.shape[1])] += 1
     return y, hT

@@ -19,7 +19,13 @@ included; the design and its bound are in ``csrc/rwkv6_scan.cu``.
 PyTorch version, ``rwkv6_scan_torch``, on CPU tensors. On any other
 device, or when the build or the launch fails, it raises. Both check the
 kernel's contract: r, k, v of one dtype, float32 or bf16; wlog, u and s0
-float32; dh in {16, 64}; the last dim contiguous; u and s0 contiguous.
+float32; dh in {16, 64}; the last dim contiguous; u and s0 contiguous;
+for the chunked entry, r, k, v and wlog with 16-byte aligned pointers
+and strides.
+
+The kernel has two entries (``entry``): the sequential recurrence on the
+CUDA cores, for float32 r/k/v and every decode step (S = 1), and a
+chunked form on the tensor cores for bf16 r/k/v with S > 1 (the prefill).
 """
 from __future__ import annotations
 
@@ -39,13 +45,23 @@ CHUNK = 32
 #: the log-domain mask of the plain version's intra-chunk decays
 NEG_INF = -1e30
 
-#: kernel launches per shape (B, S, H, dh), counted where the kernel is
+#: the kernel's entries: the sequential recurrence on the CUDA cores, and
+#: chunks of 16 tokens on the tensor cores
+ENTRIES = ("sequential", "chunked")
+#: kernel launches per (entry, B, S, H, dh), counted where the kernel is
 #: launched and nowhere else (``reset_launches`` zeroes it)
 LAUNCHES: collections.Counter = collections.Counter()
 
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+def entry(dtype: torch.dtype, S: int) -> str:
+    """The kernel entry for r/k/v of ``dtype`` and S tokens: the chunked
+    tensor-core entry for bf16 with S > 1, the sequential one for float32
+    and for every decode step (S = 1)."""
+    return "chunked" if dtype == torch.bfloat16 and S > 1 else "sequential"
 
 
 def rwkv6_scan_torch(
@@ -126,18 +142,54 @@ def _check(r, k, v, wlog, u, s0) -> None:
     for name, x in (("u", u), ("s0", s0)):
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous, strides {x.stride()}")
+    if entry(r.dtype, S) == "chunked":
+        for name, x in (("r", r), ("k", k), ("v", v), ("wlog", wlog)):
+            size = x.element_size()
+            if x.data_ptr() % 16 or any(st * size % 16 for st in x.stride()[:3]):
+                raise ValueError(f"{name}: pointer and strides {x.stride()} must allow 16-byte "
+                                 f"row loads (the chunked entry)")
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the launchers' C signatures on a loaded library."""
+    lib.rwkv6_scan_launch.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                                      + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
+    lib.rwkv6_scan_launch.restype = ctypes.c_int
+    lib.rwkv6_scan_chunked_launch.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                                              + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
+    lib.rwkv6_scan_chunked_launch.restype = ctypes.c_int
+    lib.rwkv6_scan_error_string.argtypes = [ctypes.c_int]
+    lib.rwkv6_scan_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("rwkv6_scan")
-    fn = lib.rwkv6_scan_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    lib.rwkv6_scan_error_string.argtypes = [ctypes.c_int]
-    lib.rwkv6_scan_error_string.restype = ctypes.c_char_p
-    return lib
+    return bind(_build.load("rwkv6_scan"))
+
+
+def launch(lib: ctypes.CDLL, r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           wlog: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+           stream: int) -> tuple[str, torch.Tensor, torch.Tensor]:
+    """One launch of ``lib``'s entry for these inputs (checked by ``_check``):
+    (the entry, y [B, S, H, dh], sT [B, H, dh, dh]), both float32. Raises if
+    the launch fails."""
+    B, S, H, dh = r.shape
+    y = torch.empty((B, S, H, dh), dtype=torch.float32, device=r.device)
+    sT = torch.empty((B, H, dh, dh), dtype=torch.float32, device=r.device)
+    name = entry(r.dtype, S)
+    ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), wlog.data_ptr(), u.data_ptr(),
+            s0.data_ptr(), y.data_ptr(), sT.data_ptr())
+    strides = (*r.stride()[:3], *k.stride()[:3], *v.stride()[:3], *wlog.stride()[:3])
+    if name == "chunked":
+        err = lib.rwkv6_scan_chunked_launch(*ptrs, dh, B, S, H, *strides, stream)
+    else:
+        err = lib.rwkv6_scan_launch(*ptrs, int(r.dtype == torch.bfloat16), dh, B, S, H,
+                                    *strides, stream)
+    if err:
+        msg = lib.rwkv6_scan_error_string(err).decode()
+        raise RuntimeError(f"rwkv6_scan launch failed: {msg} ({err})")
+    return name, y, sT
 
 
 def rwkv6_scan(
@@ -149,26 +201,15 @@ def rwkv6_scan(
     s0: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(y [B, S, H, dh], sT [B, H, dh, dh]), both float32 (see the module
-    docstring). On CUDA tensors the kernel runs on PyTorch's current
-    stream; CPU tensors go to the plain version."""
+    docstring). On CUDA tensors the kernel's entry for the dtype and S runs
+    on PyTorch's current stream; CPU tensors go to the plain version."""
     if r.device.type not in ("cpu", "cuda"):
         raise ValueError(f"rwkv6_scan runs on cuda or cpu, not {r.device}")
     _check(r, k, v, wlog, u, s0)
     if r.device.type == "cpu":
         return rwkv6_scan_torch(r, k, v, wlog, u, s0)
-    B, S, H, dh = r.shape
-    y = torch.empty((B, S, H, dh), dtype=torch.float32, device=r.device)
-    sT = torch.empty((B, H, dh, dh), dtype=torch.float32, device=r.device)
-    lib = _lib()
     with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.rwkv6_scan_launch(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), wlog.data_ptr(), u.data_ptr(),
-            s0.data_ptr(), y.data_ptr(), sT.data_ptr(),
-            int(r.dtype == torch.bfloat16), dh, B, S, H,
-            *r.stride()[:3], *k.stride()[:3], *v.stride()[:3], *wlog.stride()[:3], stream)
-    if err:
-        msg = lib.rwkv6_scan_error_string(err).decode()
-        raise RuntimeError(f"rwkv6_scan launch failed: {msg} ({err})")
-    LAUNCHES[(B, S, H, dh)] += 1
+        name, y, sT = launch(_lib(), r, k, v, wlog, u, s0,
+                             torch.cuda.current_stream().cuda_stream)
+    LAUNCHES[(name, *r.shape)] += 1
     return y, sT

@@ -215,3 +215,99 @@ def test_wrapper_contract():
     with pytest.raises(ValueError, match="runs on cuda or cpu"):
         km.mamba_scan(*(x.to("meta") for x in (da, dbu, c, h0)))
     assert not km.LAUNCHES  # the CPU route never launches the kernel
+
+
+def _c_signature(name: str) -> list:
+    """The parameter types of ``extern "C" int <name>(...)`` in
+    csrc/mamba_scan.cu, as ctypes types."""
+    import ctypes
+    import pathlib
+    import re
+
+    src = (pathlib.Path(km.__file__).parent / "csrc" / "mamba_scan.cu").read_text()
+    params = re.search(rf'extern "C" int {name}\(([^)]*)\)', src).group(1)
+    kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "long long": ctypes.c_longlong}
+    out = []
+    for p in params.split(","):
+        words = p.replace("const", "").replace("*", " * ").split()[:-1]  # drop the name
+        out.append(kinds[" ".join(words).replace(" *", "*")])
+    return out
+
+
+class _FakeFn:
+    """One launcher of ``_FakeLib``: records its arguments, takes the
+    ``argtypes`` and ``restype`` that ``km.bind`` declares."""
+
+    def __init__(self, calls, name, ret=0):
+        self.calls, self.name, self.ret = calls, name, ret
+
+    def __call__(self, *args):
+        self.calls.append((self.name, args))
+        return self.ret
+
+
+class _FakeLib:
+    """Records the launchers' arguments in place of the built library;
+    ``ret`` is what every launcher returns (a CUDA error code, or 0)."""
+
+    def __init__(self, ret=0):
+        self.calls = []
+        self.mamba_scan_launch = _FakeFn(self.calls, "contract", ret)
+        self.mamba_selective_scan_launch = _FakeFn(self.calls, "model", ret)
+        self.mamba_scan_error_string = lambda err: b"invalid configuration argument"
+
+
+@pytest.mark.parametrize("B,S,E,N,dtype", [(2, 33, 96, 16, "bfloat16"), (1, 1, 40, 8, "float32"),
+                                           (3, 5, 7, 4, "bfloat16")])
+def test_launch_passes_each_entry_its_arguments(B, S, E, N, dtype):
+    """Each entry gets as many arguments as its C signature, of the types it
+    declares: the input and output pointers, the shape, and B's and C's
+    batch/sequence strides read in place (strided views of one
+    projection)."""
+    margs = _model(B, S, E, N, dtype=dtype, seed=2)
+    delta, u, bm, cm, A, h0 = margs
+    da = torch.exp(delta[..., None] * A)
+    dbu = (delta * u.float())[..., None] * bm.float()[:, :, None, :]
+    cargs = (da, dbu, cm.float(), h0)
+    lib = km.bind(_FakeLib())
+    for entry, inputs, c_name in (("contract", cargs, "mamba_scan_launch"),
+                                  ("model", margs, "mamba_selective_scan_launch")):
+        lib.calls.clear()
+        y, hT = km.launch(lib, entry, inputs, 5)
+        assert y.shape == (B, S, E) and hT.shape == (B, E, N)
+        assert y.dtype == hT.dtype == torch.float32
+        (fn, args), = lib.calls
+        assert fn == entry
+        assert getattr(lib, c_name).argtypes == _c_signature(c_name)
+        assert len(args) == len(_c_signature(c_name))
+        n_in = len(inputs)
+        assert args[:n_in + 2] == (*(x.data_ptr() for x in inputs), y.data_ptr(), hT.data_ptr())
+        if entry == "contract":
+            assert args[n_in + 2:] == (B, S, E, N, *inputs[2].stride()[:2], 5)
+        else:
+            assert args[n_in + 2:] == (int(dtype == "bfloat16"), B, S, E, N, *bm.stride()[:2],
+                                       *cm.stride()[:2], 5)
+
+
+@pytest.mark.parametrize("entry", ["contract", "model"])
+def test_launch_raises_on_a_launcher_error(entry):
+    """No entry's failure passes silently: the code and its message raise."""
+    margs = _model(1, 4, 8, 4, dtype="float32", seed=6)
+    delta, u, bm, cm, A, h0 = margs
+    inputs = margs if entry == "model" else (
+        torch.exp(delta[..., None] * A), (delta * u)[..., None] * bm[:, :, None, :],
+        cm.contiguous(), h0)
+    with pytest.raises(RuntimeError, match=r"invalid configuration argument \(9\)"):
+        km.launch(km.bind(_FakeLib(ret=9)), entry, inputs, 0)
+
+
+def test_states_need_16_byte_alignment():
+    """Each thread moves four states as one 16-byte access: an h0 or A that
+    starts 4 bytes into its storage is refused."""
+    delta, u, bm, cm, A, h0 = _model(1, 3, 8, 4, dtype="float32", seed=7)
+    h_off = torch.zeros(h0.numel() + 1)[1:].view(h0.shape).copy_(h0)
+    a_off = torch.zeros(A.numel() + 1)[1:].view(A.shape).copy_(A)
+    with pytest.raises(ValueError, match="h0 must be contiguous and 16-byte aligned"):
+        km.mamba_selective_scan(delta, u, bm, cm, A, h_off)
+    with pytest.raises(ValueError, match="A must be 16-byte aligned"):
+        km.mamba_selective_scan(delta, u, bm, cm, a_off, h0)

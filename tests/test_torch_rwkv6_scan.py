@@ -180,3 +180,130 @@ def test_wrapper_contract():
         ks.rwkv6_scan(r.to("meta"), k.to("meta"), v.to("meta"), wlog.to("meta"),
                       u.to("meta"), s0.to("meta"))
     assert not ks.LAUNCHES  # the CPU route never launches the kernel
+
+
+@pytest.mark.parametrize("dh", [16, 64])
+@pytest.mark.parametrize("S", [1, 2, 17, 64])
+def test_plain_matches_float64_under_strong_decays(S, dh):
+    """The plain version, the card's yardstick for the chunked entry, holds
+    to the float64 recurrence where decays are strongest: wlog = -exp(U[-6,
+    2]), down to -e^2 per token, so a chunk's cumulative log decay passes
+    -88 within a few dozen tokens (a factorisation relative to the chunk's
+    first token would overflow float32 here)."""
+    arrs = list(_inputs(2, S, 2, dh, nonzero_s0=True, dtype="bfloat16", seed=S * 17 + dh))
+    rng = np.random.default_rng(S + dh)
+    arrs[3] = -np.exp(rng.uniform(-6.0, 2.0, size=arrs[3].shape)).astype(np.float32)
+    want_y, want_s = _ref64(arrs)
+    y, sT = ks.rwkv6_scan_torch(*_port(arrs, "bfloat16"))
+    np.testing.assert_allclose(y.numpy(), want_y, **TOL)
+    np.testing.assert_allclose(sT.numpy(), want_s, **TOL)
+
+
+@pytest.mark.parametrize("dtype,S,want", [
+    (torch.bfloat16, 512, "chunked"), (torch.bfloat16, 2, "chunked"),
+    (torch.bfloat16, 1, "sequential"), (torch.float32, 512, "sequential"),
+    (torch.float32, 1, "sequential"),
+])
+def test_entry_by_dtype_and_length(dtype, S, want):
+    """bf16 prefill on the tensor cores; float32 and every decode step on
+    the CUDA cores."""
+    assert want in ks.ENTRIES
+    assert ks.entry(dtype, S) == want
+
+
+def _c_signature(name: str) -> list:
+    """The parameter types of ``extern "C" int <name>(...)`` in
+    csrc/rwkv6_scan.cu, as ctypes types."""
+    import ctypes
+    import pathlib
+    import re
+
+    src = (pathlib.Path(ks.__file__).parent / "csrc" / "rwkv6_scan.cu").read_text()
+    params = re.search(rf'extern "C" int {name}\(([^)]*)\)', src).group(1)
+    kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "long long": ctypes.c_longlong}
+    out = []
+    for p in params.split(","):
+        words = p.replace("const", "").replace("*", " * ").split()[:-1]  # drop the name
+        out.append(kinds[" ".join(words).replace(" *", "*")])
+    return out
+
+
+class _FakeFn:
+    """One launcher of ``_FakeLib``: records its arguments, takes the
+    ``argtypes`` and ``restype`` that ``ks.bind`` declares."""
+
+    def __init__(self, calls, name, ret=0):
+        self.calls, self.name, self.ret = calls, name, ret
+
+    def __call__(self, *args):
+        self.calls.append((self.name, args))
+        return self.ret
+
+
+class _FakeLib:
+    """Records the launchers' arguments in place of the built library;
+    ``ret`` is what every launcher returns (a CUDA error code, or 0)."""
+
+    def __init__(self, ret=0):
+        self.calls = []
+        self.rwkv6_scan_launch = _FakeFn(self.calls, "sequential", ret)
+        self.rwkv6_scan_chunked_launch = _FakeFn(self.calls, "chunked", ret)
+        self.rwkv6_scan_error_string = lambda err: b"invalid configuration argument"
+
+
+@pytest.mark.parametrize("B,S,H,dh,dtype,fused", [
+    (2, 40, 3, 64, "bfloat16", False), (2, 40, 3, 64, "bfloat16", True),
+    (1, 2, 2, 16, "bfloat16", True), (2, 1, 3, 64, "bfloat16", False),
+    (2, 17, 2, 16, "float32", True), (1, 1, 2, 16, "float32", False),
+])
+def test_launch_passes_each_entry_its_arguments(B, S, H, dh, dtype, fused):
+    """Each entry gets as many arguments as its C signature, of the types it
+    declares: the input and output pointers, the shape and every input's
+    batch/sequence/head strides, read in place (r, k, v as views of one
+    fused projection when ``fused``)."""
+    arrs = _inputs(B, S, H, dh, nonzero_s0=True, dtype=dtype, seed=4)
+    r, k, v, wlog, u, s0 = _port(arrs, dtype)
+    if fused:
+        r, k, v = torch.stack([r, k, v], dim=2).unbind(2)  # [B, S, 3, H, dh] views
+        assert not r.is_contiguous()
+    lib = ks.bind(_FakeLib())
+    name, y, sT = ks.launch(lib, r, k, v, wlog, u, s0, 7)
+    assert name == ks.entry(r.dtype, S)
+    assert y.shape == (B, S, H, dh) and sT.shape == (B, H, dh, dh)
+    assert y.dtype == sT.dtype == torch.float32
+    (fn, args), = lib.calls
+    assert fn == name
+    launcher = lib.rwkv6_scan_chunked_launch if fn == "chunked" else lib.rwkv6_scan_launch
+    c_name = "rwkv6_scan_chunked_launch" if fn == "chunked" else "rwkv6_scan_launch"
+    assert launcher.argtypes == _c_signature(c_name)
+    assert len(args) == len(launcher.argtypes)
+    assert args[:8] == tuple(x.data_ptr() for x in (r, k, v, wlog, u, s0, y, sT))
+    rest = args[8:] if fn == "chunked" else args[9:]
+    if fn == "sequential":
+        assert args[8] == int(r.dtype == torch.bfloat16)
+    assert rest[:4] == (dh, B, S, H)
+    assert rest[4:16] == (*r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                          *wlog.stride()[:3])
+    assert rest[16] == 7  # the stream
+
+
+@pytest.mark.parametrize("dtype,S", [("bfloat16", 33), ("bfloat16", 1), ("float32", 33)])
+def test_launch_raises_on_a_launcher_error(dtype, S):
+    """No entry's failure passes silently: the code and its message raise."""
+    args = _port(_inputs(1, S, 2, 16, nonzero_s0=True, dtype=dtype, seed=3), dtype)
+    with pytest.raises(RuntimeError, match=r"invalid configuration argument \(9\)"):
+        ks.launch(ks.bind(_FakeLib(ret=9)), *args, 0)
+
+
+def test_chunked_entry_needs_aligned_rows():
+    """The chunked entry copies rows in 16-byte pieces: a head stride of 17
+    bf16 is refused; the same view in float32 (the sequential entry) and a
+    decode step (S = 1) are taken."""
+    arrs = _inputs(1, 3, 2, 16, nonzero_s0=True, dtype="bfloat16", seed=2)
+    r, k, v, wlog, u, s0 = _port(arrs, "bfloat16")
+    odd = torch.zeros(1, 3, 2, 17, dtype=torch.bfloat16)[..., :16]
+    odd.copy_(r)
+    with pytest.raises(ValueError, match="16-byte row loads"):
+        ks.rwkv6_scan(odd, k, v, wlog, u, s0)
+    ks.rwkv6_scan(odd.float(), k.float(), v.float(), wlog, u, s0)
+    ks.rwkv6_scan(odd[:, :1], k[:, :1], v[:, :1], wlog[:, :1], u, s0)

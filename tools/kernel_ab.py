@@ -6,13 +6,18 @@ CHANGE_ROOT defaults to this checkout. Runs parent, change, change, parent,
 each in a process of its own (the two checkouts' packages share a name).
 Each run times, through the wrappers' default calls (which both checkouts
 have), ``consolidation_scores`` at m = 64, Q = 1, 8, 1024 and m = 1024,
-Q = 1, 8, 4096, and ``flash_attention`` in bf16 at the serving rows of
+Q = 1, 8, 4096, ``flash_attention`` in bf16 at the serving rows of
 ``chip_smoke.FLASH_SHAPES`` (tinyllama-1.1b and jamba-v0.1-52b, prefill and
-decode@511). The timer (``device_ms``), the inputs (``kernel_inputs``,
-``candidate_types``) and the shapes are this checkout's ``chip_smoke.py``
-ones, so both sides are timed as its phases 3, 5 and 8 time them. Prints
-each run's device ms, then per shape the mean of each side and change /
-parent. Needs one CUDA card; imports nothing of JAX.
+decode@511), ``rwkv6_scan`` at the serving rows of ``chip_smoke.RWKV_SHAPES``
+(prefill, the prefill under strong decays, decode) and both entries of
+``mamba_scan`` at the served rows of ``chip_smoke.MAMBA_SHAPES`` (prefill,
+decode). The timer (``device_ms``), the inputs (``kernel_inputs``,
+``candidate_types``, ``rwkv_inputs``, ``mamba_inputs``,
+``contract_inputs``) and the shapes are this checkout's ``chip_smoke.py``
+ones, so both sides are timed as its phases 3, 5, 8, 10 and 12 time them,
+on the same seeded inputs. Prints each run's device ms, then per shape the
+mean of each side and change / parent. Needs one CUDA card; imports
+nothing of JAX.
 """
 from __future__ import annotations
 
@@ -23,9 +28,12 @@ import subprocess
 import sys
 
 HERE = pathlib.Path(__file__).resolve().parents[1]
-#: (m, Q) of the scorer; the labels of chip_smoke.FLASH_SHAPES timed in bf16
+#: (m, Q) of the scorer; the labels of chip_smoke.FLASH_SHAPES timed in bf16,
+#: of chip_smoke.RWKV_SHAPES and of chip_smoke.MAMBA_SHAPES
 SCORES = [(64, 1), (64, 8), (64, 1024), (1024, 1), (1024, 8), (1024, 4096)]
 FLASH = ("prefill", "decode@511", "jamba prefill", "jamba decode@511")
+RWKV = ("prefill", "strong decay", "decode")
+MAMBA = ("prefill", "decode")
 
 
 def measure(root: pathlib.Path) -> dict:
@@ -38,6 +46,8 @@ def measure(root: pathlib.Path) -> dict:
     from repro_torch.core import kernel_args
     from repro_torch.kernels import consolidation as kc
     from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import mamba_scan as km
+    from repro_torch.kernels import rwkv6_scan as ks
 
     dev = torch.device("cuda")
     out = {}
@@ -55,6 +65,21 @@ def measure(root: pathlib.Path) -> dict:
                 for _ in range(2))
         kw = dict(causal=causal, q_offset=off, window=win)
         out[f"flash {label}"] = cs.device_ms(lambda: kf.flash_attention(q, k, v, **kw))
+        del q, k, v
+    gen = torch.Generator(dev).manual_seed(cs.SEED + 4)
+    for label, *shape in cs.RWKV_SHAPES:
+        if label in RWKV:
+            args = cs.rwkv_inputs(*shape, gen, dev)
+            out[f"rwkv6_scan {label}"] = cs.device_ms(lambda: ks.rwkv6_scan(*args))
+    gen = torch.Generator(dev).manual_seed(cs.SEED + 6)
+    for label, *shape in cs.MAMBA_SHAPES:
+        if label in MAMBA:
+            margs = cs.mamba_inputs(*shape, gen, dev)
+            out[f"mamba_scan model {label}"] = cs.device_ms(
+                lambda: km.mamba_selective_scan(*margs))
+            cargs = cs.contract_inputs(*margs)
+            out[f"mamba_scan contract {label}"] = cs.device_ms(lambda: km.mamba_scan(*cargs))
+            del margs, cargs
     return out
 
 
