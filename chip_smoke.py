@@ -29,22 +29,36 @@ flash kernel -- in thirteen phases:
      rescans' Q = 4096 (<= 1e-5, the paths bitwise equal),
      then the engine with the kernel route, which must place exactly as the
      plain-version route on the same trace;
-  6. pair_scatter vs plain version: ``pair_scatter`` against
-     ``pair_scatter_torch`` at B = 0, 1, 7, 300, 4096, T = 32, 230 and
-     K = 1 (1-D), 1, 2, 3 (atol 2e-5, rtol 1e-5), and against the float64
-     reference at one shape, with device times beside the ``index_add_``
-     scatter-add form at B = 4096, T = 230, K = 2;
+  6. pair_scatter vs plain versions: the contract entry against
+     ``pair_scatter_torch`` at B = 0, 1, 7, 300, 4096, 9000, T = 17, 32,
+     230 and K = 1 (1-D), 1, 2, 3 (atol 2e-5, rtol 1e-5), each bitwise equal
+     on a rerun (and the banked entry at m = 5, B = 300, K = 3 for each T),
+     and against the float64 reference at one shape, with device
+     times beside the ``index_add_`` scatter-add form at B = 4096 and 16 (a
+     host-alternating update's size), T = 230, K = 2; the banked entry
+     against ``pair_scatter_banked_torch`` (same tolerance, bitwise equal
+     reruns) at the rack stream's segments (m = 64,
+     B = 256 and 512), a fleet block (m = 1024, B = 4096), a block with -1
+     and past-the-space keys and one past the sort's shared memory (B =
+     9000), against the float64 reference at m = 64, B = 512, with device
+     times beside the bound and the dense ``index_add_`` form;
   7. adaptive loop, rack scale, ``scorer='cuda'`` and ``scatter='cuda'``:
      64 servers, 8 segments of 256 arrivals from the uniform prior 0.0, a
      congestion drift at segment 4; then 3 segments of 512 arrivals from
      the profiled prior, a drift at segment 1, where every segment must
-     queue and rescan its whole queue. In both, every estimator update is
-     replayed on shadow estimators with the plain scatter, whose tables
-     must agree after every segment (so every launch is held to the plain
-     version at the shape it ran), and the launches must be exactly the
-     updates that had a co-run. Segment 0 of the first must place as the
+     queue and rescan its whole queue. Each run twice: host-alternating,
+     where every estimator update is replayed on shadow estimators with
+     the plain scatter, whose tables must agree after every segment, and
+     the contract entry's launches must be exactly the updates that had a
+     co-run; and in stream mode (``stream=True``), where the banked entry
+     must launch exactly once per segment, a shadow bank on the plain
+     scatter must agree after every segment, segment 0 must place as the
+     host-alternating run with estimators within 1e-4 of its float64 ones,
+     and the first later divergence is reported (float32 device state can
+     break a near-tie); the estimator refresh ms and wall per segment of
+     both modes side by side. Segment 0 of the first must place as the
      plain engine on the prior D, and a small adaptive run on the card,
-     which queues, must equal the same run on the CPU;
+     which queues, must equal the same run on the CPU, on each path;
   8. flash_attention vs plain version: ``flash_attention`` against
      ``flash_attention_torch`` in bf16 (atol/rtol 2e-2) and f32 (2e-5) at
      the serving prefill (B 8, Sq 512, Skv 672, H 32, Hkv 4, dh 64), decode
@@ -332,6 +346,9 @@ def phase_build():
 #: the scorer's device kernels as torch.profiler names them: the single
 #: pass, and the table path's two passes
 SCORE_KERNELS = ("score_kernel", "score_table_kernel", "score_gather_kernel")
+#: pair_scatter's: each entry's sort (the contract's, the bank's), then the
+#: accumulate both share
+SCATTER_KERNELS = ("chunk_sort_kernel", "bucket_kernel", "accumulate_kernel")
 
 
 def score_counts() -> dict:
@@ -682,46 +699,161 @@ def scatter_bound_ms(types, T: int, K: int) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+#: the banked entry's shapes: (label, m, B, share of keys dropped); T = 230,
+#: K = 2. The rack stream's segments (256 and 512 arrivals over 64 servers),
+#: a fleet-width block, a block with -1 and past-the-space keys, and one past
+#: the 8192 keys the kernel sorts in shared memory
+BANKED_SHAPES = [("rack 256", 64, 256, 0.0), ("rack 512", 64, 512, 0.0),
+                 ("fleet 4096", 1024, 4096, 0.0), ("dropped keys", 64, 300, 0.4),
+                 ("sort in global memory", 256, 9000, 0.1)]
+
+
+def banked_inputs(m: int, B: int, T: int, K: int, drop: float, device, rng):
+    """Seeded banked-scatter inputs: keys server * T + type over m servers,
+    a ``drop`` share of them -1 or past the key space; co rows of a few
+    co-resident types, as the stream's are."""
+    import numpy as np
+    import torch
+
+    keys = (rng.integers(0, m, B) * T + rng.integers(0, T, B)).astype(np.int32)
+    bad = rng.random(B) < drop
+    keys[bad] = rng.choice(np.array([-1, m * T, m * T + 5], np.int32), int(bad.sum()))
+    co = (rng.random((B, T)) * 2).astype(np.float32)
+    vals = rng.normal(size=(K, B)).astype(np.float32)
+    return tuple(torch.from_numpy(x).to(device) for x in (keys, co, vals))
+
+
+def banked_index_add_form(keys, co, vals, n_rows: int):
+    """The dense [K, n_rows, T] table by the scatter-add the JAX package
+    lowers to on a GPU (``repro/telemetry/estimator.py:292-300``), with a
+    dump row for dropped keys. Timed as the library call; the port never
+    calls it."""
+    import torch
+
+    K, T = vals.shape[0], co.shape[1]
+    idx = torch.where((keys >= 0) & (keys < n_rows), keys, n_rows).long()
+    acc = torch.zeros((K, n_rows + 1, T), dtype=torch.float32, device=co.device)
+    acc.index_add_(1, idx, co[None] * vals[:, :, None])
+    return acc[:, :n_rows]
+
+
+def banked_bound_ms(keys, T: int, K: int, n_rows: int) -> tuple[float, str]:
+    """Least time for one banked call on these inputs: the in-range rows'
+    co rows and values and all keys read once, the touched rows and their
+    keys written once, over HBM bandwidth; against 2 K T fp32 operations per
+    row in range over the fp32 peak."""
+    import torch
+
+    B = int(keys.shape[0])
+    keep = (keys >= 0) & (keys < n_rows)
+    rows = int(keep.sum())
+    n_keys = int(torch.unique(keys[keep]).numel())
+    nbytes = 4 * (rows * T + B + K * rows + K * n_keys * T + n_keys)
+    flops = 2 * K * rows * T
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def phase_pair_scatter(device) -> dict:
-    """``pair_scatter`` against its plain version at every listed shape and
-    against the float64 reference at one; times at B=4096, T=230, K=2."""
+    """``pair_scatter``'s two entries against their plain versions at every
+    listed shape, bitwise equal on a rerun, and against the float64
+    references at one shape each; times of the contract entry at B=4096,
+    T=230, K=2 and of the banked entry at ``BANKED_SHAPES``, beside the
+    bound and the ``index_add_`` form."""
     import numpy as np
     import torch
     from repro_torch.kernels import telemetry as kt
-    from repro_torch.kernels.ref import pair_scatter_ref
+    from repro_torch.kernels.ref import pair_scatter_banked_ref, pair_scatter_ref
 
+    on_card = device.type == "cuda"
     rng = np.random.default_rng(SEED + 2)
     errs = []
-    for T in (32, 230):
-        for B in (0, 1, 7, 300, 4096):
+    for T in (17, 32, 230):  # an odd T moves single floats, an even one float2
+        for B in (0, 1, 7, 300, 4096, 9000):
             for K in (None, 1, 2, 3):
                 args = scatter_inputs(B, T, K, device, rng)
-                errs.append(close_err(kt.pair_scatter(*args), kt.pair_scatter_torch(*args),
-                                      f"pair_scatter B={B} T={T} K={K or '1-D'}"))
+                label = f"pair_scatter B={B} T={T} K={K or '1-D'}"
+                got = kt.pair_scatter(*args)
+                errs.append(close_err(got, kt.pair_scatter_torch(*args), label))
+                again = kt.pair_scatter(*args)
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"{label}: a rerun is not bitwise equal")
+        bargs = banked_inputs(5, 300, T, 3, 0.2, device, rng)
+        errs.append(close_err(kt.pair_scatter_banked(*bargs, 5 * T)[:1],
+                              kt.pair_scatter_banked_torch(*bargs, 5 * T)[:1],
+                              f"banked m=5 B=300 T={T} K=3"))
     args = scatter_inputs(300, 230, 2, device, rng)
     ref = [torch.from_numpy(x).to(device)
            for x in pair_scatter_ref(*(a.cpu().numpy() for a in args))]
     err_ref = close_err(kt.pair_scatter(*args), ref, "pair_scatter vs float64 reference")
 
-    B, T, K = 4096, 230, 2
-    args = scatter_inputs(B, T, K, device, rng)
-    lib_err = close_err([index_add_form(*args)], [kt.pair_scatter(*args)[0]],
-                        "index_add_ form vs kernel")
-    row = dict(max_abs_err=max(errs), ref_err=err_ref, lib_err=lib_err, B=B, T=T, K=K)
-    row["bound_ms"], row["bound_by"] = scatter_bound_ms(args[0].cpu(), T, K)
-    if device.type == "cuda":
-        row.update(ms=device_ms(lambda: kt.pair_scatter(*args)),
-                   plain_ms=device_ms(lambda: kt.pair_scatter_torch(*args)),
-                   library_ms=device_ms(lambda: index_add_form(*args)),
-                   call_ms=call_ms(lambda: kt.pair_scatter(*args)))
-        times = (f"device ms kernel {row['ms']:.5f} (per call {row['call_ms']:.4f}), plain "
-                 f"{row['plain_ms']:.5f}, index_add_ form {row['library_ms']:.5f}")
-    else:
-        times = "times not measured off the card"
-    print(f"[6 pair_scatter] vs plain at {len(errs)} shapes (B 0..4096, T 32/230, K 1-D/1/2/3): "
-          f"max abs err {row['max_abs_err']:.3g}; vs float64 ref (B=300 T=230 K=2) "
-          f"{err_ref:.3g}; at B={B} T={T} K={K}: {times}, bound {row['bound_ms']:.5f} ms "
-          f"by {row['bound_by']}; index_add_ form vs kernel max abs err {lib_err:.3g}")
+    # timed at phase 6's B = 4096 and at a host-alternating update's size
+    T, K = 230, 2
+    timed = {}
+    for B in (4096, 16):
+        args = scatter_inputs(B, T, K, device, rng)
+        r = dict(shape=f"B={B} T={T} K={K}", lib_err=close_err(
+            [index_add_form(*args)], [kt.pair_scatter(*args)[0]], "index_add_ form vs kernel"))
+        r["bound_ms"], r["bound_by"] = scatter_bound_ms(args[0].cpu(), T, K)
+        if on_card:
+            r.update(ms=device_ms(lambda: kt.pair_scatter(*args)),
+                     plain_ms=device_ms(lambda: kt.pair_scatter_torch(*args)),
+                     library_ms=device_ms(lambda: index_add_form(*args)),
+                     call_ms=call_ms(lambda: kt.pair_scatter(*args)))
+            r["times"] = (f"device ms kernel {r['ms']:.5f} (per call {r['call_ms']:.4f}), "
+                          f"plain {r['plain_ms']:.5f}, index_add_ form {r['library_ms']:.5f}")
+        else:
+            r["times"] = "times not measured off the card"
+        timed[B] = r
+    row = dict(timed[4096], max_abs_err=max(errs), ref_err=err_ref, host_path=timed[16])
+    print(f"[6 pair_scatter] contract vs plain at {len(errs) - 3} shapes (B 0..9000, T "
+          f"17/32/230, K 1-D/1/2/3, each rerun bitwise equal) and banked at m=5 B=300 K=3 per "
+          f"T: max abs err {row['max_abs_err']:.3g}; vs "
+          f"float64 ref (B=300 T=230 K=2) {err_ref:.3g}; "
+          + "; ".join(f"at {r['shape']}: {r['times']}, bound {r['bound_ms']:.5f} ms by "
+                      f"{r['bound_by']}, index_add_ form vs kernel max abs err "
+                      f"{r['lib_err']:.3g}" for r in timed.values()))
+
+    banked = {}
+    for label, m, Bb, drop in BANKED_SHAPES:
+        n_rows = m * T
+        bargs = banked_inputs(m, Bb, T, K, drop, device, rng)
+        got = kt.pair_scatter_banked(*bargs, n_rows)
+        want = kt.pair_scatter_banked_torch(*bargs, n_rows)
+        check(torch.equal(got[1], want[1]), f"banked {label}: slot keys differ")
+        r = dict(max_abs_err=close_err(got[:1], want[:1], f"banked {label} vs plain"),
+                 shape=f"m={m} B={Bb} T={T} K={K}" + (f" dropped {drop}" if drop else ""))
+        again = kt.pair_scatter_banked(*bargs, n_rows)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"banked {label}: a rerun is not bitwise equal")
+        n_keys = int((got[1] < n_rows).sum())
+        dense = banked_index_add_form(*bargs, n_rows)
+        r["lib_err"] = close_err([dense[:, got[1][:n_keys].long()]], [got[0][:, :n_keys]],
+                                 f"banked {label}: index_add_ form vs kernel")
+        if label == "rack 512":
+            rr, rk = pair_scatter_banked_ref(*(a.cpu().numpy() for a in bargs), n_rows)
+            check(np.array_equal(rk, got[1].cpu().numpy()), f"banked {label}: keys vs float64")
+            r["ref_err"] = close_err(got[:1], [torch.from_numpy(rr).to(device)],
+                                     f"banked {label} vs float64 reference")
+        del dense
+        r["bound_ms"], r["bound_by"] = banked_bound_ms(bargs[0].cpu(), T, K, n_rows)
+        r["n_keys"] = n_keys
+        if on_card:
+            r.update(ms=device_ms(lambda: kt.pair_scatter_banked(*bargs, n_rows)),
+                     plain_ms=device_ms(lambda: kt.pair_scatter_banked_torch(*bargs, n_rows)),
+                     library_ms=device_ms(lambda: banked_index_add_form(*bargs, n_rows)),
+                     call_ms=call_ms(lambda: kt.pair_scatter_banked(*bargs, n_rows)))
+            times = (f"device ms kernel {r['ms']:.5f} (per call {r['call_ms']:.4f}), plain "
+                     f"{r['plain_ms']:.5f}, index_add_ form {r['library_ms']:.5f}")
+        else:
+            times = "times not measured off the card"
+        print(f"[6 pair_scatter] banked {r['shape']}, {n_keys} keys: vs plain max abs err "
+              f"{r['max_abs_err']:.3g}" + (f", vs float64 ref {r['ref_err']:.3g}"
+                                           if "ref_err" in r else "")
+              + f", rerun bitwise equal; {times}; bound {r['bound_ms']:.5f} ms by "
+              f"{r['bound_by']}; index_add_ form vs kernel {r['lib_err']:.3g}")
+        banked[label] = r
+    row["banked"] = banked
     return row
 
 
@@ -731,14 +863,48 @@ def estimator_gap(est, snap) -> float:
     return max(float((a - b).abs().max()) for a, b in zip((est.L, est.log_b, est.n_pair), snap))
 
 
+def timed_segments(eng, on_segment):
+    """Wrap ``eng`` so that each segment's engine run ends in a synchronize
+    and is stamped, and ``on_segment`` is stamped after a synchronize: the
+    estimator refresh of segment k is the span between the two stamps (the
+    per-server log split and updates, or the ring push and the banked
+    update). Returns (stamps of run ends, stamps of refresh ends)."""
+    import torch
+
+    run_end, refresh_end = [], []
+    make = eng.engine_for_segment
+
+    class Timed:
+        def __init__(self, engine):
+            self.engine = engine
+
+        def run(self, *args, **kw):
+            res = self.engine.run(*args, **kw)
+            if eng.device.type == "cuda":
+                torch.cuda.synchronize(eng.device)
+            run_end.append(time.perf_counter())
+            return res
+
+    eng.engine_for_segment = lambda k: Timed(make(k))
+
+    def stamped(k, res, engine):
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize(eng.device)
+        refresh_end.append(time.perf_counter())
+        on_segment(k, res, engine)
+
+    return run_end, refresh_end, stamped
+
+
 def adaptive_run(servers, arrivals, segments: int, drift, prior, device, label: str):
-    """One timed adaptive run at rack width with ``scorer='cuda'`` and
-    ``scatter='cuda'``, the launch counts zeroed just before it and read just
-    after. Every estimator update is replayed on shadow estimators with the
-    plain scatter, whose tables must agree after every segment, and the
-    scatter launches must be exactly the updates that had a co-run.
-    Returns (result, wall, per-segment walls, scatter launches by shape,
-    scorer launches by (path, Q), peak, shadow gap)."""
+    """One timed adaptive run at rack width on the host-alternating path with
+    ``scorer='cuda'`` and ``scatter='cuda'``, the launch counts zeroed just
+    before it and read just after. Every estimator update is replayed on
+    shadow estimators with the plain scatter, whose tables must agree after
+    every segment, and the scatter launches must be exactly the contract
+    entry's, one per per-server update that had a co-run. Returns a dict:
+    result, wall, per-segment walls and refresh ms, launches by shape,
+    scorer launches by (path, Q), peak, shadow gap, estimator snapshots."""
     import gc
 
     import numpy as np
@@ -750,13 +916,13 @@ def adaptive_run(servers, arrivals, segments: int, drift, prior, device, label: 
     on_card = device.type == "cuda"
     eng = AdaptiveEngine(servers, drift=drift, scorer="cuda", scatter="cuda", device=device,
                          prior=prior, decay=0.997)
-    snaps, seg_wall = [], []
+    snaps = []
 
     def on_segment(k, res, engine):
-        seg_wall.append(time.perf_counter())
         snaps.append([(e.L.clone(), e.log_b.clone(), e.n_pair.clone())
                       for e in engine.estimators])
 
+    run_end, refresh_end, stamped = timed_segments(eng, on_segment)
     if on_card:
         gc.collect()
         torch.cuda.synchronize()
@@ -764,7 +930,7 @@ def adaptive_run(servers, arrivals, segments: int, drift, prior, device, label: 
     kc.reset_launches()
     kt.reset_launches()
     t0 = time.perf_counter()
-    res = eng.run(arrivals, segments=segments, on_segment=on_segment)
+    res = eng.run(arrivals, segments=segments, on_segment=stamped)
     if on_card:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -790,7 +956,7 @@ def adaptive_run(servers, arrivals, segments: int, drift, prior, device, label: 
             kept = log.co_counts[log.lost_frac <= est.max_lost_frac]
             n_co = int((kept.sum(dim=1) > est.solo_eps).sum())
             if n_co:
-                expected[(n_co, kept.shape[1], 2)] += 1
+                expected[("contract", n_co, kept.shape[1], 2)] += 1
             est.update(log)
             worst = max(worst, estimator_gap(est, snaps[k][s]))
         check(worst <= TOL, f"{label}: kernel and plain estimators differ by {worst:.3g} "
@@ -798,33 +964,163 @@ def adaptive_run(servers, arrivals, segments: int, drift, prior, device, label: 
     check(scatter_launches == expected,
           f"{label}: {sum(scatter_launches.values())} pair_scatter launches, "
           f"{sum(expected.values())} per-server updates with a co-run")
-    walls = np.diff([t0] + seg_wall)
-    return res, wall, walls, scatter_launches, score_launches, peak, worst
+    walls = np.diff([t0] + refresh_end)
+    refresh_ms = [1e3 * (b - a) for a, b in zip(run_end, refresh_end)]
+    return dict(res=res, wall=wall, walls=walls, refresh_ms=refresh_ms,
+                scatter=scatter_launches, score=score_launches, peak=peak, worst=worst,
+                snaps=snaps)
 
 
-def describe_adaptive(label, res, wall, walls, scatter_launches, score_launches, peak,
-                      worst) -> str:
-    sizes = sorted(b for b, _, _ in scatter_launches)
-    return (f"[7 adaptive] {label}: wall {wall:.3f} s, {res.total_obs} observations; per "
-            f"segment wall s {[round(float(w), 3) for w in walls]}, simulated durations s "
+def describe_adaptive(label, r) -> str:
+    res, launches = r["res"], r["scatter"]
+    sizes = sorted(key[1] for key in launches)
+    entries = sorted({key[0] for key in launches})
+    return (f"[7 adaptive] {label}: wall {r['wall']:.3f} s, {res.total_obs} observations; per "
+            f"segment wall s {[round(float(w), 3) for w in r['walls']]}, estimator refresh ms "
+            f"{[round(t, 3) for t in r['refresh_ms']]}, simulated durations s "
             f"{[round(d, 6) for d in res.durations]}, micro-events "
-            f"{[r.stats.events for r in res.segments]}, queued "
-            f"{[sum(r.was_queued) for r in res.segments]}, full rescans "
-            f"{[r.stats.drain_full_scans for r in res.segments]}\n"
-            f"[7 adaptive] {label}: launches pair_scatter {sum(scatter_launches.values())} "
-            f"(= per-server updates with a co-run; B {sizes[0]}..{sizes[-1]}, "
-            f"{len(scatter_launches)} shapes), consolidation_scores by (path, Q) {score_launches}; "
-            f"shadow estimators (plain scatter) within {worst:.3g} after every segment; peak "
-            f"device memory {peak / 2**20:.1f} MiB")
+            f"{[x.stats.events for x in res.segments]}, queued "
+            f"{[sum(x.was_queued) for x in res.segments]}, full rescans "
+            f"{[x.stats.drain_full_scans for x in res.segments]}\n"
+            f"[7 adaptive] {label}: launches pair_scatter {sum(launches.values())} "
+            f"({'/'.join(entries)} entry; B {sizes[0]}..{sizes[-1]}, {len(launches)} shapes), "
+            f"consolidation_scores by (path, Q) {r['score']}; shadow estimators (plain scatter) "
+            f"within {r['worst']:.3g} after every segment; peak device memory "
+            f"{r['peak'] / 2**20:.1f} MiB")
+
+
+def co_run_rows(block, est, m: int) -> int:
+    """Rows of a stream block that enter the banked scatter: valid, within
+    the lost-frac limit, on a server of the bank, with co-resident
+    exposure."""
+    ok = (block.valid & (block.lost_frac <= est.max_lost_frac) & (block.server >= 0)
+          & (block.server < m) & (block.co_sum > est.solo_eps))
+    return int(ok.sum())
+
+
+def adaptive_stream_run(servers, arrivals, segments: int, drift, prior, device, label: str,
+                        host: dict):
+    """The same adaptive run in stream mode (``stream=True``): each segment's
+    rows go to the ring and one banked update, whose scatter must be exactly
+    one launch of the banked entry per segment with a co-run. The segments'
+    blocks are replayed on a shadow bank with the plain scatter, whose state
+    must agree after every segment; segment 0 must place as the host-
+    alternating run ``host`` did, with estimators within 1e-4 of its float64
+    ones after it; later segments' placements are compared and the first
+    divergence reported (float32 device state against float64 host state
+    can break a near-tie). Returns a dict as ``adaptive_run`` does, with the
+    divergence."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core import AdaptiveEngine
+    from repro_torch.kernels import consolidation as kc
+    from repro_torch.kernels import telemetry as kt
+    from repro_torch.telemetry import EstimatorBank, RingBlock
+
+    on_card = device.type == "cuda"
+    eng = AdaptiveEngine(servers, drift=drift, scorer="cuda", scatter="cuda", device=device,
+                         prior=prior, decay=0.997, stream=True)
+    m = len(servers)
+    blocks, snaps = [], []
+
+    def on_segment(k, res, engine):
+        blocks.append(RingBlock(*(a.clone() for a in res.stream_block)))
+        snaps.append([a.clone() for a in engine.bank.stacked_state()])
+
+    run_end, refresh_end, stamped = timed_segments(eng, on_segment)
+    if on_card:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kc.reset_launches()
+    kt.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.run(arrivals, segments=segments, on_segment=stamped)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    scatter_launches = collections.Counter(kt.LAUNCHES)
+    score_launches = dict(sorted(kc.LAUNCHES.items()))
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+
+    n = len(arrivals)
+    check(len(res.segments) == segments, f"{label}: a segment is missing")
+    for r in res.segments:
+        check_outputs(r, n // segments, f"{label} segment")
+        check(r.observations is None and r.stream_block is not None,
+              f"{label}: a segment formed a host log")
+    check(res.n_obs == host["res"].n_obs,
+          f"{label}: observations used {res.n_obs} != host-alternating {host['res'].n_obs}")
+    check(eng.ring.total == n, f"{label}: the ring took {eng.ring.total} of {n} rows")
+    T = blocks[0].T
+    expected = collections.Counter()
+    for blk in blocks:
+        check(co_run_rows(blk, eng.estimators[0], m) > 0, f"{label}: a segment had no co-run")
+        expected[("banked", blk.rows, T, 2, m * T)] += 1
+    check(scatter_launches == expected,
+          f"{label}: pair_scatter launches {dict(scatter_launches)}, want one banked launch "
+          f"per segment {dict(expected)}")
+
+    # a shadow bank on the plain scatter, replayed on the same blocks
+    shadow = EstimatorBank([dataclasses.replace(e, scatter="torch") for e in eng.estimators])
+    worst = 0.0
+    for k, blk in enumerate(blocks):
+        shadow.update_device(blk, sparse_tables=True)
+        gap = max(float((a - b).abs().max())
+                  for a, b in zip(shadow.stacked_state()[:4], snaps[k][:4]))
+        check(torch.equal(shadow.stacked_state().n_obs, snaps[k][4]),
+              f"{label}: shadow bank's observation counts differ after segment {k}")
+        worst = max(worst, gap)
+        check(worst <= TOL, f"{label}: kernel and plain banks differ by {worst:.3g} after "
+              f"segment {k}")
+
+    # segment 0 against the host-alternating run
+    h0 = host["res"].segments[0]
+    check(res.segments[0].placements == h0.placements
+          and res.segments[0].was_queued == h0.was_queued,
+          f"{label}: segment 0 places differently from the host-alternating run")
+    st = snaps[0]
+    gap0 = 0.0
+    for s_, (L, log_b, n_pair) in enumerate(host["snaps"][0]):
+        for dev_t, host_t in ((st[0][s_].T, L), (st[1][s_], log_b), (st[2][s_].T, n_pair)):
+            gap0 = max(gap0, float((dev_t.double() - host_t).abs().max()))
+    check(gap0 <= 1e-4, f"{label}: estimators after segment 0 are {gap0:.3g} from the "
+          f"host-alternating ones")
+    diverged = next(((k, first_divergence(r.placements, h.placements))
+                     for k, (r, h) in enumerate(zip(res.segments, host["res"].segments))
+                     if r.placements != h.placements), None)
+    walls = np.diff([t0] + refresh_end)
+    refresh_ms = [1e3 * (b - a) for a, b in zip(run_end, refresh_end)]
+    return dict(res=res, wall=wall, walls=walls, refresh_ms=refresh_ms,
+                scatter=scatter_launches, score=score_launches, peak=peak, worst=worst,
+                gap0=gap0, diverged=diverged)
+
+
+def describe_stream(label, r, host) -> str:
+    div = ("every segment places as the host-alternating run" if r["diverged"] is None else
+           f"first divergence from the host-alternating run: segment {r['diverged'][0]}, "
+           f"arrival {r['diverged'][1]} (not gated: float32 device state)")
+    h_ms, s_ms = host["refresh_ms"], r["refresh_ms"]
+    return (describe_adaptive(label + " stream", r) + "\n"
+            f"[7 adaptive] {label} stream: segment 0 == host-alternating run, estimators "
+            f"within {r['gap0']:.3g} of its float64 ones; {div}\n"
+            f"[7 adaptive] {label}: estimator refresh ms per segment, host-alternating "
+            f"{[round(t, 3) for t in h_ms]} (median {statistics.median(h_ms):.3f}) vs stream "
+            f"{[round(t, 3) for t in s_ms]} (median {statistics.median(s_ms):.3f}); wall per "
+            f"segment s {[round(float(w), 3) for w in host['walls']]} vs "
+            f"{[round(float(w), 3) for w in r['walls']]}")
 
 
 def phase_adaptive(device, m: int = 64, segments: int = 8, per_segment: int = 256,
                    queue=(3, 512), small=(2, 3, 16)) -> dict:
-    """Drives the adaptive loop (the second main path) at rack width twice:
-    from the uniform prior 0.0 under a congestion drift, and from the
-    profiled prior at twice the arrivals per segment, where the criterion-1
-    queue fills and drains rescan it. Every scatter launch is held to the
-    plain version through shadow estimators. Returns launch counts."""
+    """Drives the adaptive loop (the second main path) at rack width twice on
+    each path, host-alternating and stream: from the uniform prior 0.0 under
+    a congestion drift, and from the profiled prior at twice the arrivals per
+    segment, where the criterion-1 queue fills and drains rescan it. Every
+    scatter launch is held to the plain version through shadow estimators or
+    a shadow bank. Returns launch counts by entry."""
     import numpy as np
     from repro_torch.core import AdaptiveEngine, ConsolidationEngine
     from repro_torch.kernels import consolidation as kc
@@ -834,25 +1130,28 @@ def phase_adaptive(device, m: int = 64, segments: int = 8, per_segment: int = 25
     on_card = device.type == "cuda"
     kw = dict(prior=0.0, decay=0.997)
 
-    # a small run on the card against the same run on the CPU (plain scatter)
+    # small runs on the card against the same runs on the CPU (plain scatter)
     ms, ks, ns = small
     small_arr = trace(ks * ns, gap=2e-4, seed=5)
-    cpu = AdaptiveEngine(rack(ms), scatter="torch", device="cpu", **kw)
-    card = AdaptiveEngine(rack(ms), device=device, **kw)
-    want, got = cpu.run(small_arr, segments=ks), card.run(small_arr, segments=ks)
-    for k in range(ks):
-        check(got.segments[k].placements == want.segments[k].placements
-              and got.segments[k].was_queued == want.segments[k].was_queued,
-              f"small adaptive run: card and CPU place differently in segment {k}")
-    gap = max(estimator_gap(c, (e.L.to(device), e.log_b.to(device), e.n_pair.to(device)))
-              for c, e in zip(card.estimators, cpu.estimators))
-    check(gap <= TOL, f"small adaptive run: card and CPU estimates differ by {gap:.3g}")
-    check(got.n_obs == want.n_obs and got.total_obs > 0, "small adaptive run: observations differ")
-    queued = sum(sum(r.was_queued) for r in got.segments)
-    check(queued > 0, "small adaptive run: the criterion-1 queue was never used")
-    print(f"[7 adaptive] small run m={ms} {ks}x{ns}: card run == CPU run (placements, "
-          f"{queued} queue decisions, {got.total_obs} observations; estimator tables within "
-          f"{gap:.3g})")
+    for stream in (False, True):
+        mode = "stream" if stream else "host-alternating"
+        cpu = AdaptiveEngine(rack(ms), scatter="torch", device="cpu", stream=stream, **kw)
+        card = AdaptiveEngine(rack(ms), device=device, stream=stream, **kw)
+        want, got = cpu.run(small_arr, segments=ks), card.run(small_arr, segments=ks)
+        for k in range(ks):
+            check(got.segments[k].placements == want.segments[k].placements
+                  and got.segments[k].was_queued == want.segments[k].was_queued,
+                  f"small {mode} run: card and CPU place differently in segment {k}")
+        gap = max(estimator_gap(c, (e.L.to(device), e.log_b.to(device), e.n_pair.to(device)))
+                  for c, e in zip(card.estimators, cpu.estimators))
+        check(gap <= TOL, f"small {mode} run: card and CPU estimates differ by {gap:.3g}")
+        check(got.n_obs == want.n_obs and got.total_obs > 0,
+              f"small {mode} run: observations differ")
+        queued = sum(sum(r.was_queued) for r in got.segments)
+        check(queued > 0, f"small {mode} run: the criterion-1 queue was never used")
+        print(f"[7 adaptive] small {mode} run m={ms} {ks}x{ns}: card run == CPU run "
+              f"(placements, {queued} queue decisions, {got.total_obs} observations; estimator "
+              f"tables within {gap:.3g})")
 
     # prior 0.0 under drift: at 4 arrivals per server per segment the learned
     # D never predicts a 50 % degradation, so this run does not queue
@@ -861,17 +1160,18 @@ def phase_adaptive(device, m: int = 64, segments: int = 8, per_segment: int = 25
     arrivals = trace(n, gap=1e-4)
     drift = congestion_at(servers, segments // 2, server=0, factor=0.4)
     label = f"m={m} {segments}x{per_segment} prior 0.0 drift at {segments // 2}"
-    out = adaptive_run(servers, arrivals, segments, drift, 0.0, device, label)
-    res, scatter_launches, score_launches = out[0], out[3], out[4]
-    print(describe_adaptive(label, *out))
+    host = adaptive_run(servers, arrivals, segments, drift, 0.0, device, label)
+    print(describe_adaptive(label, host))
 
     # segment 0 places as the plain engine on the prior D (uniform 0)
     base = ConsolidationEngine(servers, D=np.zeros((230, 230)), scorer="cuda", device=device)
     b0 = base.run(arrivals[:per_segment])
-    check(b0.placements == res.segments[0].placements
-          and b0.was_queued == res.segments[0].was_queued,
+    check(b0.placements == host["res"].segments[0].placements
+          and b0.was_queued == host["res"].segments[0].was_queued,
           "adaptive: segment 0 places differently from the plain engine on the prior D")
     print("[7 adaptive] segment 0 == plain engine on the prior D")
+    stream = adaptive_stream_run(servers, arrivals, segments, drift, 0.0, device, label, host)
+    print(describe_stream(label, stream, host))
 
     # the profiled prior at 8 arrivals per server per segment: the
     # criterion-1 queue fills, so drains score at Q = 8 and rescan the whole
@@ -880,31 +1180,46 @@ def phase_adaptive(device, m: int = 64, segments: int = 8, per_segment: int = 25
     q_arrivals = trace(kq * nq, gap=1e-4, seed=7)
     q_drift = congestion_at(servers, 1, server=0, factor=0.4)
     q_label = f"m={m} {kq}x{nq} profiled prior drift at 1"
-    q_out = adaptive_run(servers, q_arrivals, kq, q_drift, "profiled", device, q_label)
-    q_res, q_scatter, q_score = q_out[0], q_out[3], q_out[4]
+    q_host = adaptive_run(servers, q_arrivals, kq, q_drift, "profiled", device, q_label)
+    q_res = q_host["res"]
     q_queued = [sum(r.was_queued) for r in q_res.segments]
     check(all(q > 0 for q in q_queued), f"{q_label}: a segment never queued ({q_queued})")
     check(all(r.stats.drain_full_scans > 0 for r in q_res.segments),
           f"{q_label}: a segment's drains never rescanned the whole queue")
-    check(any(q == 8 for _, q in q_score), f"{q_label}: no drain scored at Q = 8")
-    print(describe_adaptive(q_label, *q_out))
+    check(any(q == 8 for _, q in q_host["score"]), f"{q_label}: no drain scored at Q = 8")
+    print(describe_adaptive(q_label, q_host))
+    q_stream = adaptive_stream_run(servers, q_arrivals, kq, q_drift, "profiled", device, q_label,
+                                   q_host)
+    check(all(sum(r.was_queued) > 0 for r in q_stream["res"].segments),
+          f"{q_label} stream: a segment never queued")
+    print(describe_stream(q_label, q_stream, q_host))
 
     if on_card:
-        # one segment of a fresh run under the profiler: the device's share
-        prof = AdaptiveEngine(servers, drift=drift, scorer="cuda", scatter="cuda",
-                              device=device, **kw)
-        kc.reset_launches()
-        kt.reset_launches()
-        busy, named, pwall, _ = device_busy(
-            lambda: prof.run(arrivals[:per_segment], segments=1),
-            ("pair_scatter_kernel", *SCORE_KERNELS))
-        share = kernel_shares(busy, named, pwall, {
-            "pair_scatter_kernel": sum(kt.LAUNCHES.values()), **score_counts()}, "adaptive")
-        print(f"[7 adaptive] profiled rerun of segment 0: device kernels {busy:.4f} s of "
-              f"{pwall:.3f} s wall; {share}")
+        # one segment of a fresh run on each path under the profiler: the
+        # device's share
+        for stream_mode in (False, True):
+            prof = AdaptiveEngine(servers, drift=drift, scorer="cuda", scatter="cuda",
+                                  device=device, stream=stream_mode, **kw)
+            kc.reset_launches()
+            kt.reset_launches()
+            busy, named, pwall, _ = device_busy(
+                lambda: prof.run(arrivals[:per_segment], segments=1),
+                (*SCATTER_KERNELS, *SCORE_KERNELS))
+            by_entry = collections.Counter()
+            for key, n_launch in kt.LAUNCHES.items():
+                by_entry[key[0]] += n_launch
+            share = kernel_shares(busy, named, pwall, {
+                "chunk_sort_kernel": by_entry["contract"], "bucket_kernel": by_entry["banked"],
+                "accumulate_kernel": sum(by_entry.values()), **score_counts()}, "adaptive")
+            print(f"[7 adaptive] profiled rerun of segment 0, "
+                  f"{'stream' if stream_mode else 'host-alternating'}: device kernels "
+                  f"{busy:.4f} s of {pwall:.3f} s wall; {share}")
 
-    return dict(scatter=sum(scatter_launches.values()) + sum(q_scatter.values()),
-                score=sum(score_launches.values()) + sum(q_score.values()))
+    return dict(contract=sum(host["scatter"].values()) + sum(q_host["scatter"].values()),
+                banked=sum(stream["scatter"].values()) + sum(q_stream["scatter"].values()),
+                score=sum(host["score"].values()) + sum(q_host["score"].values()),
+                refresh_host=host["refresh_ms"], refresh_stream=stream["refresh_ms"],
+                diverged=(stream["diverged"], q_stream["diverged"]))
 
 #: (label, B, Sq, Skv, H, Hkv, dh, causal, q_offset, window): the serving
 #: paths' shapes (tinyllama-1.1b and jamba-v0.1-52b, 8 requests, prompt
@@ -2274,15 +2589,28 @@ def main() -> int:
         "library_ms": None,
         "shape": f"m=64 T=230 Q={q}",
     }, {
-        "name": "pair_scatter", "route": "cuda",
+        "name": "pair_scatter", "entry": "contract", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pair_scatter.cu",
         "replaces": "src/repro/kernels/telemetry.py:150",
-        "launches": adaptive["scatter"],
+        "launches": adaptive["contract"],
         "max_abs_err": max(scatter["max_abs_err"], scatter["ref_err"]),
-        "ms": scatter["ms"], "plain_ms": scatter["plain_ms"],
-        "bound_ms": scatter["bound_ms"], "bound_by": scatter["bound_by"],
-        "library_ms": scatter["library_ms"],
-        "shape": f"B={scatter['B']} T={scatter['T']} K={scatter['K']}",
+        **{key: scatter[key]
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+        "host_path": {key: scatter["host_path"][key]
+                      for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                  "shape")},
+    }, {
+        "name": "pair_scatter", "entry": "banked", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/pair_scatter.cu",
+        "replaces": "src/repro/kernels/telemetry.py:150",
+        "launches": adaptive["banked"],
+        "max_abs_err": max(max(r["max_abs_err"], r.get("ref_err", 0.0))
+                           for r in scatter["banked"].values()),
+        **{key: scatter["banked"]["rack 256"][key]
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+        "shapes": {label: {key: r[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "library_ms", "shape")}
+                   for label, r in scatter["banked"].items() if label != "rack 256"},
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

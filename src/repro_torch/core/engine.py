@@ -18,7 +18,10 @@ Candidate scoring goes through the shared (counts, wtypes) ->
 ``AdaptiveEngine`` closes the observe -> estimate -> schedule loop on top of
 this: it feeds telemetry-enabled runs into per-server streaming
 D-estimators (``repro_torch.telemetry``) and places each trace segment from
-the *estimated* D while the simulator stays ground truth.
+the *estimated* D while the simulator stays ground truth -- through per-
+server logs (the host-alternating path) or, with ``stream=True``, through
+the device-resident observation stream and one banked estimator update per
+segment.
 """
 from __future__ import annotations
 
@@ -30,8 +33,9 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.consolidation import consolidation_scores
-from ..telemetry.estimator import ScatterName, StreamingEstimator
-from ..telemetry.log import ObservationLog, observations_from_trace
+from ..telemetry.estimator import EstimatorBank, ScatterName, StreamingEstimator
+from ..telemetry.log import (ObservationLog, ObservationRing, RingBlock,
+                             observations_from_trace, rows_from_trace)
 from .binpack_torch import PackedCluster, score_candidates_torch
 from .contention import profile_pairwise_fast, type_tables
 from .engine_torch import QUEUED, LoopStats, PackedDynamics, Scorer, run_trace
@@ -82,6 +86,9 @@ class EngineResult:
     backend: str
     stats: LoopStats | None = None  # what the event loop did (None: empty trace)
     observations: ObservationLog | None = None  # filled when run(telemetry=True)
+    #: the same records as validity-masked device rows (run(telemetry=
+    #: 'device')): what AdaptiveEngine's stream mode folds into its ring
+    stream_block: RingBlock | None = None
 
     @property
     def queued_indices(self) -> tuple[int, ...]:
@@ -188,7 +195,7 @@ class ConsolidationEngine:
         self,
         arrivals: Sequence[tuple[float, Workload]],
         *,
-        telemetry: bool = False,
+        telemetry: bool | Literal["host", "device"] = False,
         metrics: bool = False,
         record: bool = False,
     ) -> EngineResult:
@@ -199,26 +206,28 @@ class ConsolidationEngine:
         honoured per arrival. Raises :class:`Deadlock` (a ``RuntimeError``)
         when a queued workload fits no *empty* server, like the oracle.
 
-        ``telemetry=True`` attaches the completion-observation log
-        (``repro_torch.telemetry.ObservationLog``, tensors on the engine's
-        device) to the result: the input of the streaming D-estimator. The
-        JAX engine's ``telemetry='device'`` stream and its ``metrics`` and
-        ``record`` outputs are not ported yet and raise
-        ``NotImplementedError``.
+        ``telemetry=True`` (or ``'host'``) attaches the completion-observation
+        log (``repro_torch.telemetry.ObservationLog``, tensors on the engine's
+        device) to the result: the input of the estimator's ``update``.
+        ``'device'`` attaches the same records as a validity-masked
+        ``stream_block`` (``RingBlock``) instead, with nothing filtered or
+        read back: the input of ``update_device`` and the observation ring.
+        The JAX engine's ``metrics`` and ``record`` outputs are not ported
+        yet and raise ``NotImplementedError``.
         """
-        if telemetry not in (False, True):
-            raise NotImplementedError(
-                f"run(telemetry={telemetry!r}): only the host log (True) is ported")
+        if telemetry not in (False, True, "host", "device"):
+            raise ValueError(f"unknown telemetry mode {telemetry!r}")
         for flag, name in ((metrics, "metrics"), (record, "record")):
             if flag:
                 raise NotImplementedError(f"run({name}=...) is not ported yet")
         if not arrivals:
-            obs = ObservationLog.empty(self.cluster.T, self.device) if telemetry else None
+            obs = (ObservationLog.empty(self.cluster.T, self.device)
+                   if telemetry in (True, "host") else None)
             return EngineResult((), (), (), (), 0.0, 0.0, "torch", observations=obs)
         return self._run_torch(arrivals, telemetry)
 
     def _run_torch(self, arrivals: Sequence[tuple[float, Workload]],
-                   telemetry: bool = False) -> EngineResult:
+                   telemetry: bool | Literal["host", "device"] = False) -> EngineResult:
         n = len(arrivals)
         times = np.asarray([t for t, _ in arrivals], np.float64)
         order = np.argsort(times, kind="stable")
@@ -240,12 +249,17 @@ class ConsolidationEngine:
         else:
             scorer = None if self.scorer == "torch" else make_scorer(self.scorer)
         trace = run_trace(self.cluster, self.dyn, arr_time, arr_type, arr_bytes,
-                          objective=self.objective, scorer=scorer, telemetry=telemetry)
+                          objective=self.objective, scorer=scorer,
+                          telemetry=bool(telemetry))
         if bool(trace.deadlock):
             raise Deadlock("deadlock: queued workloads fit no empty server")
         # observation records are per run; the trace's arrival-sorted order
         # serves as well as submission order
-        obs = observations_from_trace(trace, arr_type, arr_bytes) if telemetry else None
+        obs = block = None
+        if telemetry == "device":
+            block = rows_from_trace(trace, arr_type)
+        elif telemetry:
+            obs = observations_from_trace(trace, arr_type, arr_bytes)
 
         inv = np.empty(n, np.int64)
         inv[order] = np.arange(n)
@@ -265,6 +279,7 @@ class ConsolidationEngine:
             backend="torch",
             stats=trace.stats,
             observations=obs,
+            stream_block=block,
         )
 
 
@@ -313,10 +328,18 @@ class AdaptiveEngine:
     Each segment starts from an empty cluster, so segment makespans compare
     directly against a true-D oracle run under the same protocol.
 
-    This is the JAX package's host-alternating path. Its device-resident
-    stream (``stream=True``), fleet-health control plane (``fleet=``), fused
-    loop (``run(device_loop=True)``), metrics plane and decision recorder are
-    not ported yet and raise ``NotImplementedError``.
+    ``stream=True`` is the JAX package's stream mode of the same loop: each
+    segment runs with ``telemetry='device'``, its observation rows are pushed
+    into a device-resident :class:`~repro_torch.telemetry.ObservationRing`
+    (``ring_capacity`` rows of bounded history), and every estimator refresh
+    is one fused :class:`~repro_torch.telemetry.EstimatorBank` update -- one
+    banked scatter launch for all servers, no host ``ObservationLog``. The
+    estimators consume the segment's full block; the ring only bounds
+    history.
+
+    The JAX package's fleet-health control plane (``fleet=``), fused loop
+    (``run(device_loop=True)``), metrics plane and decision recorder are not
+    ported yet and raise ``NotImplementedError``.
     """
 
     def __init__(
@@ -333,6 +356,7 @@ class AdaptiveEngine:
         max_lost_frac: float = 0.5,
         scatter: ScatterName = "cuda",
         stream: bool = False,
+        ring_capacity: int = 4096,
         fleet=None,
         *,
         device: str | torch.device | None = None,
@@ -346,16 +370,15 @@ class AdaptiveEngine:
         solo profile of the initial spec. ``scorer`` and ``scatter`` name the
         candidate-scoring and pair-statistic backends, ``device`` where the
         engines and estimators run (``None``: the card)."""
-        if stream:
-            raise NotImplementedError(
-                "AdaptiveEngine(stream=True): the device-resident observation "
-                "stream is not ported yet (ROADMAP Queue 1, item 4a)")
         if fleet is not None:
             raise NotImplementedError(
                 "AdaptiveEngine(fleet=...): the fleet-health control plane is "
                 "not ported yet (ROADMAP Queue 1, item 5)")
         self.device = resolve_device(device)
         self.servers = tuple(servers)
+        self.stream = stream
+        self.ring = (ObservationRing(ring_capacity, GRID_T, device=self.device)
+                     if stream else None)
         self.alpha = alpha
         self.objective = objective
         self.scorer = scorer
@@ -399,6 +422,8 @@ class AdaptiveEngine:
             )
             for i, s in enumerate(self.servers)
         ]
+        #: stream mode refreshes every server's estimator in one fused step
+        self.bank = EstimatorBank(self.estimators) if stream else None
 
     # -- estimates --------------------------------------------------------
     def current_D(self) -> list[torch.Tensor]:
@@ -461,9 +486,21 @@ class AdaptiveEngine:
         for k in range(segments):
             chunk = ordered[bounds[k]:bounds[k + 1]]
             engine = self.engine_for_segment(k)
-            res = engine.run(chunk, telemetry=True)
-            used = sum(est.update(res.observations.for_server(s))
-                       for s, est in enumerate(self.estimators))
+            if self.stream:
+                # the segment's rows go trace -> ring -> one banked update
+                # without a host log; the estimators consume the FULL block
+                # (the ring keeps only its newest capacity rows for history)
+                res = engine.run(chunk, telemetry="device")
+                used = 0
+                if res.stream_block is not None:
+                    self.ring.push(res.stream_block)
+                    # the indexed table update: the dense form's values
+                    # without forming the [2, m, T, T] statistics
+                    used = self.bank.update_device(res.stream_block, sparse_tables=True)
+            else:
+                res = engine.run(chunk, telemetry=True)
+                used = sum(est.update(res.observations.for_server(s))
+                           for s, est in enumerate(self.estimators))
             results.append(res)
             n_obs.append(used)
             t_starts.append(chunk[0][0] if chunk else 0.0)

@@ -1,10 +1,12 @@
 """Float64-capable references for the port's kernels (copied from
-``repro/kernels/ref.py``, same names and arithmetic).
+``repro/kernels/ref.py``, same names and arithmetic; the banked scatter's is
+the port's own).
 
-``pair_scatter_ref`` is the tests' oracle for ``kernels.telemetry`` and the
-estimator's ``scatter='numpy'`` backend; ``attention_ref`` is the oracle
-for ``kernels.flash_attention``, ``rwkv6_ref`` for ``kernels.rwkv6_scan``
-and ``mamba_ref`` for ``kernels.mamba_scan``.
+``pair_scatter_ref`` (the contract entry, also the estimator's
+``scatter='numpy'`` backend) and ``pair_scatter_banked_ref`` (the banked
+entry) are the tests' oracles for ``kernels.telemetry``; ``attention_ref``
+is the oracle for ``kernels.flash_attention``, ``rwkv6_ref`` for
+``kernels.rwkv6_scan`` and ``mamba_ref`` for ``kernels.mamba_scan``.
 """
 from __future__ import annotations
 
@@ -94,3 +96,29 @@ def pair_scatter_ref(types, cbar, vals):
             pair[k, :, t] += cbar[b] * vals[k, b]
             base[k, t] += vals[k, b]
     return (pair[0], base[0]) if squeeze else (pair, base)
+
+
+def pair_scatter_banked_ref(keys, co, vals, n_rows):
+    """The banked scatter over the combined (bank row, type) key space,
+    float64: keys i32[B] (in-range keys lie in [0, n_rows)), co [B, T],
+    vals [K, B]. Returns (rows [K, B, T], slot_keys i64[B]) in the kernel's
+    layout: slot j holds, for the j-th distinct in-range key r in ascending
+    order, rows[k, j] = sum_b co[b] * vals[k, b] * 1{keys[b] == r}; slots
+    past the last key hold zeros and the key ``n_rows``."""
+    keys = np.asarray(keys).astype(np.int64)
+    co = np.asarray(co, np.float64)
+    vals = np.asarray(vals, np.float64)
+    B, T = co.shape
+    K = vals.shape[0]
+    uniq = np.unique(keys[(keys >= 0) & (keys < n_rows)])
+    slot = {int(r): j for j, r in enumerate(uniq)}
+    rows = np.zeros((K, B, T))
+    for b in range(B):
+        j = slot.get(int(keys[b]))
+        if j is None:
+            continue
+        for k in range(K):
+            rows[k, j] += co[b] * vals[k, b]
+    slot_keys = np.full(B, n_rows, np.int64)
+    slot_keys[:len(uniq)] = uniq
+    return rows, slot_keys

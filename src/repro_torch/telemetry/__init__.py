@@ -1,21 +1,23 @@
 """Telemetry and online D-matrix estimation: the observe -> estimate ->
-schedule loop (counterpart of ``repro.telemetry``, host-alternating half).
+schedule loop (counterpart of ``repro.telemetry``).
 
   observe   ``engine_torch.run_trace(..., telemetry=True)`` accumulates
             per-arrival telemetry integrals; ``log.observations_from_trace``
-            lifts them to per-completion records (type, co-residency, rate).
+            lifts them to per-completion records (type, co-residency, rate),
+            ``log.rows_from_trace`` to the device stream's validity-masked
+            ``RingBlock`` rows, which an ``ObservationRing`` holds.
   estimate  ``estimator.StreamingEstimator`` recovers per-type base rates and
             the pairwise D-matrix in log-slowdown space, with per-pair
-            confidence counts and prior fallback. Its pair-statistic scatter
-            is the CUDA kernel ``kernels.telemetry.pair_scatter``.
+            confidence counts and prior fallback: ``update`` from a log,
+            ``update_device`` from a block; ``EstimatorBank`` updates m
+            servers' estimators in one fused step. Their pair-statistic
+            scatter is the CUDA kernel ``kernels.telemetry`` (the contract
+            entry for ``update``, the banked entry for the stream).
   schedule  ``core.engine.AdaptiveEngine`` alternates trace segments with
             estimator refreshes, placing from *estimated* dynamics while the
-            simulator stays ground truth.
+            simulator stays ground truth (``stream=True``: through the ring
+            and the bank).
   drift     ``drift`` builds the non-stationary worlds the loop must track.
-
-The device-resident stream (``RingBlock``, ``ObservationRing``,
-``DeviceEstimatorState``, ``EstimatorBank``, ``update_device``) is not
-ported yet.
 """
 from .drift import (
     DriftEvent,
@@ -31,14 +33,21 @@ from .drift import (
     scale_perf,
     stochastic_congestion,
 )
-from .estimator import StreamingEstimator, make_scatter
-from .log import ObservationLog, observations_from_trace
+from .estimator import (DeviceEstimatorState, EstimatorBank, StreamingEstimator,
+                        make_scatter)
+from .log import (ObservationLog, ObservationRing, RingBlock, block_from_log,
+                  observations_from_trace, rows_from_trace)
 
 __all__ = [
+    "DeviceEstimatorState",
     "DriftEvent",
     "DriftSchedule",
+    "EstimatorBank",
     "ObservationLog",
+    "ObservationRing",
+    "RingBlock",
     "StreamingEstimator",
+    "block_from_log",
     "congest_server",
     "congestion_at",
     "decayed_spec",
@@ -49,6 +58,7 @@ __all__ = [
     "merge_schedules",
     "observations_from_trace",
     "perturb_spec",
+    "rows_from_trace",
     "scale_perf",
     "stochastic_congestion",
 ]

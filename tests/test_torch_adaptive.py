@@ -132,16 +132,16 @@ def test_cluster_build_casts_any_D_form_alike():
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="4a"):
-        TorchAdaptive([TM1], stream=True, scatter="numpy", device="cpu")
+    # the stream (item 4a) is ported: tests/test_torch_stream.py holds it
+    stream = TorchAdaptive([TM1], stream=True, scatter="numpy", device="cpu")
+    assert stream.ring is not None and stream.bank is not None
+    assert TorchEngine([TM1], device="cpu").run([], telemetry="device").stream_block is None
     with pytest.raises(NotImplementedError, match="item 5"):
         TorchAdaptive([TM1], fleet=object(), scatter="numpy", device="cpu")
-    eng = TorchAdaptive([TM1], scatter="numpy", device="cpu")
-    for flag in ("device_loop", "metrics", "record"):
-        with pytest.raises(NotImplementedError, match=flag):
-            eng.run([], segments=1, **{flag: True})
-    with pytest.raises(NotImplementedError):
-        TorchEngine([TM1], device="cpu").run([], telemetry="device")
+    for eng in (TorchAdaptive([TM1], scatter="numpy", device="cpu"), stream):
+        for flag in ("device_loop", "metrics", "record"):
+            with pytest.raises(NotImplementedError, match=flag):
+                eng.run([], segments=1, **{flag: True})
     with pytest.raises(ValueError):
         TorchAdaptive([TM1], prior="learned", scatter="numpy", device="cpu")
 

@@ -1,12 +1,14 @@
 """Port: the pair-statistic scatter (``repro_torch.kernels.telemetry``).
 
-The CUDA kernel runs only on the card (``chip_smoke.py`` holds it against
-its plain version there). Here the plain PyTorch version and the wrapper's
-CPU route are held to a float64 oracle computed inside each test, to the
-copied ``pair_scatter_ref`` and to the JAX Pallas kernel in interpret mode,
-on the same seeded inputs, and the wrapper's contract (empty batch, stacked
-and squeezed statistics, dropped types, the debug raise, argument checks)
-is tested.
+The CUDA kernel runs only on the card (``chip_smoke.py`` holds both of its
+entries against their plain versions there). Here the contract entry's plain
+PyTorch version and the wrapper's CPU route are held to a float64 oracle
+computed inside each test, to the copied ``pair_scatter_ref`` and to the JAX
+Pallas kernel in interpret mode, on the same seeded inputs; the banked
+entry's plain version and CPU route to ``pair_scatter_banked_ref`` and to
+the scatter-add of the JAX package's ``_bank_core``; and both wrappers'
+contracts (empty batch, stacked and squeezed statistics, dropped keys, the
+debug raise, argument checks) are tested.
 """
 import jax
 import jax.numpy as jnp
@@ -17,7 +19,7 @@ import torch
 from repro.kernels.telemetry import pair_scatter as pallas_pair_scatter
 from repro_torch.kernels import ops
 from repro_torch.kernels import telemetry as kt
-from repro_torch.kernels.ref import pair_scatter_ref
+from repro_torch.kernels.ref import pair_scatter_banked_ref, pair_scatter_ref
 from repro_torch.telemetry.estimator import make_scatter
 
 #: f32 sums of B products of values in [0, 2) x N(0, 1), against float64: the
@@ -164,3 +166,124 @@ def test_ops_and_scatter_backends():
         assert pair.dtype == base.dtype == torch.float64
         np.testing.assert_allclose(pair.numpy(), want_pair, **TOL)
         np.testing.assert_allclose(base.numpy(), want_base, **TOL)
+
+
+# --- the banked entry ------------------------------------------------------------
+
+# (m, B, T, K, share of keys dropped): the rack stream's shapes cut down, a
+# bank of one, dropped keys, repeated keys, K = 1..3
+BANKED_SHAPES = [(64, 256, 230, 2, 0.0), (1, 40, 230, 2, 0.1), (8, 300, 32, 2, 0.4),
+                 (3, 200, 16, 1, 0.0), (5, 97, 64, 3, 0.2), (2, 64, 230, 2, 1.0)]
+
+
+def _banked_inputs(m, B, T, K, drop, seed):
+    """Keys server * T + type; a ``drop`` share -1 or past the key space;
+    a third of the rows repeat the key of row 0's neighbourhood, so some
+    slots sum many rows."""
+    rng = np.random.default_rng(seed)
+    keys = (rng.integers(0, m, B) * T + rng.integers(0, T, B)).astype(np.int32)
+    keys[: B // 3] = keys[rng.integers(0, 3, B // 3)]
+    bad = rng.random(B) < drop
+    keys[bad] = rng.choice(np.array([-1, m * T, m * T + 7], np.int32), int(bad.sum()))
+    co = (rng.random((B, T)) * 2).astype(np.float32)
+    vals = rng.normal(size=(K, B)).astype(np.float32)
+    return keys, co, vals
+
+
+def _jax_bank_scatter(keys, co, vals, m, T):
+    """The scatter-add of ``repro/telemetry/estimator.py``'s ``_bank_core``
+    (its GPU lowering): contributions added into a dense [K, m, T + 1, T]
+    table at (server, type), dropped rows into the dump slot T."""
+    keys = jnp.asarray(keys)
+    ok = (keys >= 0) & (keys < m * T)
+    s_clip = jnp.clip(keys // T, 0, m - 1)
+    tt = jnp.where(ok, keys % T, T)
+    contrib = jnp.asarray(co)[None, :, :] * jnp.asarray(vals)[:, :, None]
+    acc = jnp.zeros((vals.shape[0], m, T + 1, T), jnp.float32).at[:, s_clip, tt].add(contrib)
+    return np.asarray(acc[:, :, :T]).reshape(vals.shape[0], m * T, T)
+
+
+@pytest.mark.parametrize("m,B,T,K,drop", BANKED_SHAPES)
+def test_banked_plain_and_cpu_wrapper_match_ref_and_jax(m, B, T, K, drop):
+    keys, co, vals = _banked_inputs(m, B, T, K, drop, seed=m * 1000 + B + T)
+    want_rows, want_keys = pair_scatter_banked_ref(keys, co, vals, m * T)
+    dense = _jax_bank_scatter(keys, co, vals, m, T)
+    n = int((want_keys < m * T).sum())
+    assert n == len(np.unique(keys[(keys >= 0) & (keys < m * T)]))
+    kt.reset_launches()
+    for fn in (kt.pair_scatter_banked_torch, kt.pair_scatter_banked):
+        rows, slot_keys = fn(*_tensors(keys, co, vals), m * T)
+        assert rows.dtype == torch.float32 and slot_keys.dtype == torch.int32
+        assert tuple(rows.shape) == (K, B, T) and tuple(slot_keys.shape) == (B,)
+        np.testing.assert_array_equal(slot_keys.numpy(), want_keys)
+        np.testing.assert_allclose(rows.numpy(), want_rows, **TOL)
+        np.testing.assert_allclose(rows[:, :n].numpy(), dense[:, want_keys[:n]], **TOL)
+        assert not rows[:, n:].any()  # slots past the last key hold zeros
+    assert not kt.LAUNCHES  # the CPU route never counts a launch
+
+
+def test_banked_contract_entry_agree_on_a_bank_of_one():
+    """With one bank row the key is the type: the banked rows are the
+    contract entry's target-major rows of the types present."""
+    T = 64
+    types, cbar, vals = _inputs(120, T, 2, seed=13)
+    pair, _ = kt.pair_scatter(*_tensors(types, cbar, vals))
+    rows, slot_keys = kt.pair_scatter_banked(*_tensors(types, cbar, vals), T)
+    n = int((slot_keys < T).sum())
+    present = slot_keys[:n].long()
+    np.testing.assert_allclose(rows[:, :n].numpy(), pair.transpose(1, 2)[:, present].numpy(),
+                               **TOL)
+    absent = np.setdiff1d(np.arange(T), present.numpy())
+    assert not pair[:, :, absent].any()
+
+
+@pytest.mark.parametrize("K", [1, 2])
+def test_banked_empty_and_all_dropped(K):
+    T, n_rows = 32, 4 * 32
+    keys, co, vals = _banked_inputs(4, 0, T, K, 0.0, seed=1)
+    rows, slot_keys = kt.pair_scatter_banked(*_tensors(keys, co, vals), n_rows)
+    assert tuple(rows.shape) == (K, 0, T) and tuple(slot_keys.shape) == (0,)
+    rr, rk = pair_scatter_banked_ref(keys, co, vals, n_rows)
+    assert rr.shape == (K, 0, T) and rk.shape == (0,)
+    keys, co, vals = _banked_inputs(4, 30, T, K, 1.0, seed=2)
+    rows, slot_keys = kt.pair_scatter_banked(*_tensors(keys, co, vals), n_rows)
+    assert not rows.any() and bool((slot_keys == n_rows).all())
+
+
+def test_banked_debug_checks_and_devices():
+    T, n_rows = 16, 3 * 16
+    keys, co, vals = _banked_inputs(3, 20, T, 2, 0.0, seed=5)
+    kt.pair_scatter_banked(*_tensors(keys, co, vals), n_rows, debug=True)
+    keys[7] = n_rows
+    with pytest.raises(ValueError, match=r"keys\[7\] = 48 >= n_rows = 48"):
+        kt.pair_scatter_banked(*_tensors(keys, co, vals), n_rows, debug=True)
+    kt.pair_scatter_banked(*_tensors(keys, co, vals), n_rows)  # off: the row drops
+    k, c, v = _tensors(keys, co, vals)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        kt.pair_scatter_banked(k.to("meta"), c.to("meta"), v.to("meta"), n_rows)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        kt.pair_scatter(k.to("meta"), c.to("meta"), v.to("meta"))
+    cases = [
+        ((k, c, v[0], n_rows), ValueError),  # vals must be [K, B]
+        ((k, c, v, 0), ValueError),  # no key space
+        ((k.long(), c, v, n_rows), TypeError),
+        ((k, c.double(), v, n_rows), TypeError),
+        ((k, torch.zeros(20, 300), v, n_rows), ValueError),  # T past the lanes
+        ((k, c, torch.zeros(5, 20), n_rows), ValueError),  # K past the registers
+    ]
+    for args, err in cases:
+        with pytest.raises(err):
+            kt._check_banked(*args)
+    kt._check_banked(k, c, v, n_rows)
+
+
+@pytest.mark.parametrize("B", [1, 256, 257, 4096, 8192, 9000])
+def test_scratch_covers_the_kernel_layout(B):
+    """The launch's int32 scratch. The contract: per chunk of 256 rows, its
+    sorted rows and each type's count and first position. The bank: the
+    sorted rows [B], the segment starts [B + 1], and the sort's two
+    ping-pong halves [4 B] once B passes the keys it keeps in shared
+    memory."""
+    chunks = (B + 255) // 256
+    assert kt._scratch_ints(B, banked=False) == 3 * 256 * chunks
+    assert kt._scratch_ints(B, banked=True) == 2 * B + 1 + (4 * B if B > kt.SMEM_ROWS else 0)

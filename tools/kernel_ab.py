@@ -6,18 +6,23 @@ CHANGE_ROOT defaults to this checkout. Runs parent, change, change, parent,
 each in a process of its own (the two checkouts' packages share a name).
 Each run times, through the wrappers' default calls (which both checkouts
 have), ``consolidation_scores`` at m = 64, Q = 1, 8, 1024 and m = 1024,
-Q = 1, 8, 4096, ``flash_attention`` in bf16 at the serving rows of
+Q = 1, 8, 4096, ``pair_scatter``'s contract entry at B = 4096, T = 230,
+K = 2 and its banked entry at the rack and fleet rows of
+``chip_smoke.BANKED_SHAPES`` -- on a checkout without the banked entry,
+that block runs as the host-alternating refresh runs it, one contract
+launch per server with rows in it (the per-server split is not timed) --
+``flash_attention`` in bf16 at the serving rows of
 ``chip_smoke.FLASH_SHAPES`` (tinyllama-1.1b and jamba-v0.1-52b, prefill and
 decode@511), ``rwkv6_scan`` at the serving rows of ``chip_smoke.RWKV_SHAPES``
 (prefill, the prefill under strong decays, decode) and both entries of
 ``mamba_scan`` at the served rows of ``chip_smoke.MAMBA_SHAPES`` (prefill,
 decode). The timer (``device_ms``), the inputs (``kernel_inputs``,
-``candidate_types``, ``rwkv_inputs``, ``mamba_inputs``,
-``contract_inputs``) and the shapes are this checkout's ``chip_smoke.py``
-ones, so both sides are timed as its phases 3, 5, 8, 10 and 12 time them,
-on the same seeded inputs. Prints each run's device ms, then per shape the
-mean of each side and change / parent. Needs one CUDA card; imports
-nothing of JAX.
+``candidate_types``, ``scatter_inputs``, ``banked_inputs``,
+``rwkv_inputs``, ``mamba_inputs``, ``contract_inputs``) and the shapes are
+this checkout's ``chip_smoke.py`` ones, so both sides are timed as its
+phases 3, 5, 6, 8, 10 and 12 time them, on the same seeded inputs.
+Prints each run's device ms, then per shape the mean of each side and
+change / parent. Needs one CUDA card; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -28,9 +33,11 @@ import subprocess
 import sys
 
 HERE = pathlib.Path(__file__).resolve().parents[1]
-#: (m, Q) of the scorer; the labels of chip_smoke.FLASH_SHAPES timed in bf16,
-#: of chip_smoke.RWKV_SHAPES and of chip_smoke.MAMBA_SHAPES
+#: (m, Q) of the scorer; the labels of chip_smoke.BANKED_SHAPES, of
+#: chip_smoke.FLASH_SHAPES timed in bf16, of chip_smoke.RWKV_SHAPES and of
+#: chip_smoke.MAMBA_SHAPES
 SCORES = [(64, 1), (64, 8), (64, 1024), (1024, 1), (1024, 8), (1024, 4096)]
+BANKED = ("rack 256", "rack 512", "fleet 4096")
 FLASH = ("prefill", "decode@511", "jamba prefill", "jamba decode@511")
 RWKV = ("prefill", "strong decay", "decode")
 MAMBA = ("prefill", "decode")
@@ -48,6 +55,7 @@ def measure(root: pathlib.Path) -> dict:
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import mamba_scan as km
     from repro_torch.kernels import rwkv6_scan as ks
+    from repro_torch.kernels import telemetry as kt
 
     dev = torch.device("cuda")
     out = {}
@@ -56,6 +64,25 @@ def measure(root: pathlib.Path) -> dict:
         cl, counts = cs.kernel_inputs(m, dev, rng)
         args = kernel_args(cl, counts, cs.candidate_types(counts, Q, rng))
         out[f"scores m={m} Q={Q}"] = cs.device_ms(lambda: kc.consolidation_scores(*args))
+    rng = np.random.default_rng(cs.SEED + 2)
+    T, K = 230, 2
+    sargs = cs.scatter_inputs(4096, T, K, dev, rng)
+    out["pair_scatter contract B=4096"] = cs.device_ms(lambda: kt.pair_scatter(*sargs))
+    for label, m, B, drop in cs.BANKED_SHAPES:
+        if label not in BANKED:
+            continue
+        keys, co, vals = cs.banked_inputs(m, B, T, K, drop, dev, rng)
+        if hasattr(kt, "pair_scatter_banked"):
+            fn = lambda: kt.pair_scatter_banked(keys, co, vals, m * T)  # noqa: E731
+        else:  # one contract launch per server with rows, as the host path
+            parts = []
+            for s in range(m):
+                sel = (keys >= 0) & (keys // T == s)
+                if bool(sel.any()):
+                    parts.append(((keys[sel] % T).contiguous(), co[sel].contiguous(),
+                                  vals[:, sel].contiguous()))
+            fn = lambda: [kt.pair_scatter(*p) for p in parts]  # noqa: E731
+        out[f"pair_scatter banked {label}"] = cs.device_ms(fn)
     gen = torch.Generator(dev).manual_seed(cs.SEED + 3)
     for label, B, Sq, Skv, H, Hkv, dh, causal, off, win in cs.FLASH_SHAPES:
         if label not in FLASH:
