@@ -17,18 +17,26 @@ flash kernel -- in thirteen phases:
   3. kernel vs plain version: ``consolidation_scores`` by both of its paths
      (the single pass and the table path, whose outputs must be bitwise
      equal) against ``consolidation_scores_torch`` on the same inputs (64
-     servers, Q = 1, 8, 16, 32, 64, 128, 512, 1024, 4096, on either side of
-     the crossover; max abs error <= 1e-5 on both outputs), with median
-     device times of each path;
-  4. main path, rack scale: 64 servers, 1024 arrivals through the engine;
-     the kernel route must place exactly as the plain-version route, the
-     criterion-1 queue and a full queue rescan must occur, and a small trace
-     must place exactly as the port does on the CPU;
+     servers, Q = 1, 8, 16, 32, 64, 128, 230, 512, 1024, 4096, on either
+     side of the crossover; max abs error <= 1e-5 on both outputs), with
+     median device times of each path;
+  4. main path, rack scale: 64 servers, 1024 arrivals through the engine,
+     whose event loop runs as replays of a captured CUDA graph of S
+     micro-events, each scoring every grid type once (Q = 230, the table
+     path); µs per decision, loop reads (one per replay) against their
+     bound ceil((4n + 8) / S); the kernel route must place exactly as the
+     plain-version route, the criterion-1 queue and a full queue rescan
+     must occur, a profiled rerun must see exactly the launches the
+     wrapper's per-replay tally counts, and a small trace must place
+     exactly as the port does on the CPU, with the same loop counters and
+     at most its loop reads plus the fixed copies in and out as
+     synchronizing calls;
   5. main path, fleet scale: 1024 servers, 4096 arrivals: the kernel by both
-     paths against its plain version at this width, at Q = 1, 8 and the
-     rescans' Q = 4096 (<= 1e-5, the paths bitwise equal),
-     then the engine with the kernel route, which must place exactly as the
-     plain-version route on the same trace;
+     paths against its plain version at this width, at Q = 1, 8, the
+     loop's Q = 230 and 4096 (<= 1e-5, the paths bitwise equal), then the
+     engine with the kernel route (µs per decision, loop reads against
+     their bound), which must place exactly as the plain-version route on
+     the same trace;
   6. pair_scatter vs plain versions: the contract entry against
      ``pair_scatter_torch`` at B = 0, 1, 7, 300, 4096, 9000, T = 17, 32,
      230 and K = 1 (1-D), 1, 2, 3 (atol 2e-5, rtol 1e-5), each bitwise equal
@@ -58,7 +66,13 @@ flash kernel -- in thirteen phases:
      break a near-tie); the estimator refresh ms and wall per segment of
      both modes side by side. Segment 0 of the first must place as the
      plain engine on the prior D, and a small adaptive run on the card,
-     which queues, must equal the same run on the CPU, on each path;
+     which queues, must equal the same run on the CPU, on each path. Then
+     stream mode at fleet width (1024 servers, 4 segments of 4096 arrivals,
+     congestion from segment 2): segment 0 must place as the plain engine
+     on the prior D, the banked entry launch once per segment and a shadow
+     bank on the plain scatter agree after every segment; wall and refresh
+     ms per segment and peak memory. Every segment's loop reads within
+     their bound;
   8. flash_attention vs plain version: ``flash_attention`` against
      ``flash_attention_torch`` in bf16 (atol/rtol 2e-2) and f32 (2e-5) at
      the serving prefill (B 8, Sq 512, Skv 672, H 32, Hkv 4, dh 64), decode
@@ -170,6 +184,12 @@ BF16_FLOPS = 989e12
 #: boost clock (H100 SXM; Hopper tuning guide's throughput table)
 SFU_EX2_PER_S = 16 * 132 * 1.98e9
 TOL = 1e-5
+#: grid types: the candidates the event loop scores per micro-event (Q = T)
+GRID_T = 230
+#: synchronizing calls of one engine run besides the loop's reads: the
+#: trace's three copies to the card, the deadlock flag, four result arrays,
+#: makespan and max degradation
+FIXED_COPIES = 10
 #: pair_scatter vs its plain version: f32 sums of B products in a different
 #: order (tests/test_kernels.py's bound for the Pallas kernel)
 SCATTER_ATOL, SCATTER_RTOL = 2e-5, 1e-5
@@ -232,6 +252,18 @@ def kernel_inputs(m: int, device, rng):
     counts = rng.integers(1, 4, size=(m, T)) * (rng.random((m, T)) < 0.04)
     counts[0] = 0
     return cl, torch.tensor(counts, dtype=torch.float32, device=device)
+
+
+#: the row of the event loop's own call: every grid type once, in order
+LOOP_Q = "230 (every grid type once)"
+
+
+def loop_types(device):
+    """The candidate types the event loop scores per micro-event: every grid
+    type once (``arange(T)``), so every server's D is read in full."""
+    import torch
+
+    return torch.arange(GRID_T, dtype=torch.int32, device=device)
 
 
 def candidate_types(counts, Q: int, rng):
@@ -416,12 +448,15 @@ def phase_kernel(device) -> dict:
     rng = np.random.default_rng(SEED)
     cl, counts = kernel_inputs(64, device, rng)
     rows = {}
-    # 512: the adaptive queue run's full rescans; the crossover lies among
-    # 16..128; 4096: the fleet's Q at rack width
-    qs = sorted({1, 8, 16, kc.CROSSOVER_Q, 2 * kc.CROSSOVER_Q, 128, 512, 1024, 4096})
+    # 230 random types (repeats, half absent everywhere) beside the loop's
+    # own call on every grid type once; 512: the adaptive queue run's queue;
+    # the crossover lies among 16..128; 4096: the fleet's Q at rack width
+    qs = sorted({1, 8, 16, kc.CROSSOVER_Q, 2 * kc.CROSSOVER_Q, 128, GRID_T, 512, 1024, 4096})
     for Q in qs:
         args = kernel_args(cl, counts, candidate_types(counts, Q, rng))
         rows[Q] = score_row(args, counts, f"m=64 Q={Q}")
+    rows[LOOP_Q] = score_row(kernel_args(cl, counts, loop_types(device)), counts,
+                             f"m=64 Q={LOOP_Q}")
     print(f"[3 kernel] consolidation_scores vs plain, m=64 T=230, both paths bitwise equal, "
           f"crossover Q={kc.CROSSOVER_Q}; device ms (per call with host launch): "
           + "; ".join(describe_scores(Q, r) for Q, r in rows.items()))
@@ -451,22 +486,45 @@ def drive(engine, arrivals, device):
     return res, wall, launches, peak
 
 
+def reads_bound(n: int) -> int:
+    """The most loop reads a run of ``n`` arrivals may make: one per block
+    of S micro-events over the step budget 4N + 8 of its capacity N."""
+    from repro_torch.core.engine import capacity
+    from repro_torch.core.engine_torch import BLOCK_STEPS
+
+    steps = 4 * capacity(n) + 8
+    return -(-steps // min(BLOCK_STEPS, steps))
+
+
+def check_reads(res, label: str) -> None:
+    n = len(res.placements)
+    check(res.stats.host_syncs <= reads_bound(n),
+          f"{label}: {res.stats.host_syncs} loop reads > {reads_bound(n)}")
+
+
 def describe(res, wall, launches, peak) -> str:
     s, n = res.stats, len(res.placements)
-    return (f"wall {wall:.3f} s, {s.events} micro-events, {s.host_syncs} host syncs, "
-            f"{s.drain_full_scans} full rescans, {1e6 * wall / n:.1f} us/decision, "
+    return (f"wall {wall:.3f} s, {1e6 * wall / n:.1f} us/decision, {s.events} micro-events, "
+            f"{s.host_syncs} loop reads = graph replays of S={s.block_steps} micro-events "
+            f"(bound {reads_bound(n)}), {s.drain_full_scans} full rescans, "
             f"queued {sum(res.was_queued)}/{n}, makespan {res.makespan:.6f} s, "
             f"kernel launches by (path, Q) {launches}, peak device memory {peak / 2**20:.1f} MiB")
 
 
-def count_syncs(fn) -> int:
+def count_syncs(fn) -> tuple[int, dict]:
     """Synchronizing CUDA calls made by ``fn`` (the trace's copy to the card,
     the loop's reads, the result copies), as torch's sync debug mode reports
-    them."""
+    them: (count, count by the calling file and line)."""
     import warnings
 
     import torch
 
+    # the mode's first use flags a call inside torch.cuda itself: switch it
+    # once before recording
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.set_sync_debug_mode("default")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -474,7 +532,9 @@ def count_syncs(fn) -> int:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    flagged = [w for w in caught if "synchroniz" in str(w.message)]
+    where = collections.Counter(f"{pathlib.Path(w.filename).name}:{w.lineno}" for w in flagged)
+    return len(flagged), dict(where)
 
 
 def device_busy(fn, names=SCORE_KERNELS) -> tuple[float, dict, float, int]:
@@ -557,11 +617,16 @@ def phase_rack(device, m: int = 64, n: int = 1024, small=(16, 64)) -> int:
     eng = ConsolidationEngine(servers, scorer="cuda", device=device)
     eng.run(trace(64, gap=1e-4, seed=1))  # warm-up: library load, allocator, cuBLAS
 
+    first = drive(eng, arrivals, device)[1]  # captures the loop's graph at this capacity
     res, wall, launches, peak = drive(eng, arrivals, device)
-    print(f"[4 rack] m={m} n={n} scorer=cuda: " + describe(res, wall, launches, peak))
+    print(f"[4 rack] m={m} n={n} scorer=cuda: " + describe(res, wall, launches, peak)
+          + f"; the first run at this capacity, capture included, {first:.3f} s")
     check_outputs(res, n, "rack cuda")
+    check_reads(res, "rack")
     check(sum(res.was_queued) > 0, "rack: the criterion-1 queue was never used")
     check(res.stats.drain_full_scans > 0, "rack: no drain rescanned the whole queue")
+    check(device.type != "cuda" or set(launches) == {("table", GRID_T)},
+          f"rack: the loop scored other than every grid type per micro-event: {launches}")
     n_launch = sum(launches.values())
 
     plain = ConsolidationEngine(servers, D=eng.D, scorer=plain_scorer, device=device)
@@ -570,12 +635,19 @@ def phase_rack(device, m: int = 64, n: int = 1024, small=(16, 64)) -> int:
 
     if device.type == "cuda":
         # the first 256 arrivals only: parsing the trace of the whole run
-        # takes minutes of host time
+        # takes minutes of host time; a first run captures their graph
+        eng.run(arrivals[:256])
         kc.reset_launches()
-        busy, named, pwall_prof, _ = device_busy(lambda: eng.run(arrivals[:256]), SCORE_KERNELS)
+        out = []
+        busy, named, pwall_prof, n_kernels = device_busy(
+            lambda: out.append(eng.run(arrivals[:256])), SCORE_KERNELS)
         share = kernel_shares(busy, named, pwall_prof, score_counts(), "rack")
-        print(f"[4 rack] profiled rerun of the first 256 arrivals: device kernels {busy:.4f} s "
-              f"of {pwall_prof:.3f} s wall; {share}")
+        stats = out[0].stats
+        steps = stats.host_syncs * stats.block_steps
+        print(f"[4 rack] profiled rerun of the first 256 arrivals (graph replays): device "
+              f"kernels {busy:.4f} s of {pwall_prof:.3f} s wall, {n_kernels} kernels in "
+              f"{steps} steps ({stats.events} micro-events): {n_kernels / steps:.1f} kernels "
+              f"and {1e6 * busy / steps:.1f} us of device time per step; {share}")
 
     fast = ConsolidationEngine(servers, D=eng.D, scorer="torch", device=device)
     tres, twall, _, _ = drive(fast, arrivals, device)
@@ -591,16 +663,23 @@ def phase_rack(device, m: int = 64, n: int = 1024, small=(16, 64)) -> int:
     ref = ConsolidationEngine(rack(ms), scorer="cuda", device="cpu").run(small_arr)
     small_eng = ConsolidationEngine(rack(ms), scorer="cuda", device=device)
     got = small_eng.run(small_arr)
-    flagged = (count_syncs(lambda: small_eng.run(small_arr))
-               if device.type == "cuda" else "not measured")
     check(got.placements == ref.placements and got.was_queued == ref.was_queued,
           "small trace: card and CPU runs place differently")
     check(abs(got.makespan - ref.makespan) <= 1e-3 * ref.makespan,
           "small trace: card and CPU makespans differ")
+    check(got.stats == ref.stats, f"small trace: loop stats {got.stats} on the card, "
+          f"{ref.stats} on the CPU")
+    flagged, where = "not measured", {}
+    if device.type == "cuda":
+        flagged, where = count_syncs(lambda: small_eng.run(small_arr))
+        check(flagged <= reads_bound(ns) + FIXED_COPIES,
+              f"small trace: {flagged} synchronizing calls > {reads_bound(ns)} loop reads "
+              f"+ {FIXED_COPIES} fixed copies: {where}")
     print(f"[4 rack] small trace m={ms} n={ns}: card run == CPU run "
-          f"(queued {sum(got.was_queued)}, makespan {got.makespan:.6f} s); "
+          f"(queued {sum(got.was_queued)}, makespan {got.makespan:.6f} s, same loop stats); "
           f"synchronizing calls flagged by torch's sync debug mode in a rerun: "
-          f"{flagged}, of which loop reads {got.stats.host_syncs}")
+          f"{flagged} (bound {reads_bound(ns)} loop reads + {FIXED_COPIES} fixed copies), "
+          f"of which loop reads {got.stats.host_syncs}; by caller {where}")
     return n_launch
 
 
@@ -615,9 +694,15 @@ def phase_fleet(device, m: int = 1024, n: int = 4096) -> dict:
     rng = np.random.default_rng(SEED + 1)
     cl, counts = kernel_inputs(m, device, rng)
     rows = {}
-    for Q in (1, 8, n):  # the rescans' Q = n, and the engine's small Q at this width
+    # Q = 1, 8, 230 random types and the rescans' Q = n that the engine
+    # scored per candidate batch before it scored every grid type, then the
+    # loop's own call on every grid type once
+    for Q in (1, 8, GRID_T, n):
         args = kernel_args(cl, counts, candidate_types(counts, Q, rng))
-        rows[Q] = score_row(args, counts, f"m={m} Q={Q}", plain="call" if Q == n else None)
+        rows[Q] = score_row(args, counts, f"m={m} Q={Q}",
+                            plain="call" if Q == n else "device" if Q == GRID_T else None)
+    args = kernel_args(cl, counts, loop_types(device))
+    rows[LOOP_Q] = score_row(args, counts, f"m={m} Q={LOOP_Q}")
     del cl, counts, args
     print(f"[5 fleet] consolidation_scores vs plain, m={m} T=230, both paths bitwise equal; "
           f"device ms (per call with host launch): "
@@ -627,10 +712,15 @@ def phase_fleet(device, m: int = 1024, n: int = 4096) -> dict:
     arrivals = trace(n, gap=1e-4 * 64 / m)
     eng = ConsolidationEngine(servers, scorer="cuda", device=device)
     eng.run(trace(64, gap=1e-4 * 64 / m, seed=1))  # warm-up at this width
+    first = drive(eng, arrivals, device)[1]  # captures the loop's graph at this capacity
     res, wall, launches, peak = drive(eng, arrivals, device)
     check_outputs(res, n, "fleet")
+    check_reads(res, "fleet")
     check(res.stats.drain_full_scans > 0, "fleet: no drain rescanned the whole queue")
-    print(f"[5 fleet] m={m} n={n} scorer=cuda: " + describe(res, wall, launches, peak))
+    check(device.type != "cuda" or set(launches) == {("table", GRID_T)},
+          f"fleet: the loop scored other than every grid type per micro-event: {launches}")
+    print(f"[5 fleet] m={m} n={n} scorer=cuda: " + describe(res, wall, launches, peak)
+          + f"; the first run at this capacity, capture included, {first:.3f} s")
 
     plain = ConsolidationEngine(servers, D=eng.D, scorer=plain_scorer, device=device)
     pres, pwall, _, ppeak = drive(plain, arrivals, device)
@@ -942,6 +1032,7 @@ def adaptive_run(servers, arrivals, segments: int, drift, prior, device, label: 
     check(len(res.segments) == segments, f"{label}: a segment is missing")
     for r in res.segments:
         check_outputs(r, n // segments, f"{label} segment")
+        check_reads(r, f"{label} segment")
     check(res.total_obs >= n // 2, f"{label}: only {res.total_obs} of {n} observations used")
     check(score_launches, f"{label}: never launched consolidation_scores")
     check(scatter_launches, f"{label}: never launched pair_scatter")
@@ -999,17 +1090,17 @@ def co_run_rows(block, est, m: int) -> int:
 
 
 def adaptive_stream_run(servers, arrivals, segments: int, drift, prior, device, label: str,
-                        host: dict):
+                        host: dict | None):
     """The same adaptive run in stream mode (``stream=True``): each segment's
     rows go to the ring and one banked update, whose scatter must be exactly
     one launch of the banked entry per segment with a co-run. The segments'
     blocks are replayed on a shadow bank with the plain scatter, whose state
     must agree after every segment; segment 0 must place as the host-
-    alternating run ``host`` did, with estimators within 1e-4 of its float64
-    ones after it; later segments' placements are compared and the first
-    divergence reported (float32 device state against float64 host state
-    can break a near-tie). Returns a dict as ``adaptive_run`` does, with the
-    divergence."""
+    alternating run ``host`` did (where one is given), with estimators
+    within 1e-4 of its float64 ones after it; later segments' placements are
+    compared and the first divergence reported (float32 device state against
+    float64 host state can break a near-tie). Returns a dict as
+    ``adaptive_run`` does, with the divergence."""
     import gc
 
     import numpy as np
@@ -1049,10 +1140,12 @@ def adaptive_stream_run(servers, arrivals, segments: int, drift, prior, device, 
     check(len(res.segments) == segments, f"{label}: a segment is missing")
     for r in res.segments:
         check_outputs(r, n // segments, f"{label} segment")
+        check_reads(r, f"{label} segment")
         check(r.observations is None and r.stream_block is not None,
               f"{label}: a segment formed a host log")
-    check(res.n_obs == host["res"].n_obs,
-          f"{label}: observations used {res.n_obs} != host-alternating {host['res'].n_obs}")
+    check(host is None or res.n_obs == host["res"].n_obs,
+          f"{label}: observations used {res.n_obs} != host-alternating "
+          f"{host and host['res'].n_obs}")
     check(eng.ring.total == n, f"{label}: the ring took {eng.ring.total} of {n} rows")
     T = blocks[0].T
     expected = collections.Counter()
@@ -1076,6 +1169,13 @@ def adaptive_stream_run(servers, arrivals, segments: int, drift, prior, device, 
         check(worst <= TOL, f"{label}: kernel and plain banks differ by {worst:.3g} after "
               f"segment {k}")
 
+    walls = np.diff([t0] + refresh_end)
+    refresh_ms = [1e3 * (b - a) for a, b in zip(run_end, refresh_end)]
+    out = dict(res=res, wall=wall, walls=walls, refresh_ms=refresh_ms,
+               scatter=scatter_launches, score=score_launches, peak=peak, worst=worst,
+               gap0=None, diverged=None)
+    if host is None:
+        return out
     # segment 0 against the host-alternating run
     h0 = host["res"].segments[0]
     check(res.segments[0].placements == h0.placements
@@ -1088,14 +1188,11 @@ def adaptive_stream_run(servers, arrivals, segments: int, drift, prior, device, 
             gap0 = max(gap0, float((dev_t.double() - host_t).abs().max()))
     check(gap0 <= 1e-4, f"{label}: estimators after segment 0 are {gap0:.3g} from the "
           f"host-alternating ones")
-    diverged = next(((k, first_divergence(r.placements, h.placements))
-                     for k, (r, h) in enumerate(zip(res.segments, host["res"].segments))
-                     if r.placements != h.placements), None)
-    walls = np.diff([t0] + refresh_end)
-    refresh_ms = [1e3 * (b - a) for a, b in zip(run_end, refresh_end)]
-    return dict(res=res, wall=wall, walls=walls, refresh_ms=refresh_ms,
-                scatter=scatter_launches, score=score_launches, peak=peak, worst=worst,
-                gap0=gap0, diverged=diverged)
+    out["diverged"] = next(((k, first_divergence(r.placements, h.placements))
+                            for k, (r, h) in enumerate(zip(res.segments, host["res"].segments))
+                            if r.placements != h.placements), None)
+    out["gap0"] = gap0
+    return out
 
 
 def describe_stream(label, r, host) -> str:
@@ -1114,11 +1211,13 @@ def describe_stream(label, r, host) -> str:
 
 
 def phase_adaptive(device, m: int = 64, segments: int = 8, per_segment: int = 256,
-                   queue=(3, 512), small=(2, 3, 16)) -> dict:
+                   queue=(3, 512), small=(2, 3, 16), fleet=(1024, 4, 4096)) -> dict:
     """Drives the adaptive loop (the second main path) at rack width twice on
     each path, host-alternating and stream: from the uniform prior 0.0 under
     a congestion drift, and from the profiled prior at twice the arrivals per
-    segment, where the criterion-1 queue fills and drains rescan it. Every
+    segment, where the criterion-1 queue fills and drains rescan it; then
+    once in stream mode at fleet width (``fleet``: servers, segments,
+    arrivals per segment; congestion from the middle segment). Every
     scatter launch is held to the plain version through shadow estimators or
     a shadow bank. Returns launch counts by entry."""
     import numpy as np
@@ -1186,7 +1285,9 @@ def phase_adaptive(device, m: int = 64, segments: int = 8, per_segment: int = 25
     check(all(q > 0 for q in q_queued), f"{q_label}: a segment never queued ({q_queued})")
     check(all(r.stats.drain_full_scans > 0 for r in q_res.segments),
           f"{q_label}: a segment's drains never rescanned the whole queue")
-    check(any(q == 8 for _, q in q_host["score"]), f"{q_label}: no drain scored at Q = 8")
+    check(not on_card or set(q_host["score"]) == {("table", GRID_T)},
+          f"{q_label}: the loop scored other than every grid type per micro-event: "
+          f"{q_host['score']}")
     print(describe_adaptive(q_label, q_host))
     q_stream = adaptive_stream_run(servers, q_arrivals, kq, q_drift, "profiled", device, q_label,
                                    q_host)
@@ -1194,12 +1295,34 @@ def phase_adaptive(device, m: int = 64, segments: int = 8, per_segment: int = 25
           f"{q_label} stream: a segment never queued")
     print(describe_stream(q_label, q_stream, q_host))
 
+    # stream mode at fleet width: segment 0 places as the plain engine on the
+    # prior D, one banked launch per segment, a shadow bank on the plain
+    # scatter agrees after every segment
+    fm, fk, fn = fleet
+    f_servers = rack(fm)
+    f_arrivals = trace(fk * fn, gap=1e-4 * 64 / fm, seed=11)
+    f_drift = congestion_at(f_servers, fk // 2, server=0, factor=0.4)
+    f_label = f"m={fm} {fk}x{fn} prior 0.0 drift at {fk // 2}"
+    f_stream = adaptive_stream_run(f_servers, f_arrivals, fk, f_drift, 0.0, device, f_label,
+                                   None)
+    f_base = ConsolidationEngine(f_servers, D=np.zeros((GRID_T, GRID_T)), scorer="cuda",
+                                 device=device).run(f_arrivals[:fn])
+    check(f_base.placements == f_stream["res"].segments[0].placements
+          and f_base.was_queued == f_stream["res"].segments[0].was_queued,
+          f"{f_label} stream: segment 0 places differently from the plain engine on the prior D")
+    print(describe_adaptive(f_label + " stream", f_stream) + "\n"
+          f"[7 adaptive] {f_label} stream: segment 0 == plain engine on the prior D; loop "
+          f"reads per segment {[r.stats.host_syncs for r in f_stream['res'].segments]} "
+          f"(bound {reads_bound(fn)} each)")
+    del f_base
+
     if on_card:
         # one segment of a fresh run on each path under the profiler: the
-        # device's share
+        # device's share; a first, unprofiled run captures the loop's graph
         for stream_mode in (False, True):
             prof = AdaptiveEngine(servers, drift=drift, scorer="cuda", scatter="cuda",
                                   device=device, stream=stream_mode, **kw)
+            prof.run(arrivals[:per_segment], segments=1)
             kc.reset_launches()
             kt.reset_launches()
             busy, named, pwall, _ = device_busy(
@@ -1211,12 +1334,13 @@ def phase_adaptive(device, m: int = 64, segments: int = 8, per_segment: int = 25
             share = kernel_shares(busy, named, pwall, {
                 "chunk_sort_kernel": by_entry["contract"], "bucket_kernel": by_entry["banked"],
                 "accumulate_kernel": sum(by_entry.values()), **score_counts()}, "adaptive")
-            print(f"[7 adaptive] profiled rerun of segment 0, "
+            print(f"[7 adaptive] profiled rerun of segment 0 (graph replays), "
                   f"{'stream' if stream_mode else 'host-alternating'}: device kernels "
                   f"{busy:.4f} s of {pwall:.3f} s wall; {share}")
 
     return dict(contract=sum(host["scatter"].values()) + sum(q_host["scatter"].values()),
-                banked=sum(stream["scatter"].values()) + sum(q_stream["scatter"].values()),
+                banked=sum(stream["scatter"].values()) + sum(q_stream["scatter"].values())
+                + sum(f_stream["scatter"].values()),
                 score=sum(host["score"].values()) + sum(q_host["score"].values()),
                 refresh_host=host["refresh_ms"], refresh_stream=stream["refresh_ms"],
                 diverged=(stream["diverged"], q_stream["diverged"]))
@@ -2577,7 +2701,7 @@ def main() -> int:
     scan = phase_mamba_scan(device)
     served_jamba = phase_serve_jamba(device)
 
-    q = 1024
+    q = LOOP_Q  # the event loop's one call per micro-event, on every grid type
     print(json.dumps({"kernels": [{
         "name": "consolidation_scores", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/consolidation_scores.cu",
@@ -2587,7 +2711,10 @@ def main() -> int:
         "ms": rows[q]["ms"], "plain_ms": rows[q]["plain_ms"],
         "bound_ms": rows[q]["bound_ms"], "bound_by": rows[q]["bound_by"],
         "library_ms": None,
-        "shape": f"m=64 T=230 Q={q}",
+        "shape": "m=64 T=230 Q=230 (every grid type)",
+        "fleet": {"ms": fleet[q]["ms"], "plain_ms": fleet[q]["plain_ms"],
+                  "bound_ms": fleet[q]["bound_ms"], "bound_by": fleet[q]["bound_by"],
+                  "library_ms": None, "shape": "m=1024 T=230 Q=230 (every grid type)"},
     }, {
         "name": "pair_scatter", "entry": "contract", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pair_scatter.cu",

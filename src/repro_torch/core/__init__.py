@@ -7,7 +7,7 @@ Public API:
   profile_pairwise_fast, type_tables, pair_slowdown_matrices -- Eqns 1-3
   PackedCluster, server_loads, score_candidates_torch, greedy_choice,
   argmin_with_margin, greedy_step, greedy_sequence -- the Fig-8 greedy
-  PackedDynamics, run_trace, corun_rates          -- event-loop internals
+  PackedDynamics, trace_segment, run_trace, corun_rates -- the event loop
   ConsolidationEngine, EngineResult, Deadlock, make_scorer,
   score_candidates, kernel_args
                                                   -- the online runtime
@@ -29,6 +29,7 @@ from .binpack_torch import (
 from .contention import pair_slowdown_matrices, profile_pairwise_fast, type_tables
 from .engine import (AdaptiveEngine, AdaptiveResult, ConsolidationEngine, Deadlock,
                      EngineResult, kernel_args, make_scorer, score_candidates)
-from .engine_torch import EngineTrace, LoopStats, PackedDynamics, corun_rates, run_trace
+from .engine_torch import (EngineTrace, LoopStats, PackedDynamics, corun_rates, run_trace,
+                           trace_segment)
 from .server import H100_HOST, M1, M2, PAPER_CLUSTER, TPU_V5E_HOST, ServerSpec
 from .workload import FS_GRID, RS_GRID, Workload, grid_types, snap_to_grid, type_index

@@ -160,7 +160,10 @@ def scores_from_sums(
     diag = torch.diagonal(cluster.D, dim1=1, dim2=2)  # [m, T]
     col_after = col0[:, None, :] + cluster.D[:, wl, :]  # [m, Q, T]
     d_pred = torch.clamp(col_after - diag[:, None, :], 0.0, 1.0)
-    onehot = torch.nn.functional.one_hot(wl, cluster.T).to(counts.dtype)  # [Q, T]
+    # one-hot by comparison: one_hot() reads the types' range back to the
+    # host on the CPU, and this runs inside the event loop's blocks
+    types = torch.arange(cluster.T, device=counts.device)
+    onehot = (wl[:, None] == types[None, :]).to(counts.dtype)  # [Q, T]
     present = (counts[:, None, :] + onehot[None, :, :]) > 0
     maxd_after = torch.where(present, d_pred, -torch.inf).amax(-1)  # [m, Q]
     return cache_after.T, maxd_after.T

@@ -3,7 +3,10 @@
 Counterpart of ``repro/core/engine.py``. ``ConsolidationEngine.run`` takes an
 arrival trace [(time, workload)] through the paper's online operating model
 (arrive -> score -> place-or-queue -> run -> complete -> drain, §V/§VIII) on
-the ``engine_torch.run_trace`` loop. The runtime is PyTorch only; the
+the device-resident ``engine_torch.trace_segment`` loop, the trace padded to
+a power-of-two capacity (``capacity``) so that traces of one capacity share
+one loop: on the card, one captured CUDA graph of a block of micro-events,
+replayed until the trace is done. The runtime is PyTorch only; the
 float64 oracle (``OnlineScheduler``) stays in the JAX package as the
 reference the tests hold this engine to.
 
@@ -38,7 +41,7 @@ from ..telemetry.log import (ObservationLog, ObservationRing, RingBlock,
                              observations_from_trace, rows_from_trace)
 from .binpack_torch import PackedCluster, score_candidates_torch
 from .contention import profile_pairwise_fast, type_tables
-from .engine_torch import QUEUED, LoopStats, PackedDynamics, Scorer, run_trace
+from .engine_torch import QUEUED, EngineTrace, LoopStats, PackedDynamics, Scorer, trace_segment
 from .server import ServerSpec
 from .workload import FS_GRID, RS_GRID, Workload, type_index
 
@@ -46,6 +49,9 @@ if TYPE_CHECKING:
     from ..telemetry.drift import DriftSchedule
 
 ScorerName = Literal["cuda", "torch"]
+
+#: the smallest event-loop capacity: short traces share one shape
+MIN_CAPACITY = 8
 
 
 def kernel_args(cluster: PackedCluster, counts: torch.Tensor, wtypes: torch.Tensor) -> tuple:
@@ -55,13 +61,17 @@ def kernel_args(cluster: PackedCluster, counts: torch.Tensor, wtypes: torch.Tens
             cluster.llc_budget, torch.atleast_1d(wtypes).to(torch.int32))
 
 
+def _cuda_scorer(cluster: PackedCluster, counts: torch.Tensor, wtypes: torch.Tensor):
+    return consolidation_scores(*kernel_args(cluster, counts, wtypes))
+
+
 def make_scorer(backend: ScorerName = "cuda") -> Scorer:
-    """Resolve a scoring-backend name to the shared-interface callable."""
+    """Resolve a scoring-backend name to the shared-interface callable (the
+    same object on every call: the event loop's cache keys on it)."""
     if backend == "torch":
         return score_candidates_torch
     if backend == "cuda":
-        return lambda cluster, counts, wtypes: consolidation_scores(
-            *kernel_args(cluster, counts, wtypes))
+        return _cuda_scorer
     raise ValueError(f"unknown scorer backend {backend!r}")
 
 
@@ -140,6 +150,9 @@ class ConsolidationEngine:
             None if active is None else np.asarray(active, bool))
         self.cluster = self._build_cluster()
         self._dyn: PackedDynamics | None = None
+        #: the event loop per trace shape (static buffers; on the card its
+        #: captured graph), reused across runs and across set_D / set_active
+        self._loops: dict = {}
 
     def _build_cluster(self) -> PackedCluster:
         return PackedCluster.build(list(self.servers), self.D, self.alpha,
@@ -231,26 +244,34 @@ class ConsolidationEngine:
         n = len(arrivals)
         times = np.asarray([t for t, _ in arrivals], np.float64)
         order = np.argsort(times, kind="stable")
+        # the trace padded to a power-of-two capacity, as JAX's closed loop
+        # pads its segments: traces of one capacity share one event loop
+        # (one captured graph on the card); padding rows never arrive
+        cap = capacity(n)
         # normalize to the first arrival before the f32 cast: absolute
         # epoch-scale timestamps would otherwise collapse below f32 resolution
         t0 = float(times.min())
         dev = self.device
-        arr_time = torch.from_numpy((times[order] - t0).astype(np.float32)).to(dev)
-        arr_type = torch.tensor([type_index(arrivals[i][1]) for i in order],
-                                dtype=torch.int32, device=dev)
-        arr_bytes = torch.from_numpy(np.asarray(
-            [arrivals[i][1].data_total for i in order], np.float32)).to(dev)
+        host_time = np.zeros(cap, np.float32)
+        host_type = np.zeros(cap, np.int32)
+        host_bytes = np.ones(cap, np.float32)
+        host_time[:n] = times[order] - t0
+        host_type[:n] = [type_index(arrivals[i][1]) for i in order]
+        host_bytes[:n] = [arrivals[i][1].data_total for i in order]
+        arr_time, arr_type, arr_bytes = (torch.from_numpy(x).to(dev)
+                                         for x in (host_time, host_type, host_bytes))
 
-        # scorer='torch' -> None: run_trace's incremental evaluation of the
-        # same contract from its maintained sums; the others score each
-        # candidate batch through the shared interface
+        # scorer='torch' -> None: the loop's incremental evaluation of the
+        # same contract from its maintained sums; the others score every
+        # grid type once per micro-event through the shared interface
         if callable(self.scorer):
             scorer = self.scorer
         else:
             scorer = None if self.scorer == "torch" else make_scorer(self.scorer)
-        trace = run_trace(self.cluster, self.dyn, arr_time, arr_type, arr_bytes,
-                          objective=self.objective, scorer=scorer,
-                          telemetry=bool(telemetry))
+        trace = _head(trace_segment(self.cluster, self.dyn, arr_time, arr_type, arr_bytes, n,
+                                    objective=self.objective, scorer=scorer,
+                                    telemetry=bool(telemetry), cache=self._loops), n)
+        arr_type, arr_bytes = arr_type[:n], arr_bytes[:n]
         if bool(trace.deadlock):
             raise Deadlock("deadlock: queued workloads fit no empty server")
         # observation records are per run; the trace's arrival-sorted order
@@ -281,6 +302,19 @@ class ConsolidationEngine:
             observations=obs,
             stream_block=block,
         )
+
+
+def capacity(n: int) -> int:
+    """The event loop's capacity for a trace of ``n`` arrivals: the next
+    power of two, at least MIN_CAPACITY."""
+    return max(MIN_CAPACITY, 1 << max(0, n - 1).bit_length())
+
+
+def _head(trace: EngineTrace, n: int) -> EngineTrace:
+    """The first ``n`` arrivals' rows of a padded trace."""
+    return dataclasses.replace(trace, **{f: getattr(trace, f)[:n] for f in (
+        "placement", "was_queued", "place_time", "finish_time", "obs_co", "obs_lost",
+        "obs_logr")})
 
 
 GRID_T = len(RS_GRID) * len(FS_GRID)

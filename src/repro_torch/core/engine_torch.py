@@ -1,14 +1,27 @@
-"""Online consolidation engine as a host-driven loop over tensor state.
+"""Online consolidation engine as a device-resident event loop.
 
 Counterpart of ``repro/core/engine_jax.py``: the full arrive -> score ->
 place-or-queue -> run -> complete -> drain loop of the paper's operating
-model (§V, §VIII) over fixed-shape tensors, one micro-event per iteration.
-Where the JAX engine is one ``lax.while_loop``, this is a Python loop: each
-iteration computes the event choice on the device and reads one small int
-tensor (done, branch) to the host, which then runs the DRAIN, FINISH or
-ARRIVE branch; a drain reads one more flag to decide whether the whole queue
-must be rescanned. Every such read is counted in ``LoopStats.host_syncs``.
-State tensors are updated in place.
+model (§V, §VIII) over fixed-shape tensors, one micro-event per step.
+
+As in the JAX engine's ``lax.while_loop`` body (``_trace_segment``), a step
+is a fixed sequence of tensor ops with no host read. JAX's ``lax.switch``
+over DRAIN, FINISH and ARRIVE becomes three branches that all run, each
+committing its writes under its mask; its ``lax.cond`` whole-queue rescan
+becomes a gather over the queue. A step taken after the trace is done (or
+past ``n_steps``) changes nothing, so steps run in blocks of ``S``
+(``BLOCK_STEPS``, or the step budget where that is smaller), and after
+each block the host reads one small int tensor -- done, deadlock and the
+device counters -- to decide whether to run another. On the card a block is
+captured once as a CUDA graph and replayed; on the CPU the same block runs
+eagerly. ``LoopStats.host_syncs`` counts the reads: at most
+``ceil(n_steps / S)`` per run.
+
+Each step scores a candidate of every grid type once (Q = T, one call of
+the scorer); the arrival, the drain's first feasible queued arrival and its
+whole-queue rescan all gather their choice from those T rows. A candidate's
+scores depend only on its type and the state, so this is what scoring each
+candidate batch on its own gave.
 
 State encoding (m servers, K = n run-slots per server, n arrivals, T types):
 
@@ -21,8 +34,13 @@ State encoding (m servers, K = n run-slots per server, n arrivals, T types):
   slot_rem  : f32[m, K]  -- remaining bytes per slot
   slot_arr  : i32[m, K]  -- arrival index occupying the slot
   queued    : bool[n]    -- criterion-1 queue, in arrival order
-  obs_*     : [n + 1, ...] -- per-arrival telemetry integrals (run_trace(
-                            telemetry=True)); row n is a dump row, sliced away
+  ai        : i32        -- next-arrival pointer
+  obs_*     : [n, ...]   -- per-arrival telemetry integrals (run_trace(
+                            telemetry=True))
+
+``n = arr_time.shape[0]`` is a static capacity; ``n_valid`` (a traced count,
+as in JAX) bounds the arrivals the loop consumes, and rows past it keep the
+initial sentinels.
 
 Ground-truth rates reproduce the simulator exactly for grid-typed
 workloads: with per-type counts c the log co-run slowdown of a type-t
@@ -40,6 +58,7 @@ index may be the "none" sentinel is clamped, as JAX clamps it.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Callable, Sequence
 
@@ -47,16 +66,25 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels import consolidation as kc
 from .binpack_torch import PackedCluster, choose, loads_from_sums, scores_from_sums
 from .contention import pair_slowdown_matrices, type_tables
 from .server import ServerSpec
 
 QUEUED = -1  # placement sentinel, same as binpack_torch
 
+#: micro-events per block: one host read and one graph launch per block,
+#: whose graph holds S steps of ~270 small kernels. At 32 a finished trace
+#: runs at most 31 no-op steps past its end; a larger S saves reads and
+#: launches, but captures longer and overshoots further
+BLOCK_STEPS = 32
+
 #: scoring backend signature: (cluster, counts [m,T], wtypes i32[Q]) ->
 #: (cache_after [Q, m], maxd_after [Q, m])
 Scorer = Callable[[PackedCluster, torch.Tensor, torch.Tensor],
                   tuple[torch.Tensor, torch.Tensor]]
+
+_CLUSTER_TENSORS = ("D", "rs", "fs", "llc_budget", "resident", "active")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,9 +127,18 @@ class PackedDynamics:
                    f32(np.stack(llost)), f32(np.stack(comp)), f32(tol))
 
 
+#: each state tensor's value at the start of a trace
+_INITIAL = dict(now=0.0, ai=0, counts=0.0, comp=0.0, col0=0.0, colog_keep=0.0,
+                colog_lost=0.0, slot_type=-1, slot_rem=0.0, slot_arr=-1, queued=False,
+                was_queued=False, placement=QUEUED, place_time=-1.0, finish_time=np.inf,
+                makespan=0.0, max_deg=0.0, draining=False, deadlock=False, obs_co=0.0,
+                obs_lost=0.0, obs_logr=0.0, events=0, full_scans=0)
+
+
 @dataclasses.dataclass
 class EngineState:
     now: torch.Tensor  # f32 scalar simulation clock
+    ai: torch.Tensor  # i32 scalar next-arrival pointer
     counts: torch.Tensor  # f32[m, T]
     comp: torch.Tensor  # f32[m] competing bytes (Eqn 2 LHS)
     col0: torch.Tensor  # f32[m, T] counts @ D
@@ -119,48 +156,47 @@ class EngineState:
     max_deg: torch.Tensor  # f32 scalar max *observed* (simulated) degradation
     draining: torch.Tensor  # bool -- queue re-check pending
     deadlock: torch.Tensor  # bool -- queued work that no empty server can take
-    obs_co: torch.Tensor  # f32[n + 1, T] time-integrated co-resident type counts
-    obs_lost: torch.Tensor  # f32[n + 1] time spent past the physical TDP
-    obs_logr: torch.Tensor  # f32[n + 1] time-integrated log instantaneous rate
-    ai: int = 0  # next-arrival pointer (the host runs the ARRIVE branch)
+    obs_co: torch.Tensor  # f32[n, T] time-integrated co-resident type counts
+    obs_lost: torch.Tensor  # f32[n] time spent past the physical TDP
+    obs_logr: torch.Tensor  # f32[n] time-integrated log instantaneous rate
+    events: torch.Tensor  # i32 scalar micro-events run
+    full_scans: torch.Tensor  # i32 scalar drains that rescanned the whole queue
 
     @classmethod
     def zeros(cls, m: int, T: int, n: int, device: torch.device) -> "EngineState":
-        f32 = dict(dtype=torch.float32, device=device)
-        i32 = dict(dtype=torch.int32, device=device)
-        return cls(
-            now=torch.zeros((), **f32),
-            counts=torch.zeros((m, T), **f32),
-            comp=torch.zeros((m,), **f32),
-            col0=torch.zeros((m, T), **f32),
-            colog_keep=torch.zeros((m, T), **f32),
-            colog_lost=torch.zeros((m, T), **f32),
-            slot_type=torch.full((m, n), -1, **i32),
-            slot_rem=torch.zeros((m, n), **f32),
-            slot_arr=torch.full((m, n), -1, **i32),
-            queued=torch.zeros((n,), dtype=torch.bool, device=device),
-            was_queued=torch.zeros((n,), dtype=torch.bool, device=device),
-            placement=torch.full((n,), QUEUED, **i32),
-            place_time=torch.full((n,), -1.0, **f32),
-            finish_time=torch.full((n,), torch.inf, **f32),
-            makespan=torch.zeros((), **f32),
-            max_deg=torch.zeros((), **f32),
-            draining=torch.zeros((), dtype=torch.bool, device=device),
-            deadlock=torch.zeros((), dtype=torch.bool, device=device),
-            obs_co=torch.zeros((n + 1, T), **f32),
-            obs_lost=torch.zeros((n + 1,), **f32),
-            obs_logr=torch.zeros((n + 1,), **f32),
-        )
+        """A state for m servers, T types and n arrivals, at its initial values."""
+        f32, i32 = torch.float32, torch.int32
+        shapes = dict(now=((), f32), ai=((), i32), counts=((m, T), f32), comp=((m,), f32),
+                      col0=((m, T), f32), colog_keep=((m, T), f32), colog_lost=((m, T), f32),
+                      slot_type=((m, n), i32), slot_rem=((m, n), f32), slot_arr=((m, n), i32),
+                      queued=((n,), torch.bool), was_queued=((n,), torch.bool),
+                      placement=((n,), i32), place_time=((n,), f32),
+                      finish_time=((n,), f32), makespan=((), f32), max_deg=((), f32),
+                      draining=((), torch.bool), deadlock=((), torch.bool),
+                      obs_co=((n, T), f32), obs_lost=((n,), f32), obs_logr=((n,), f32),
+                      events=((), i32), full_scans=((), i32))
+        st = cls(**{k: torch.empty(shape, dtype=dt, device=device)
+                    for k, (shape, dt) in shapes.items()})
+        st.reset()
+        return st
+
+    def reset(self) -> None:
+        """Every tensor back to its initial value, in place."""
+        for name, value in _INITIAL.items():
+            getattr(self, name).fill_(value)
 
 
 @dataclasses.dataclass(frozen=True)
 class LoopStats:
-    """What the host loop did: micro-events run, device->host reads, and
-    drains that had to rescore the whole queue."""
+    """What the event loop did: micro-events run, device->host reads (one
+    per block of ``block_steps`` micro-events), and drains whose window of
+    the first W queued arrivals held nothing feasible while more were queued
+    (the whole-queue rescans)."""
 
     events: int
     host_syncs: int
     drain_full_scans: int
+    block_steps: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,18 +230,18 @@ def corun_rates(
     cl = torch.einsum("mt,mtu->mu", counts, dyn.log_lost)
     ldiag_keep = torch.diagonal(dyn.log_keep, dim1=1, dim2=2)
     ldiag_lost = torch.diagonal(dyn.log_lost, dim1=1, dim2=2)
-    return _slot_rates(dyn, ldiag_keep, ldiag_lost, overflow, ck, cl, slot_type)
+    rate = _rate_table(dyn.solo, dyn.base_lost, ldiag_keep, ldiag_lost, overflow, ck, cl)
+    return torch.gather(rate, 1, slot_type.clamp(min=0).long())
 
 
-def _slot_rates(dyn, ldiag_keep, ldiag_lost, overflow, colog_keep, colog_lost, slot_type):
-    """Per-slot rates from the maintained log-slowdown sums."""
+def _rate_table(solo, base_lost, ldiag_keep, ldiag_lost, overflow, colog_keep, colog_lost):
+    """Rate [m, T] of a workload of each type on each server, from the
+    maintained log-slowdown sums; a run slot's rate is its type's entry."""
     ov = overflow[:, None]
     colog = torch.where(ov, colog_lost, colog_keep)  # [m, T]
     ldiag = torch.where(ov, ldiag_lost, ldiag_keep)  # [m, T]
-    base = torch.where(ov, dyn.base_lost, dyn.solo)  # [m, T]
-    t = slot_type.clamp(min=0).long()  # [m, K]
-    logslow = torch.gather(colog - ldiag, 1, t)
-    return torch.gather(base, 1, t) * torch.exp(logslow)  # [m, K]
+    base = torch.where(ov, base_lost, solo)  # [m, T]
+    return base * torch.exp(colog - ldiag)
 
 
 def _put_if(dst: torch.Tensor, index: tuple, value: torch.Tensor, mask: torch.Tensor) -> None:
@@ -214,52 +250,91 @@ def _put_if(dst: torch.Tensor, index: tuple, value: torch.Tensor, mask: torch.Te
 
 
 class _TraceLoop:
-    """One run of the event loop: the constants of a trace and its branches."""
+    """The event loop for one trace shape: static buffers for the cluster,
+    the rate tables and the arrivals (filled by :meth:`load`), the state, the
+    three branches and the block of micro-events, captured as a CUDA graph
+    on the card. Index arguments of the branches have shape [1]; masks are
+    0-d."""
 
     def __init__(self, cluster, dyn, arr_time, arr_type, arr_bytes, objective, scorer,
-                 telemetry=False):
-        self.cluster, self.dyn, self.scorer = cluster, dyn, scorer
-        self.objective, self.telemetry = objective, telemetry
-        self.arr_time, self.arr_type, self.arr_bytes = arr_time, arr_type, arr_bytes
-        self.n = n = int(arr_time.shape[0])
-        self.m, self.T, self.K = cluster.m, cluster.T, n
+                 telemetry=False, n_valid=None, n_steps=None):
+        self.n = self.K = n = int(arr_time.shape[0])
+        self.m, self.T = m, T = cluster.m, cluster.T
         self.W = min(8, n)  # drain fast-path window (first W queued candidates)
-        dev = cluster.device
-        self.comp_delta = cluster.rs[None, :] + cluster.resident * cluster.fs[None, :]
-        self.ldiag_keep = torch.diagonal(dyn.log_keep, dim1=1, dim2=2)
-        self.ldiag_lost = torch.diagonal(dyn.log_lost, dim1=1, dim2=2)
+        self.n_steps = 4 * n + 8 if n_steps is None else int(n_steps)
+        self.S = max(1, min(BLOCK_STEPS, self.n_steps))
+        self.objective, self.scorer, self.telemetry = objective, scorer, telemetry
+        self.device = dev = cluster.device
+        f32 = dict(dtype=torch.float32, device=dev)
+        # the inputs every run copies in: a captured block reads these
+        self.cluster = dataclasses.replace(
+            cluster, **{f: torch.empty_like(getattr(cluster, f)) for f in _CLUSTER_TENSORS})
+        self.solo, self.base_lost = torch.empty((m, T), **f32), torch.empty((m, T), **f32)
+        self.tol_budget = torch.empty((m,), **f32)
+        self.ldiag_keep, self.ldiag_lost = torch.empty((m, T), **f32), torch.empty((m, T), **f32)
+        self.comp_delta = torch.empty((m, T), **f32)
+        self.dcache = torch.empty((T, m), **f32)  # closed-form cache increase per type
         # all per-server sum tables side by side: one matvec refreshes every
         # maintained sum of the touched server (see apply_delta)
-        self.tables = torch.cat(
-            [cluster.D, dyn.log_keep, dyn.log_lost, self.comp_delta[:, :, None]], dim=2
-        )  # [m, T, 3T + 1]
-        self.arange_n = torch.arange(n, device=dev)
-        self.arange_T = torch.arange(self.T, device=dev)
-        self.ranks = torch.arange(1, self.W + 1, device=dev)
-        # device constants, made once: a host scalar copied per event would
-        # make each event wait for the device
-        self.inf = torch.tensor(torch.inf, device=dev)
+        self.tables = torch.empty((m, T, 3 * T + 1), **f32)
+        self.arr_time, self.arr_bytes = torch.empty((n,), **f32), torch.empty((n,), **f32)
+        self.arr_type = torch.empty((n,), dtype=torch.long, device=dev)
+        self.own = torch.empty((n, T) if telemetry else (0, T), **f32)  # one-hot of the type
+        self.n_valid = torch.empty((), dtype=torch.int32, device=dev)
+        # device constants, made once: nothing inside a block copies from the host
+        self.types = torch.arange(T, dtype=torch.int32, device=dev)
+        self.inf = torch.full((), torch.inf, **f32)
         self.free_slot = torch.full((1,), -1, dtype=torch.int32, device=dev)
-        self.syncs = self.full_scans = 0
+        self.st = EngineState.zeros(m, T, n, dev)
+        self.status = torch.zeros(4, dtype=torch.int32, device=dev)
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.tally: collections.Counter = collections.Counter()  # kernel launches per replay
+        self.load(cluster, dyn, arr_time, arr_type, arr_bytes, n if n_valid is None else n_valid)
+
+    def load(self, cluster, dyn, arr_time, arr_type, arr_bytes, n_valid) -> None:
+        """Copy a trace's inputs into the static buffers (device to device;
+        ``n_valid`` an int or a 0-d tensor)."""
+        T, c = self.T, self.cluster
+        for f in _CLUSTER_TENSORS:
+            getattr(c, f).copy_(getattr(cluster, f))
+        torch.add(c.rs[None, :], c.resident * c.fs[None, :], out=self.comp_delta)
+        self.solo.copy_(dyn.solo)
+        self.base_lost.copy_(dyn.base_lost)
+        self.tol_budget.copy_(dyn.tol_budget)
+        self.ldiag_keep.copy_(torch.diagonal(dyn.log_keep, dim1=1, dim2=2))
+        self.ldiag_lost.copy_(torch.diagonal(dyn.log_lost, dim1=1, dim2=2))
+        self.dcache.copy_((self.comp_delta / c.llc_budget[:, None]).T)
+        self.tables[:, :, :T].copy_(c.D)
+        self.tables[:, :, T:2 * T].copy_(dyn.log_keep)
+        self.tables[:, :, 2 * T:3 * T].copy_(dyn.log_lost)
+        self.tables[:, :, 3 * T].copy_(self.comp_delta)
+        self.arr_time.copy_(arr_time)
+        self.arr_type.copy_(arr_type)
+        self.arr_bytes.copy_(arr_bytes)
+        if self.telemetry:
+            self.own.copy_(self.arr_type[:, None] == self.types[None, :])
+        if torch.is_tensor(n_valid):
+            self.n_valid.copy_(n_valid)
+        else:
+            self.n_valid.fill_(int(n_valid))
 
     # -- scoring ------------------------------------------------------------
-    def greedy_pick(self, st, wtypes):
-        """Scoring + Fig-8 argmin (Table II / Fig-8 objective) for a batch.
-        The in-loop scorer (``scorer=None``) reads the maintained sums
-        instead of recomputing counts @ D."""
+    def pick_types(self, st):
+        """Scoring + Fig-8 argmin (Table II / Fig-8 objective) for a candidate
+        of every grid type: (server [T], feasible [T]). The in-loop scorer
+        (``scorer=None``) reads the maintained sums instead of recomputing
+        counts @ D."""
         cl = self.cluster
         if self.scorer is None:
-            cache_a, maxd_a = scores_from_sums(cl, st.counts, st.comp, st.col0, wtypes)
+            cache_a, maxd_a = scores_from_sums(cl, st.counts, st.comp, st.col0, self.types)
         else:
-            cache_a, maxd_a = self.scorer(cl, st.counts, wtypes)
+            cache_a, maxd_a = self.scorer(cl, st.counts, self.types)
         if self.objective == "sum_avg":  # Table II: minimize the load *increase*
             cache_now, maxd_now = loads_from_sums(cl, st.counts, st.comp, st.col0)
-            if self.scorer is None:
-                # the cache increase is known in closed form; using it directly
-                # avoids the f32 cancellation of (cache_after - cache_now)
-                dcache = (self.comp_delta[:, wtypes.long()] / cl.llc_budget[:, None]).T
-            else:
-                dcache = cache_a - cache_now[None, :]
+            # without a scorer the cache increase is known in closed form;
+            # using it directly avoids the f32 cancellation of
+            # (cache_after - cache_now)
+            dcache = self.dcache if self.scorer is None else cache_a - cache_now[None, :]
             score = 0.5 * (dcache + (maxd_a - maxd_now[None, :]))
         else:  # literal Fig 8: minimize the post-allocation average
             score = 0.5 * (cache_a + maxd_a)
@@ -278,7 +353,7 @@ class _TraceLoop:
         ``server``, ``wtype`` and ``sign`` have shape [1].
         """
         T = self.T
-        st.counts.index_put_((server, wtype), sign, accumulate=True)
+        st.counts.index_put_((server, wtype), st.counts[server, wtype] + sign)
         sums = (st.counts[server][:, None, :] @ self.tables[server])[:, 0]  # [1, 3T+1]
         st.comp.index_copy_(0, server, sums[:, 3 * T])
         st.col0.index_copy_(0, server, sums[:, :T])
@@ -286,144 +361,242 @@ class _TraceLoop:
         st.colog_lost.index_copy_(0, server, sums[:, 2 * T:3 * T])
 
     def place_if(self, st, found, idx, server, wtype, nbytes, t, queue_on_fail):
-        """Commit arrival ``idx`` to ``server`` when ``found``, else queue it
-        (``queue_on_fail``) or leave it as it is. All index arguments have
-        shape [1]; ``idx`` may be n (no candidate) when not ``found``."""
+        """Commit arrival ``idx`` to ``server`` where ``found``; where not,
+        queue it where ``queue_on_fail`` (a bool or a mask), else change
+        nothing. ``idx`` may be n (no candidate) when not ``found``."""
         server = torch.where(found, server, 0)
         self.apply_delta(st, server, wtype, found.to(torch.float32))
         # first free slot; K == n, so one exists whenever found
-        k = (st.slot_type[server][0] < 0).to(torch.int32).argmax().reshape(1)
+        k = (st.slot_type[server] < 0).to(torch.int32).argmax(-1)
         _put_if(st.slot_type, (server, k), wtype, found)
         _put_if(st.slot_rem, (server, k), nbytes, found)
         _put_if(st.slot_arr, (server, k), idx, found)
         i = idx.clamp(max=self.n - 1)
-        if queue_on_fail:
-            st.queued.index_put_((i,), ~found)
-            st.was_queued.index_put_((i,), st.was_queued[i] | ~found)
-        else:
-            _put_if(st.queued, (i,), torch.zeros_like(found), found)
+        fail = queue_on_fail & ~found
+        _put_if(st.queued, (i,), fail, found | fail)  # placed: off the queue
+        _put_if(st.was_queued, (i,), fail, fail)
         _put_if(st.placement, (i,), server, found)
         _put_if(st.place_time, (i,), t.reshape(1), found)
 
-    def advance(self, st, rates, dt):
-        active = st.slot_type >= 0
-        st.slot_rem = torch.where(
-            active, torch.clamp(st.slot_rem - rates * dt, min=0.0), st.slot_rem)
+    def advance(self, st, rate, rates, overflow, dt, moving):
+        """Run every slot for ``dt`` where ``moving`` (a FINISH or an ARRIVE
+        step), and integrate each running arrival's telemetry over it."""
+        adv = (st.slot_type >= 0) & moving
+        st.slot_rem.copy_(torch.where(
+            adv, torch.clamp(st.slot_rem - rates * dt, min=0.0), st.slot_rem))
         if self.telemetry:
-            # integrate each running workload's co-resident counts, TDP
-            # exposure and log instantaneous rate over [now, now + dt), as
-            # the JAX engine does. Its scatter drops inactive slots at index
-            # n; here they land in the dump row n. Each arrival holds at most
-            # one slot, so every real row takes at most one add: no duplicate
-            # indices, and the sum does not depend on the add's order.
-            m, K, T = self.m, self.K, self.T
-            idx = torch.where(active, st.slot_arr, self.n).reshape(-1).long()  # [m K]
-            own = self.arange_T == st.slot_type.clamp(min=0)[:, :, None]  # [m, K, T]
-            co = torch.clamp(st.counts[:, None, :] - own.to(st.counts.dtype), min=0.0)
-            overflow = (st.comp > self.dyn.tol_budget).to(st.counts.dtype)  # [m]
-            logr = torch.log(torch.where(active, rates, 1.0))
-            st.obs_co.index_add_(0, idx, dt * co.reshape(-1, T))
-            st.obs_lost.index_add_(0, idx, dt * overflow[:, None].expand(m, K).reshape(-1))
-            st.obs_logr.index_add_(0, idx, dt * logr.reshape(-1))
+            # per arrival, as the JAX engine integrates per run slot: each
+            # running arrival holds one slot on its server, whose co-resident
+            # counts, TDP exposure and log rate it takes over [now, now + dt)
+            running = moving & (st.placement >= 0) & torch.isinf(st.finish_time)  # [n]
+            srv = st.placement.clamp(min=0).long()
+            co = torch.clamp(st.counts[srv] - self.own, min=0.0)  # [n, T]
+            lost = overflow.to(torch.float32)[srv]
+            logr = torch.log(rate[srv, self.arr_type])
+            st.obs_co.copy_(torch.where(running[:, None], st.obs_co + dt * co, st.obs_co))
+            st.obs_lost.copy_(torch.where(running, st.obs_lost + dt * lost, st.obs_lost))
+            st.obs_logr.copy_(torch.where(running, st.obs_logr + dt * logr, st.obs_logr))
 
-    # -- the three micro-events -------------------------------------------------
-    def drain_branch(self, st, rates, tt):
+    # -- the three micro-events, each under its mask ---------------------------
+    def drain_branch(self, st, on=None, pick=None):
+        """Place the first feasible queued arrival. ``on`` masks the branch
+        (None: always); ``pick`` is the step's per-type choice (None: score
+        now)."""
+        W = self.W
+        if on is None:
+            on = torch.ones((), dtype=torch.bool, device=self.device)
+        servers, ok = self.pick_types(st) if pick is None else pick
         # Queue order == arrival order (workloads are never re-queued), so the
-        # first feasible *queued arrival index* is the item the oracle places.
-        n, W = self.n, self.W
+        # first feasible *queued arrival index* is the item the oracle places:
+        # the window of the first W queued finds it when its rank is <= W,
+        # the whole-queue rescan otherwise
+        cand = st.queued & ok[self.arr_type]
+        found = cand.any().reshape(1)
+        q = cand.to(torch.int32).argmax().reshape(1)
         pos = torch.cumsum(st.queued, 0)  # 1-based rank among queued
-        qlen = pos[-1]
-        # arrival indices of the first W queued items (n where fewer than W):
-        # the first index whose rank reaches r is the r-th queued item
-        widx = torch.searchsorted(pos, self.ranks)  # [W] in [0, n]
-        servers_w, ok_w = self.greedy_pick(st, self.arr_type[widx.clamp(max=n - 1)])
-        ok_w &= widx < n
-        found_w = ok_w.any().reshape(1)
-        w_first = ok_w.to(torch.int32).argmax().reshape(1)
-        full = bool(~found_w & (qlen > W))  # host read: rescan the whole queue?
-        self.syncs += 1
-        if full:
-            # every window candidate failed but more are queued: score them all
-            self.full_scans += 1
-            servers, ok = self.greedy_pick(st, self.arr_type)  # [n]
-            cand = st.queued & ok
-            q = cand.to(torch.int32).argmax().reshape(1)
-            server, found = servers[q], cand.any().reshape(1)
-        else:
-            q, server, found = widx[w_first], servers_w[w_first], found_w
-        qc = q.clamp(max=n - 1)
-        self.place_if(st, found, q, server, self.arr_type[qc].long(),
-                      self.arr_bytes[qc], st.now, queue_on_fail=False)
+        full = ~(found & (pos[q] <= W)) & (pos[-1] > W)
+        st.full_scans.add_((on & full[0]).to(torch.int32))
+        wq = self.arr_type[q]
+        self.place_if(st, found & on, q, servers[wq], wq, self.arr_bytes[q], st.now,
+                      queue_on_fail=False)
         no_active = ~(st.slot_type >= 0).any()
-        if st.ai >= n:  # deadlock: nothing runs, nothing arrives, the queue is stuck
-            st.deadlock |= ~found[0] & no_active & st.queued.any()
-        st.draining = found[0]
+        # deadlock: nothing runs, nothing arrives, the queue is stuck
+        dead = ~found[0] & no_active & (st.ai >= self.n_valid) & st.queued.any()
+        st.deadlock.copy_(st.deadlock | (on & dead))
+        st.draining.copy_(torch.where(on, found[0], st.draining))
 
-    def finish_branch(self, st, rates, tt):
+    def finish_branch(self, st, on, k_flat, t_fin):
+        """Free the slot ``k_flat`` (flat (server, slot) index) at ``t_fin``."""
+        s_fin, k_fin = k_flat // self.K, k_flat % self.K
+        idx = st.slot_arr[s_fin, k_fin].long().clamp(min=0)
+        wtype = st.slot_type[s_fin, k_fin].long().clamp(min=0)
+        self.apply_delta(st, s_fin, wtype, torch.where(on, -1.0, 0.0).reshape(1))
+        _put_if(st.slot_type, (s_fin, k_fin), self.free_slot, on)
+        _put_if(st.slot_arr, (s_fin, k_fin), self.free_slot, on)
+        _put_if(st.finish_time, (idx,), t_fin.reshape(1), on)
+        st.makespan.copy_(torch.where(on, t_fin, st.makespan))
+        # §V: completion may unblock the queue
+        st.draining.copy_(torch.where(on, st.queued.any(), st.draining))
+
+    def arrive_branch(self, st, on, pick, a, t_arr):
+        """Run the Fig-8 greedy on arrival ``a`` at ``t_arr``; queue it if no
+        server passes both criteria."""
+        servers, ok = pick
+        wtype = self.arr_type[a]
+        self.place_if(st, ok[wtype] & on, a, servers[wtype], wtype, self.arr_bytes[a], t_arr,
+                      queue_on_fail=on)
+        st.ai.add_(on.to(torch.int32))
+
+    # -- the loop ---------------------------------------------------------------
+    def is_done(self, st):
+        return st.deadlock | ((st.ai >= self.n_valid) & ~(st.slot_type >= 0).any()
+                              & ~st.queued.any())
+
+    def step(self, st) -> None:
+        """One micro-event (JAX's ``event_step``): pick DRAIN, FINISH or
+        ARRIVE on the device and commit that branch's writes."""
+        n = self.n
+        active = st.slot_type >= 0
+        overflow = st.comp > self.tol_budget
+        rate = _rate_table(self.solo, self.base_lost, self.ldiag_keep, self.ldiag_lost,
+                           overflow, st.colog_keep, st.colog_lost)  # [m, T]
+        rates = torch.gather(rate, 1, st.slot_type.clamp(min=0).long())  # [m, K]
+        tt = torch.where(active, st.slot_rem / rates, torch.inf)
         # margin argmin: exactly-simultaneous completions (identical workloads
         # on same-spec servers) must resolve lowest-server-first like the
         # oracle's event loop; f32 noise would otherwise order them arbitrarily
         flat = tt.reshape(-1)
         t_min = flat.min()
         k_flat = (flat <= t_min * (1.0 + 1e-5)).to(torch.int32).argmax().reshape(1)
-        s_fin, k_fin = k_flat // self.K, k_flat % self.K
+        any_active = active.any()
+        queue_any = st.queued.any()
+        arrived_all = st.ai >= self.n_valid
+        a = st.ai.clamp(max=n - 1).long().reshape(1)
+        t_arr = torch.where(arrived_all, self.inf, self.arr_time[a][0])
+        done = st.deadlock | (arrived_all & ~any_active & ~queue_any)
+        live = ~done & (st.events < self.n_steps)
+        drain_next = st.draining | (queue_any & ~any_active & arrived_all)
+        finish_next = any_active & (st.now + t_min <= t_arr)
+        drain = live & drain_next
+        finish = live & ~drain_next & finish_next
+        arrive = live & ~drain_next & ~finish_next
+        st.events.add_(live.to(torch.int32))
+        # observed (ground-truth) degradation of the running set, for audits
+        deg = torch.where(st.counts > 0, 1.0 - rate / self.solo, -torch.inf)
+        st.max_deg.copy_(torch.where(live, torch.maximum(st.max_deg, deg.max()), st.max_deg))
+        pick = self.pick_types(st)  # advancing time leaves the scores as they are
         t_fin = st.now + flat[k_flat][0]
-        self.advance(st, rates, t_fin - st.now)
-        idx = st.slot_arr[s_fin, k_fin].long()
-        wtype = st.slot_type[s_fin, k_fin].long()
-        self.apply_delta(st, s_fin, wtype, torch.full_like(t_fin.reshape(1), -1.0))
-        st.now = t_fin
-        st.makespan = t_fin
-        st.slot_type.index_put_((s_fin, k_fin), self.free_slot)
-        st.slot_arr.index_put_((s_fin, k_fin), self.free_slot)
-        st.finish_time.index_put_((idx,), t_fin.reshape(1))
-        st.draining = st.queued.any()  # §V: completion may unblock the queue
+        t_next = torch.where(finish, t_fin, torch.where(arrive, t_arr, st.now))
+        self.advance(st, rate, rates, overflow, t_next - st.now, finish | arrive)
+        st.now.copy_(t_next)
+        self.finish_branch(st, finish, k_flat, t_fin)
+        self.arrive_branch(st, arrive, pick, a, t_arr)
+        self.drain_branch(st, drain, pick)
 
-    def arrive_branch(self, st, rates, tt):
-        ai = st.ai
-        t_arr = self.arr_time[ai]
-        self.advance(st, rates, t_arr - st.now)
-        st.now = t_arr
-        wtype = self.arr_type[ai:ai + 1]
-        servers, ok = self.greedy_pick(st, wtype)
-        self.place_if(st, ok, self.arange_n[ai:ai + 1], servers, wtype.long(),
-                      self.arr_bytes[ai:ai + 1], t_arr, queue_on_fail=True)
-        st.ai = ai + 1
+    def block(self) -> None:
+        """S micro-events, then the status the host reads: (done, deadlock,
+        events, full rescans)."""
+        st = self.st
+        for _ in range(self.S):
+            self.step(st)
+        done = self.is_done(st) | (st.events >= self.n_steps)
+        self.status.copy_(torch.stack([done.to(torch.int32), st.deadlock.to(torch.int32),
+                                       st.events, st.full_scans]))
 
-    # -- the loop ---------------------------------------------------------------
-    def run(self, n_steps: int) -> EngineTrace:
-        n, dyn = self.n, self.dyn
-        st = EngineState.zeros(self.m, self.T, n, self.cluster.device)
-        branches = (self.drain_branch, self.finish_branch, self.arrive_branch)
-        events = 0
-        for _ in range(n_steps):
-            overflow = st.comp > dyn.tol_budget
-            rates = _slot_rates(dyn, self.ldiag_keep, self.ldiag_lost, overflow,
-                                st.colog_keep, st.colog_lost, st.slot_type)
-            active = st.slot_type >= 0
-            any_active = active.any()
-            queue_any = st.queued.any()
-            arrived_all = st.ai >= n
-            tt = torch.where(active, st.slot_rem / rates, torch.inf)
-            t_fin = st.now + tt.min()
-            t_arr = self.inf if arrived_all else self.arr_time[st.ai]
-            done = st.deadlock | (arrived_all & ~any_active & ~queue_any)
-            drain = st.draining | (queue_any & ~any_active & arrived_all)
-            branch = torch.where(drain, 0, torch.where(any_active & (t_fin <= t_arr), 1, 2))
-            is_done, b = torch.stack([done.to(torch.int64), branch]).tolist()
-            self.syncs += 1
-            if is_done:
+    def _capture(self) -> None:
+        """Warm a block up on a side stream (the kernel library's load, the
+        allocator's blocks, cuBLAS), then capture it. The wrappers count a
+        launch at capture, where nothing runs: those counts move to the
+        per-replay tally. Raises if capture fails: there is no eager
+        fallback on the card."""
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self.block()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = collections.Counter(kc.LAUNCHES)
+        with torch.cuda.graph(graph):
+            self.block()
+        tally = collections.Counter(kc.LAUNCHES)
+        tally.subtract(before)
+        self.tally = +tally
+        for key, count in self.tally.items():
+            kc.LAUNCHES[key] -= count
+            if not kc.LAUNCHES[key]:
+                del kc.LAUNCHES[key]
+        self.graph = graph
+
+    def run(self) -> EngineTrace:
+        """The loaded trace to completion: blocks until the status read says
+        done, at most ``ceil(n_steps / S)``; outputs copied out of the state."""
+        st = self.st
+        on_card = self.device.type == "cuda"
+        if on_card and self.graph is None:
+            st.reset()
+            self._capture()
+        st.reset()
+        reads = 0
+        for _ in range(-(-self.n_steps // self.S)):
+            if on_card:
+                self.graph.replay()
+                kc.LAUNCHES.update(self.tally)
+            else:
+                self.block()
+            done, _, events, full_scans = self.status.tolist()
+            reads += 1
+            if done:
                 break
-            # observed (ground-truth) degradation of the running set, for audits
-            solo = torch.gather(dyn.solo, 1, st.slot_type.clamp(min=0).long())
-            deg = torch.where(active, 1.0 - rates / solo, -torch.inf)
-            st.max_deg = torch.maximum(st.max_deg, deg.max())
-            branches[b](st, rates, tt)
-            events += 1
-        return EngineTrace(st.placement, st.was_queued, st.place_time, st.finish_time,
-                           st.makespan, st.max_deg, st.deadlock, st.obs_co[:n],
-                           st.obs_lost[:n], st.obs_logr[:n],
-                           LoopStats(events, self.syncs, self.full_scans))
+        return EngineTrace(
+            st.placement.clone(), st.was_queued.clone(), st.place_time.clone(),
+            st.finish_time.clone(), st.makespan.clone(), st.max_deg.clone(),
+            st.deadlock.clone(), st.obs_co.clone(), st.obs_lost.clone(), st.obs_logr.clone(),
+            LoopStats(events, reads, full_scans, self.S))
+
+
+def trace_segment(
+    cluster: PackedCluster,
+    dyn: PackedDynamics,
+    arr_time: torch.Tensor,  # f32[n], non-decreasing over the first n_valid
+    arr_type: torch.Tensor,  # i32[n] grid types
+    arr_bytes: torch.Tensor,  # f32[n] data_total per arrival
+    n_valid: int | torch.Tensor,  # arrivals actually present (<= n)
+    *,
+    objective: str = "sum_avg",
+    scorer: Scorer | None = None,
+    n_steps: int | None = None,
+    telemetry: bool = False,
+    cache: dict | None = None,
+) -> EngineTrace:
+    """Body of :func:`run_trace`, with an arrival count apart from the shape.
+
+    ``n = arr_time.shape[0]`` is the static capacity (slot counts, the step
+    budget ``4n + 8``, sentinels), while ``n_valid`` (an int or a 0-d int32
+    tensor on the device) bounds how many arrivals the event loop consumes.
+    Rows past ``n_valid`` never arrive, so their outputs keep the initial
+    sentinels (placement QUEUED, finish inf, zero telemetry), and
+    ``n_valid = 0`` finishes at step 0. A trace padded to a larger capacity
+    places exactly as the unpadded one: finish ties break in flat (server,
+    slot) order, which more slots per server keep.
+
+    ``cache`` (a dict the caller keeps) holds one loop per shape (m, n, T,
+    device, degradation limit, objective, scorer, n_steps, telemetry), with
+    its static buffers and, on the card, its captured graph; a hit copies
+    this trace's inputs into it, as JAX compiles once per shape.
+    """
+    n = int(arr_time.shape[0])
+    n_steps = 4 * n + 8 if n_steps is None else int(n_steps)
+    key = (cluster.m, n, cluster.T, str(cluster.device), cluster.degradation_limit,
+           objective, scorer, n_steps, bool(telemetry))
+    loop = None if cache is None else cache.get(key)
+    if loop is None:
+        loop = _TraceLoop(cluster, dyn, arr_time, arr_type, arr_bytes, objective, scorer,
+                          bool(telemetry), n_valid=n_valid, n_steps=n_steps)
+        if cache is not None:
+            cache[key] = loop
+    else:
+        loop.load(cluster, dyn, arr_time, arr_type, arr_bytes, n_valid)
+    return loop.run()
 
 
 def run_trace(
@@ -440,12 +613,15 @@ def run_trace(
     metrics: bool = False,
     record: bool = False,
     axis=None,
+    cache: dict | None = None,
 ) -> EngineTrace:
-    """Run one arrival trace to completion.
+    """Run one arrival trace to completion: :func:`trace_segment` with
+    ``n_valid = n``.
 
-    Every iteration is one micro-event; 4n + 8 steps are enough (n arrivals,
+    Every step is one micro-event; 4n + 8 steps are enough (n arrivals,
     <= n completions, <= n successful drain placements, and one failed drain
-    check per completion), and the loop stops once all work has completed.
+    check per completion), and the loop stops after the block in which all
+    work has completed.
 
     Placements and queue decisions reproduce the float64 oracle: canonical
     per-server sum refreshes keep same-spec servers bitwise-tied, and
@@ -454,8 +630,8 @@ def run_trace(
 
     ``scorer=None`` uses the loop's incremental evaluation of the shared
     scoring contract from its maintained sums; an explicit scorer (e.g. the
-    CUDA kernel via ``engine.make_scorer('cuda')``) scores every candidate
-    batch instead.
+    CUDA kernel via ``engine.make_scorer('cuda')``) scores every grid type
+    once per step instead.
 
     ``telemetry=True`` additionally accumulates, per arrival, the
     time-integrated co-resident type counts, time past the physical TDP and
@@ -464,13 +640,12 @@ def run_trace(
     The JAX engine's ``metrics``, ``record`` and ``axis`` paths are not
     ported yet and raise.
     """
-    for flag, name in ((metrics, "metrics"), (record, "record"),
-                       (axis is not None, "axis")):
+    for flag, name, item in ((metrics, "metrics", "7"), (record, "record", "7"),
+                             (axis is not None, "axis", "8")):
         if flag:
-            raise NotImplementedError(f"run_trace({name}=...) is not ported yet")
+            raise NotImplementedError(
+                f"run_trace({name}=...) is not ported yet (ROADMAP Queue 1, item {item})")
     n = int(arr_time.shape[0])
-    if n_steps is None:
-        n_steps = 4 * n + 8
-    loop = _TraceLoop(cluster, dyn, arr_time, arr_type, arr_bytes, objective, scorer,
-                      telemetry)
-    return loop.run(n_steps)
+    return trace_segment(cluster, dyn, arr_time, arr_type, arr_bytes, n,
+                         objective=objective, scorer=scorer, n_steps=n_steps,
+                         telemetry=telemetry, cache=cache)

@@ -55,7 +55,10 @@ def consolidation_scores_torch(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: (cache_after, maxd_after), [Q, m]."""
     T = counts.shape[1]
-    onehot = torch.nn.functional.one_hot(wtypes.long(), T).to(counts.dtype)  # [Q, T]
+    # one-hot by comparison: one_hot() reads the types' range back to the
+    # host on the CPU, and this runs inside the event loop's blocks
+    types = torch.arange(T, device=counts.device)
+    onehot = (wtypes.long()[:, None] == types[None, :]).to(counts.dtype)  # [Q, T]
     c = counts[:, None, :] + onehot[None, :, :]  # [m, Q, T]
     comp = (c * rs).sum(-1) + (c * fs_resident[:, None, :]).sum(-1)  # [m, Q]
     cache = comp / llc_budget[:, None]

@@ -24,6 +24,7 @@ from repro_torch.core import ConsolidationEngine as TorchEngine
 from repro_torch.telemetry import ObservationLog, StreamingEstimator
 from repro_torch.telemetry import drift as tdrift
 from test_telemetry import _POOL, T, _pair_trace, _replayed_trace
+from test_torch_engine import one_intra_op_thread  # noqa: F401  -- autouse
 from test_torch_telemetry import _to_port
 
 #: estimated D after each segment, port vs JAX (float64 estimators fed logs

@@ -39,6 +39,17 @@ def _port(specs):
     return [{M1: TM1, M2: TM2}[s] for s in specs]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """One intra-op thread per module: the engine's CPU blocks are hundreds
+    of small ops per step, where a thread team per op costs more than it
+    saves, and far more when test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def rack16():
     """16-server rack (alternating M1/M2): the JAX engine and the port's, one

@@ -32,6 +32,7 @@ from repro_torch.telemetry import (EstimatorBank, ObservationRing, RingBlock,
 from repro_torch.telemetry.estimator import DeviceEstimatorState
 from test_engine import _trace
 from test_telemetry import _POOL, T, _obs_batch
+from test_torch_engine import one_intra_op_thread  # noqa: F401  -- autouse
 from test_torch_telemetry import CASES, PORT, _both_traces, _to_port
 
 #: the fused float32 step against JAX's and against the float64 host path

@@ -30,6 +30,7 @@ from repro_torch.telemetry import drift as tdrift
 from repro_torch.telemetry import observations_from_trace
 from test_engine import _trace
 from test_telemetry import T, _pair_trace, _synthetic_batch, _truth
+from test_torch_engine import one_intra_op_thread  # noqa: F401  -- autouse
 
 PORT = {M1: TM1, M2: TM2}
 LOG_FIELDS = [f.name for f in dataclasses.fields(JaxLog)]
