@@ -10,7 +10,9 @@ hand-written CUDA flash attention, with RWKV6, whose WKV recurrence runs
 through the hand-written CUDA scan, and with the Jamba hybrid, whose Mamba
 layers run their selective scan through the hand-written CUDA
 ``mamba_scan`` and whose attention layers take a sliding window in the
-flash kernel -- in thirteen phases:
+flash kernel, and the fleet-health plane with the fused closed loop, whose
+CUSUM scan and action loops are hand-written CUDA (``cusum_scan``,
+``fleet_actions``) -- in fourteen phases (14 runs after 7):
 
   1. environment: torch and CUDA versions, the card's name and power limit;
   2. build: nvcc builds every kernel under ``src/repro_torch/kernels/csrc``;
@@ -154,7 +156,24 @@ flash kernel -- in thirteen phases:
      decode ms per step, tokens/s, peak memory, device kernels per decode
      step and both kernels' shares of device time; a SMOKE run at float32
      compute with an 80-token prompt (past SMOKE's window of 64) with the
-     same tokens on the card as on the CPU.
+     same tokens on the card as on the CPU;
+ 14. the fleet-health plane and the fused closed loop:
+     ``AdaptiveEngine(fleet=FleetController())`` at rack width (64 servers,
+     8 segments of 256 arrivals from the prior 0.0, server 5 in a gradual
+     decay) on the host-alternating path and through
+     ``run(device_loop=True)``: placements, queue decisions, health events
+     (kind, server, segment), observations, pool routing, active masks and
+     the ring total must be identical, D and the CUSUM state within 1e-5,
+     an eviction must requeue work into the next segment, and every
+     ``cusum_scan`` launch (bit for bit) and ``fleet_actions`` launch
+     (equal outputs) of both runs is held to its plain version on its own
+     inputs; each fused segment's body (all but its event loop) under
+     torch's sync debug mode set to "error", and the fused run again under
+     its warnings (every synchronizing call, by caller); then fleet width (1024 servers, 4
+     segments of 4096) on both paths, which must decide identically; wall
+     and loop reads per segment of both paths, both kernels' device ms
+     beside their plain versions and bounds (an acting and a quiet launch
+     of ``fleet_actions``).
 
 Then a JSON line with each kernel's numbers, the ``nvidia-smi`` name/power
 line, and a last JSON line ``{"ok": true, "device": {...}}``. Any failed
@@ -165,6 +184,7 @@ Imports nothing of JAX and nothing of the JAX package ``repro``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -184,6 +204,8 @@ BF16_FLOPS = 989e12
 #: boost clock (H100 SXM; Hopper tuning guide's throughput table)
 SFU_EX2_PER_S = 16 * 132 * 1.98e9
 TOL = 1e-5
+#: the numbers every row of the kernels line carries
+KERNEL_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
 #: grid types: the candidates the event loop scores per micro-event (Q = T)
 GRID_T = 230
 #: synchronizing calls of one engine run besides the loop's reads: the
@@ -1344,6 +1366,439 @@ def phase_adaptive(device, m: int = 64, segments: int = 8, per_segment: int = 25
                 score=sum(host["score"].values()) + sum(q_host["score"].values()),
                 refresh_host=host["refresh_ms"], refresh_stream=stream["refresh_ms"],
                 diverged=(stream["diverged"], q_stream["diverged"]))
+
+# --- phase 14: the fleet-health plane and the fused closed loop --------------
+
+#: fleet_actions vs cusum_scan records of one run: (entry, args, kwargs, outputs)
+ACTION_ENTRIES = ("cusum", "split", "evict")
+
+
+@contextlib.contextmanager
+def kernel_tape(tape: list):
+    """Record every cusum_scan and fleet_actions wrapper call the fleet plane
+    makes (inputs cloned before, outputs after), to hold each launch to its
+    plain version after the run. Adds device copies, no host read."""
+    from repro_torch.fleet import controller, detect
+
+    originals = {"cusum": (detect, "cusum_scan"), "split": (controller, "split_loop"),
+                 "evict": (controller, "evict_loop")}
+    saved = {}
+
+    def recording(entry, fn):
+        def call(*args, **kwargs):
+            keep = tuple(a.clone() if hasattr(a, "clone") else type(a)(*(x.clone() for x in a))
+                         for a in args)
+            out = fn(*args, **kwargs)
+            tape.append((entry, keep, kwargs, type(out)(*(x.clone() for x in out))))
+            return out
+        return call
+
+    for entry, (mod, name) in originals.items():
+        saved[entry] = getattr(mod, name)
+        setattr(mod, name, recording(entry, saved[entry]))
+    try:
+        yield tape
+    finally:
+        for entry, (mod, name) in originals.items():
+            setattr(mod, name, saved[entry])
+
+
+def check_tape(tape: list, label: str) -> dict:
+    """Each recorded launch against its plain version on the same inputs:
+    bitwise for cusum_scan, equal outputs for fleet_actions. Returns the
+    launches checked and the largest difference seen, by entry."""
+    import torch
+    from repro_torch.kernels import cusum as kcu
+    from repro_torch.kernels import fleet_actions as kfa
+
+    plain = {"cusum": kcu.cusum_scan_torch, "split": kfa.split_loop_torch,
+             "evict": kfa.evict_loop_torch}
+    checked, err = collections.Counter(), collections.Counter()
+    for i, (entry, args, kwargs, got) in enumerate(tape):
+        want = plain[entry](*args, **kwargs)
+        for name, a, b in zip(type(got)._fields, got, want):
+            gap = float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+            err[entry] = max(err[entry], gap)
+            check(torch.equal(a, b), f"{label}: {entry} launch {i} differs from its plain "
+                  f"version in {name} (max abs {gap:.3g})")
+        checked[entry] += 1
+    return dict(checked), dict(err)
+
+
+@contextlib.contextmanager
+def segment_body_sync_free():
+    """Run the fused loop's segment body (everything but the event loop:
+    ``closed_loop._assemble`` and ``_fold_segment``) under torch's sync
+    debug mode set to "error": a synchronizing call there -- a read, or a
+    tensor built from host data -- fails the phase."""
+    import torch
+    from repro_torch.core import closed_loop
+
+    saved = {name: getattr(closed_loop, name) for name in ("_assemble", "_fold_segment")}
+
+    def guarded(fn):
+        def call(*args, **kwargs):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kwargs)
+            except RuntimeError as err:
+                raise CheckFailed(f"fused segment body synchronized: {err}") from err
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return call
+
+    for name, fn in saved.items():
+        setattr(closed_loop, name, guarded(fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(closed_loop, name, fn)
+
+
+@contextlib.contextmanager
+def capture_clock(spent: list):
+    """Time every event-loop graph capture (a new engine, or a new shape,
+    captures once) between synchronizes: appends its seconds to ``spent``."""
+    import torch
+    from repro_torch.core import engine_torch
+
+    orig = engine_torch._TraceLoop._capture
+
+    def timed(loop):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        try:
+            return orig(loop)
+        finally:
+            torch.cuda.synchronize()
+            spent.append(time.perf_counter() - start)
+
+    engine_torch._TraceLoop._capture = timed
+    try:
+        yield spent
+    finally:
+        engine_torch._TraceLoop._capture = orig
+
+
+def reset_all_launches() -> None:
+    from repro_torch.kernels import consolidation as kc
+    from repro_torch.kernels import cusum as kcu
+    from repro_torch.kernels import fleet_actions as kfa
+    from repro_torch.kernels import telemetry as kt
+
+    for mod in (kc, kt, kcu, kfa):
+        mod.reset_launches()
+
+
+def read_all_launches() -> dict:
+    from repro_torch.kernels import consolidation as kc
+    from repro_torch.kernels import cusum as kcu
+    from repro_torch.kernels import fleet_actions as kfa
+    from repro_torch.kernels import telemetry as kt
+
+    return {"consolidation_scores": sum(kc.LAUNCHES.values()),
+            "pair_scatter": sum(kt.LAUNCHES.values()), "cusum_scan": sum(kcu.LAUNCHES.values()),
+            "fleet_actions": sum(kfa.LAUNCHES.values()),
+            "split": sum(v for k, v in kfa.LAUNCHES.items() if k[0] == "split"),
+            "evict": sum(v for k, v in kfa.LAUNCHES.items() if k[0] == "evict")}
+
+
+def fleet_health_run(servers, arrivals, segments: int, drift, device, device_loop: bool,
+                     tape: list | None = None, count: bool = False) -> dict:
+    """One adaptive run with ``FleetController`` on the host-alternating path or
+    the fused loop (``device_loop``), ``scorer='cuda'`` and ``scatter='cuda'``,
+    the launch counts zeroed just before it and read just after (the fused
+    run is the phase's main path). The host path stamps each segment's end
+    after a synchronize; the fused path has no host point between segments,
+    so its wall per segment is the run's over the segments; on the card its
+    segment body runs under ``segment_body_sync_free`` and every event-loop
+    capture is timed (``capture_clock``). ``count`` runs it under the sync
+    debug mode's warnings instead (``count_syncs``), with no clock."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import MeshConfig
+    from repro_torch.core import AdaptiveEngine
+    from repro_torch.fleet import FleetController
+
+    on_card = device.type == "cuda"
+    fleet = FleetController(mesh=MeshConfig())
+    eng = AdaptiveEngine(servers, drift=drift, scorer="cuda" if on_card else "torch",
+                         scatter="cuda" if on_card else "torch", device=device, prior=0.0,
+                         decay=0.997, fleet=fleet, ring_capacity=2 * len(arrivals) // segments)
+    stamps = []
+
+    def stamp(k, res, engine):
+        if on_card:
+            torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    if on_card:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if on_card else 0
+    reset_all_launches()
+    captures = []
+    with contextlib.ExitStack() as stack:
+        if tape is not None:
+            stack.enter_context(kernel_tape(tape))
+        if on_card and not count:
+            stack.enter_context(capture_clock(captures))
+        if device_loop and on_card and not count:
+            stack.enter_context(segment_body_sync_free())
+        t0 = time.perf_counter()
+        run = lambda: eng.run(arrivals, segments=segments, device_loop=device_loop,  # noqa: E731
+                              on_segment=None if device_loop else stamp)
+        if count:
+            got = []
+            synced = count_syncs(lambda: got.append(run()))
+            res = got[0]
+        else:
+            res, synced = run(), None
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_all_launches()
+    peak = torch.cuda.max_memory_allocated() - base if on_card else 0
+    walls = (np.diff([t0] + stamps).tolist() if stamps else [wall / segments] * segments)
+    n_seg = len(arrivals) // segments
+    for r in res.segments:
+        check_outputs(r, len(r.placements), "fleet health segment")
+        check(r.stats.host_syncs <= -(-(4 * 2 * n_seg + 8) // r.stats.block_steps)
+              or not device_loop, "fleet health: a fused segment read the host past its bound")
+    return dict(eng=eng, fleet=fleet, res=res, wall=wall, walls=walls, launches=launches,
+                peak=peak, syncs=[r.stats.host_syncs for r in res.segments], synced=synced,
+                engines=len(eng._engine_cache), captures=captures)
+
+
+def events_of(res) -> list:
+    return [(ev.kind, ev.server, ev.segment) for evs in res.health for ev in evs]
+
+
+def compare_fleet_paths(host: dict, fused: dict, label: str) -> tuple[float, float]:
+    """Decisions exact (placements, queueing, health events, observations,
+    routing, masks, ring), D and the detector state within 1e-5. Returns
+    the (D, detector) gaps."""
+    import numpy as np
+    import torch
+
+    h, f = host["res"], fused["res"]
+    for k, (a, b) in enumerate(zip(h.segments, f.segments)):
+        check(a.placements == b.placements, f"{label}: segment {k} places differently, "
+              f"first at arrival {first_divergence(a.placements, b.placements)}")
+        check(a.was_queued == b.was_queued, f"{label}: segment {k} queues differently")
+    check(events_of(h) == events_of(f), f"{label}: health events differ: {events_of(h)} vs "
+          f"{events_of(f)}")
+    check(h.n_obs == f.n_obs, f"{label}: observations used {h.n_obs} vs {f.n_obs}")
+    hf, ff = host["fleet"], fused["fleet"]
+    check(np.array_equal(hf.pool.row_of, ff.pool.row_of)
+          and np.array_equal(hf.pool._read_row, ff.pool._read_row),
+          f"{label}: pool routing differs")
+    check(np.array_equal(hf.active_mask(), ff.active_mask()), f"{label}: active masks differ")
+    check(host["eng"].ring.total == fused["eng"].ring.total, f"{label}: ring totals differ")
+    d_gap = max(float((a - b).abs().max()) for a, b in zip(hf.current_D(), ff.current_D()))
+    det_gap = max(float((a - b).abs().max()) for a, b in zip(hf.detector.state,
+                                                             ff.detector.state))
+    check(d_gap <= TOL and det_gap <= TOL, f"{label}: D within {d_gap:.3g}, detector within "
+          f"{det_gap:.3g} (limit {TOL})")
+    return d_gap, det_gap
+
+
+def requeues(res, n_seg: int) -> list[tuple[int, int]]:
+    """(segment of an eviction, arrivals requeued into the next segment)."""
+    out = []
+    for seg in sorted({s for kind, _, s in events_of(res) if kind == "evict"}):
+        if seg + 1 < len(res.segments):
+            out.append((seg, len(res.segments[seg + 1].placements) - n_seg))
+    return out
+
+
+def once_ms(fn, reps: int = 1) -> float:
+    """Median of ``reps`` timed calls after one warm call (CUDA events): for
+    the plain versions whose Python loops take too long for ``call_ms``."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def cusum_row(record, label: str) -> dict:
+    """Device times of one recorded cusum_scan launch's inputs: the kernel,
+    its plain version, and the bound (each row's 13 input bytes and the
+    state read and written once, over HBM; 13 fp32 operations per valid
+    row over the fp32 peak)."""
+    from repro_torch.kernels import cusum as kcu
+
+    _, args, kwargs, _ = record
+    state, server, row, resid, valid = args
+    B, m, rows = int(server.shape[0]), int(state.level.shape[0]), int(state.pool_level.shape[0])
+    ms = device_ms(lambda: kcu.cusum_scan(*args, **kwargs))
+    plain_ms = once_ms(lambda: kcu.cusum_scan_torch(*args, **kwargs))
+    nbytes = 13 * B + 2 * 4 * (4 * m + 2 * rows)
+    ops = 13 * int(valid.sum())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None,
+                shape=f"{label}: m={m} B={B} pool rows={rows}, {int(valid.sum())} valid rows")
+
+
+def actions_row(split_rec, evict_rec, label: str) -> dict:
+    """Device times of one recorded pair of fleet_actions launches (split,
+    then evict, on their recorded inputs): the kernel, the plain version and
+    the bound (the [m] inputs read once and outputs written once over HBM;
+    the acting steps' integer work -- 3 compares per server per acting step
+    -- over the fp32 peak of the CUDA cores)."""
+    from repro_torch.kernels import fleet_actions as kfa
+
+    s_args, e_args = split_rec[1], evict_rec[1]
+    m = int(s_args[1].shape[0])
+    ms = device_ms(lambda: (kfa.split_loop(*s_args), kfa.evict_loop(*e_args)))
+    plain = lambda: (kfa.split_loop_torch(*s_args), kfa.evict_loop_torch(*e_args))  # noqa: E731
+    plain_ms = once_ms(plain) if m > 256 else call_ms(plain, reps=5)
+    acting = int(s_args[0].sum()) + int(((e_args[0] | e_args[1]) & e_args[6]).sum())
+    fired = int(split_rec[3].fired.sum()) + int(evict_rec[3].fired.sum())
+    nbytes = 143 * m + 16
+    ops = 3 * m * acting
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None,
+                shape=f"{label}: m={m}, {acting} acting steps, {fired} actions, "
+                      f"take_slow={int(s_args[-1][0])}")
+
+
+def summarize_events(res) -> str:
+    """Splits and evictions per segment, and the first evicted servers."""
+    per = collections.Counter((kind, seg) for kind, _, seg in events_of(res))
+    segs = sorted({seg for _, seg in per})
+    evicted = [s for kind, s, _ in events_of(res) if kind == "evict"]
+    return (", ".join(f"segment {k}: {per[('split', k)]} splits {per[('evict', k)]} evictions"
+                      for k in segs) or "none"
+            ) + f"; evicted servers {evicted[:12]}{' ...' if len(evicted) > 12 else ''}"
+
+
+def describe_fleet_run(label: str, r: dict, n_seg: int) -> str:
+    res = r["res"]
+    return (f"[14 fleet health] {label}: wall {r['wall']:.3f} s, wall per segment s "
+            f"{[round(w, 3) for w in r['walls']]} (mean {r['wall'] / len(res.segments):.3f}), "
+            f"loop reads per segment {r['syncs']}, arrivals per segment "
+            f"{[len(s.placements) for s in res.segments]}, observations {list(res.n_obs)}, "
+            f"events: {summarize_events(res)}; launches {r['launches']}, segment engines built "
+            f"{r['engines']}, event-loop captures {len(r['captures'])} taking "
+            f"{sum(r['captures']):.3f} s, peak device memory above the run's start "
+            f"{r['peak'] / 2**20:.1f} MiB")
+
+
+def phase_fleet_health(device, rack_shape=(64, 8, 256), fleet_shape=(1024, 4, 4096),
+                       failing: int = 5) -> dict:
+    """The fleet-health plane and the fused closed loop (ROADMAP items 5 and
+    6): ``AdaptiveEngine(fleet=FleetController())`` on the host-alternating
+    path and through ``run(device_loop=True)`` on one trace, with server
+    ``failing`` in a ``gradual_decay``; at rack width every cusum_scan and
+    fleet_actions launch is held to its plain version and the two paths must
+    decide identically, evict ``failing`` and requeue work; at fleet width
+    decisions must be identical and every fused fleet_actions launch (and
+    the last cusum_scan launch) is held to its plain version. Returns the
+    kernel rows and counts."""
+    import torch
+    from repro_torch.telemetry import gradual_decay
+
+    on_card = device.type == "cuda"
+    out = {"launches": collections.Counter(), "checked": collections.Counter(),
+           "max_abs_err": collections.Counter()}
+    for label, (m, k, n), seed in (("rack", rack_shape, 13), ("fleet", fleet_shape, 17)):
+        servers = rack(m)
+        arrivals = trace(k * n, gap=1e-4 * 64 / m, seed=seed)
+        drift = gradual_decay(servers, server=failing, rate=0.65, start=1, segments=k)
+        run_label = f"m={m} {k}x{n} gradual decay of server {failing}"
+        tape_h, tape_f = [], []
+        host = fleet_health_run(servers, arrivals, k, drift, device, False,
+                                tape_h if label == "rack" else None)
+        fused = fleet_health_run(servers, arrivals, k, drift, device, True, tape_f)
+        print(describe_fleet_run(f"{run_label} host-alternating", host, n))
+        print(describe_fleet_run(f"{run_label} fused", fused, n))
+        d_gap, det_gap = compare_fleet_paths(host, fused, run_label)
+        req = requeues(fused["res"], n)
+        for name in ("consolidation_scores", "pair_scatter", "cusum_scan", "split", "evict"):
+            check(not on_card or fused["launches"][name] > 0,
+                  f"{run_label} fused: never launched {name}")
+        out["launches"].update({key: fused["launches"][key]
+                                for key in ("cusum_scan", "fleet_actions")})
+        evicted = [s for kind, s, _ in events_of(fused["res"]) if kind == "evict"]
+        if label == "rack":
+            check(failing in evicted, f"{run_label}: server {failing} was not evicted "
+                  f"(evicted {evicted})")
+            check(any(q > 0 for _, q in req), f"{run_label}: no eviction requeued work ({req})")
+            checked, err = check_tape(tape_h + tape_f, run_label)
+            out["checked"].update(checked)
+            for key, gap in err.items():
+                out["max_abs_err"][key] = max(out["max_abs_err"][key], gap)
+            syncs = None
+            if on_card:
+                # the fused run again under the sync debug mode: every
+                # synchronizing call, by caller
+                rerun = fleet_health_run(servers, arrivals, k, drift, device, True, count=True)
+                n_sync, where = rerun["synced"]
+                loop_reads = sum(rerun["syncs"])
+                syncs = (n_sync, where, loop_reads)
+                print(f"[14 fleet health] {run_label} fused rerun under the sync debug mode: "
+                      f"{n_sync} synchronizing calls, {loop_reads} of them the event loop's "
+                      f"block reads ({loop_reads / k:.1f} per segment), the rest the "
+                      f"prologue's copies and the epilogue's reads; by caller {where}")
+            out["rack"] = dict(host=host, fused=fused, syncs=syncs)
+        else:
+            # every fused fleet_actions launch and the last fused cusum_scan
+            # launch at fleet width against their plain versions too
+            cus = [rec for rec in tape_f if rec[0] == "cusum"]
+            acts = [rec for rec in tape_f if rec[0] != "cusum"]
+            checked, err = check_tape(cus[-1:] + acts, run_label)
+            out["checked"].update(checked)
+            for key, gap in err.items():
+                out["max_abs_err"][key] = max(out["max_abs_err"][key], gap)
+            out["fleet"] = dict(host=host, fused=fused)
+        print(f"[14 fleet health] {run_label}: server {failing} "
+              f"{'evicted' if failing in evicted else 'not evicted'}, {len(evicted)} of {m} "
+              f"servers evicted; host-alternating == fused (placements, queue "
+              f"decisions, events, observations, routing, masks, ring total); D within "
+              f"{d_gap:.3g}, detector within {det_gap:.3g}; evictions with requeue (segment, "
+              f"arrivals requeued) {req}; wall per segment host {host['wall'] / k:.3f} s vs "
+              f"fused {fused['wall'] / k:.3f} s; loop reads per segment host {host['syncs']} vs "
+              f"fused {fused['syncs']}")
+        if on_card:
+            cus = [rec for rec in tape_f if rec[0] == "cusum" and int(rec[1][4].sum()) > 0]
+            out[f"cusum_{label}"] = cusum_row(cus[-1], label)
+            splits = [rec for rec in tape_f if rec[0] == "split"]
+            evicts = [rec for rec in tape_f if rec[0] == "evict"]
+            busiest = max(range(len(splits)), key=lambda i: (
+                int(splits[i][3].fired.sum()) + int(evicts[i][3].fired.sum()),
+                int(splits[i][1][-1][0])))
+            out[f"actions_{label}"] = actions_row(splits[busiest], evicts[busiest], label)
+            quiet = [i for i in range(len(splits)) if int(splits[i][1][-1][0]) == 0]
+            if quiet:
+                out[f"actions_{label}_quiet"] = actions_row(splits[quiet[-1]], evicts[quiet[-1]],
+                                                            label + " quiet")
+            for key in (f"cusum_{label}", f"actions_{label}", f"actions_{label}_quiet"):
+                if key in out:
+                    r = out[key]
+                    print(f"[14 fleet health] {key.split('_')[0]} {r['shape']}: device ms "
+                          f"kernel {r['ms']:.5f} plain {r['plain_ms']:.3f} bound "
+                          f"{r['bound_ms']:.3g} by {r['bound_by']}, library none")
+        del tape_h, tape_f
+        if on_card:
+            free_card()
+    print(f"[14 fleet health] launches held to their plain versions {dict(out['checked'])}")
+    return out
+
 
 #: (label, B, Sq, Skv, H, Hkv, dh, causal, q_offset, window): the serving
 #: paths' shapes (tinyllama-1.1b and jamba-v0.1-52b, 8 requests, prompt
@@ -2693,6 +3148,7 @@ def main() -> int:
     fleet = phase_fleet(device)
     scatter = phase_pair_scatter(device)
     adaptive = phase_adaptive(device)
+    health = phase_fleet_health(device)
     flash = phase_flash(device)
     served = phase_serve(device)
     wkv = phase_rwkv_scan(device)
@@ -2738,6 +3194,27 @@ def main() -> int:
         "shapes": {label: {key: r[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                    "library_ms", "shape")}
                    for label, r in scatter["banked"].items() if label != "rack 256"},
+    }, {
+        "name": "cusum_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/cusum_scan.cu",
+        "replaces": "src/repro/fleet/detect.py:85 (_cusum_update's lax.scan; no pl.pallas_call)",
+        "launches": health["launches"]["cusum_scan"],
+        "max_abs_err": health["max_abs_err"]["cusum"],
+        **{key: health["cusum_rack"][key] for key in KERNEL_KEYS},
+        "fleet": {key: health["cusum_fleet"][key] for key in KERNEL_KEYS},
+        "launches_held_to_plain": health["checked"]["cusum"],
+    }, {
+        "name": "fleet_actions", "entries": "split, evict", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fleet_actions.cu",
+        "replaces": "src/repro/fleet/controller.py:223 (fleet_step's two lax.fori_loops; "
+                    "no pl.pallas_call)",
+        "launches": health["launches"]["fleet_actions"],
+        "max_abs_err": max(health["max_abs_err"]["split"], health["max_abs_err"]["evict"]),
+        **{key: health["actions_rack"][key] for key in KERNEL_KEYS},
+        **{name: {key: health[f"actions_{tag}"][key] for key in KERNEL_KEYS}
+           for name, tag in (("quiet", "rack_quiet"), ("fleet", "fleet"),
+                             ("fleet_quiet", "fleet_quiet")) if f"actions_{tag}" in health},
+        "launches_held_to_plain": health["checked"]["split"] + health["checked"]["evict"],
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -5,7 +5,7 @@
 the JAX package for the dense family, rwkv6 and jamba; ``registry.get_config``
 maps ``--arch`` ids to them.
 """
-from .base import SHAPES, ModelConfig
+from .base import SHAPES, MeshConfig, ModelConfig
 from .registry import ARCHS, SMOKES, get_config
 
-__all__ = ["ARCHS", "SHAPES", "SMOKES", "ModelConfig", "get_config"]
+__all__ = ["ARCHS", "SHAPES", "SMOKES", "MeshConfig", "ModelConfig", "get_config"]

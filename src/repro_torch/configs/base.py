@@ -2,8 +2,9 @@
 
 Fields keep their JAX names and defaults, so a configuration reads the same
 in both packages; ``param_dtype`` and ``compute_dtype`` are torch dtypes
-(float32 master weights, bf16 compute). The mesh configuration and the
-sharding rules are not copied: the port runs on one card.
+(float32 master weights, bf16 compute). ``MeshConfig`` is copied too: the
+fleet controller's re-mesh plans (``distributed.fault_tolerance``) take it.
+The sharding rules are not copied: the port runs on one card.
 """
 from __future__ import annotations
 
@@ -78,3 +79,19 @@ class ModelConfig:
     expert_fsdp: bool = True
     moe_combine_dtype: str = "f32"
     kv_cache_dtype: str = "bf16"  # bf16 | int8
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    multi_pod: bool = False
+    pods: int = 2
+    data: int = 16
+    model: int = 16
+
+    @property
+    def n_devices(self) -> int:
+        return (self.pods if self.multi_pod else 1) * self.data * self.model
+
+    @property
+    def dp(self) -> int:
+        return (self.pods if self.multi_pod else 1) * self.data

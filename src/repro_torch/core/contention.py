@@ -19,9 +19,15 @@ from typing import Sequence
 import numpy as np
 
 from .server import ServerSpec
-from .simulator import _BASELINE, _capacities, _demands, _sensitivity, throughput_after_cache
+from .simulator import (_BASELINE, _capacities, _demands, _sensitivity, competing_cache_bytes,
+                        throughput_after_cache)
 from .throughput import solo_throughput
-from .workload import Workload, grid_types
+from .workload import Workload, grid_types, type_index
+
+
+def tdp_lhs(server: ServerSpec, workloads: Sequence[Workload]) -> float:
+    """Eqn (2) LHS: competing data, excluding FS of workloads larger than LLC."""
+    return competing_cache_bytes(server, workloads)
 
 
 def type_tables(
@@ -155,3 +161,33 @@ def profile_pairwise_fast(server: ServerSpec, types: Sequence[Workload] | None =
     d = _pair_slowdown_grid(dem_i, dem_j, sens_j, cap)
     t_j = base_j * (1.0 - d)
     return 1.0 - t_j / solo[None, :]
+
+
+# --- Additive model (Eqn 3) ----------------------------------------------------
+
+def additive_degradation(D: np.ndarray, members: Sequence[int]) -> np.ndarray:
+    """Eqn (3): predicted D_j = sum_{i != j} D[i, j] for each member j.
+
+    ``members`` are profiling-grid type indices of the co-located set
+    (duplicates allowed -- N identical workloads is the Fig 3-4 case).
+    """
+    idx = np.asarray(members, dtype=int)
+    if idx.size == 0:
+        return np.zeros(0)
+    sub = D[np.ix_(idx, idx)]
+    col_sum = sub.sum(axis=0)
+    self_term = np.diagonal(sub)
+    return col_sum - self_term
+
+
+def predict_degradations(
+    D: np.ndarray, workloads: Sequence[Workload]
+) -> np.ndarray:
+    """Additive-model degradation prediction for concrete workloads.
+
+    Workloads are snapped to the profiling grid for D-matrix lookup, exactly
+    as the paper's scheduler consults previously collected D_{x,y}s (Fig 8).
+    Predictions are clipped to [0, 1): a degradation can't exceed 100%.
+    """
+    members = [type_index(w) for w in workloads]
+    return np.clip(additive_degradation(D, members), 0.0, 0.999999)

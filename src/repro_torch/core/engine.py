@@ -24,7 +24,10 @@ D-estimators (``repro_torch.telemetry``) and places each trace segment from
 the *estimated* D while the simulator stays ground truth -- through per-
 server logs (the host-alternating path) or, with ``stream=True``, through
 the device-resident observation stream and one banked estimator update per
-segment.
+segment. ``fleet=FleetController(...)`` adds the fleet-health control plane
+(pooling, drift detection, eviction and requeue), and ``run(device_loop=
+True)`` runs every segment through the fused closed loop
+(``core.closed_loop``) with no host decision between segments.
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ from .server import ServerSpec
 from .workload import FS_GRID, RS_GRID, Workload, type_index
 
 if TYPE_CHECKING:
+    from ..fleet import FleetController, HealthEvent
     from ..telemetry.drift import DriftSchedule
 
 ScorerName = Literal["cuda", "torch"]
@@ -327,6 +331,9 @@ class AdaptiveResult:
     segments: tuple[EngineResult, ...]
     n_obs: tuple[int, ...]  # observations consumed by the estimators per segment
     t_starts: tuple[float, ...]  # first arrival time per segment
+    #: fleet-health events fired after each segment (empty without a fleet
+    #: controller): splits and evictions, in the order they were taken
+    health: "tuple[tuple[HealthEvent, ...], ...]" = ()
 
     @property
     def makespans(self) -> tuple[float, ...]:
@@ -371,9 +378,18 @@ class AdaptiveEngine:
     estimators consume the segment's full block; the ring only bounds
     history.
 
-    The JAX package's fleet-health control plane (``fleet=``), fused loop
-    (``run(device_loop=True)``), metrics plane and decision recorder are not
-    ported yet and raise ``NotImplementedError``.
+    ``fleet=FleetController(...)`` puts the fleet-health control plane
+    (``repro_torch.fleet``) in the loop, implying ``stream=True``: the
+    controller binds to this engine's servers and estimators, same-spec
+    servers pool onto shared estimator rows, each segment's block feeds the
+    controller's CUSUM detector, and its decisions act on the next segment
+    -- split servers get their own seeded estimator, evicted servers are
+    masked out of candidate scoring (``set_active``), and their in-flight
+    work (placed on the evicted server in the detection segment, or never
+    placed) is requeued at the head of the next segment.
+
+    The JAX package's metrics plane and decision recorder are not ported
+    yet and raise ``NotImplementedError``.
     """
 
     def __init__(
@@ -391,7 +407,7 @@ class AdaptiveEngine:
         scatter: ScatterName = "cuda",
         stream: bool = False,
         ring_capacity: int = 4096,
-        fleet=None,
+        fleet: "FleetController | None" = None,
         *,
         device: str | torch.device | None = None,
     ):
@@ -404,12 +420,10 @@ class AdaptiveEngine:
         solo profile of the initial spec. ``scorer`` and ``scatter`` name the
         candidate-scoring and pair-statistic backends, ``device`` where the
         engines and estimators run (``None``: the card)."""
-        if fleet is not None:
-            raise NotImplementedError(
-                "AdaptiveEngine(fleet=...): the fleet-health control plane is "
-                "not ported yet (ROADMAP Queue 1, item 5)")
         self.device = resolve_device(device)
         self.servers = tuple(servers)
+        self.fleet = fleet
+        stream = stream or fleet is not None  # the control plane is stream-fed
         self.stream = stream
         self.ring = (ObservationRing(ring_capacity, GRID_T, device=self.device)
                      if stream else None)
@@ -418,13 +432,14 @@ class AdaptiveEngine:
         self.scorer = scorer
         self.drift = drift
         # segment-engine cache: under an unchanged world only the D-matrices
-        # move between segments, so the engine -- and with it the
-        # PackedDynamics tables -- is reused via set_D. Keyed by (specs,
-        # active-mask) like the JAX engine's (the mask is always None until
-        # the fleet plane is ported); PackedDynamics caches on specs alone,
-        # since drift schedules revisit worlds.
-        self._engine_cache: dict[tuple, ConsolidationEngine] = {}
+        # and the active mask move between segments, so the engine -- with
+        # its PackedDynamics tables and its event loops (captured graphs on
+        # the card) -- is reused via set_D, which swaps both. Keyed by specs
+        # alone: drift schedules revisit worlds (congest -> recover).
+        self._engine_cache: dict[tuple[ServerSpec, ...], ConsolidationEngine] = {}
         self._dyn_cache: dict[tuple[ServerSpec, ...], PackedDynamics] = {}
+        #: the fused loop's event loops per shape (their graphs on the card)
+        self._closed_loops: dict = {}
 
         priors: list[np.ndarray | float]
         if isinstance(prior, str):
@@ -456,38 +471,47 @@ class AdaptiveEngine:
             )
             for i, s in enumerate(self.servers)
         ]
-        #: stream mode refreshes every server's estimator in one fused step
-        self.bank = EstimatorBank(self.estimators) if stream else None
+        #: stream mode refreshes every server's estimator in one fused step;
+        #: with a fleet controller the controller's pooled bank is that step
+        #: (two banks over the same estimators would fight for their state)
+        if fleet is not None:
+            fleet.bind(self.servers, self.estimators)
+            self.bank = None
+        else:
+            self.bank = EstimatorBank(self.estimators) if stream else None
 
     # -- estimates --------------------------------------------------------
     def current_D(self) -> list[torch.Tensor]:
         """The per-server D-matrices (float64 tensors on the engine's device)
-        the next segment's placements will use."""
+        the next segment's placements will use; with a fleet controller they
+        resolve through the pool map (pooled servers share their pool's)."""
+        if self.fleet is not None:
+            return self.fleet.current_D()
         return [est.estimate_D() for est in self.estimators]
 
     def engine_for_segment(self, segment: int) -> ConsolidationEngine:
         """A ConsolidationEngine scoring with estimates over the true world.
 
-        Engines are cached across segments: while the specs are unchanged
-        only the estimated D moves, and ``set_D`` swaps it without rebuilding
-        the ground-truth dynamics. When drift changes the specs, the new
-        engine still reuses any previously built ``PackedDynamics`` for that
-        world (drift schedules revisit worlds: congest -> recover)."""
+        Engines are cached per world: while the specs are unchanged only the
+        estimated D and the fleet's active mask move, and ``set_D`` swaps
+        both without rebuilding the ground-truth dynamics or the event
+        loops. A new world reuses any ``PackedDynamics`` the fused loop
+        already built for it."""
         specs = (tuple(self.drift.specs_at(self.servers, segment))
                  if self.drift is not None else self.servers)
-        key = (specs, None)
-        engine = self._engine_cache.get(key)
+        mask = self.fleet.active_mask() if self.fleet is not None else None
+        engine = self._engine_cache.get(specs)
         if engine is not None:
-            engine.set_D(self.current_D())
+            engine.set_D(self.current_D(), active=mask)
             return engine
         engine = ConsolidationEngine(
             list(specs), D=self.current_D(), alpha=self.alpha,
-            objective=self.objective, scorer=self.scorer, device=self.device)
+            objective=self.objective, scorer=self.scorer, active=mask, device=self.device)
         if specs in self._dyn_cache:
             engine._dyn = self._dyn_cache[specs]
         else:
             self._dyn_cache[specs] = engine.dyn  # builds the tables once
-        self._engine_cache[key] = engine
+        self._engine_cache[specs] = engine
         return engine
 
     # -- the loop ---------------------------------------------------------
@@ -504,22 +528,46 @@ class AdaptiveEngine:
         """Alternate ``segments`` trace chunks with estimator refreshes.
 
         ``on_segment(k, result, self)`` fires after each segment's
-        observations have been folded in. ``device_loop``, ``metrics`` and
-        ``record`` are the JAX engine's fused loop, metrics plane and
-        decision recorder; they are not ported yet and raise.
+        observations have been folded in (and, with a fleet controller,
+        after its health actions). With a fleet controller, an eviction
+        requeues the evicted server's in-flight work: the detection
+        segment's arrivals that ran on it, plus any never-placed arrivals,
+        re-enter at the head of the next segment's chunk (an eviction in
+        the final segment has no next chunk).
+
+        ``device_loop=True`` runs the whole multi-segment cycle through the
+        fused closed loop (``core.closed_loop``): the same decisions and
+        final state, with no host read between segments beyond the event
+        loop's one per block. It requires stream mode, an arrival count
+        divisible by ``segments``, drift that leaves ``llc_bytes`` /
+        ``llc_tolerance`` alone, and no ``on_segment``. ``metrics`` and
+        ``record`` are the JAX engine's metrics plane and decision recorder;
+        they are not ported yet and raise.
         """
-        for flag, name, item in ((device_loop, "device_loop", "6"),
-                                 (metrics, "metrics", "7"), (record, "record", "7")):
+        for flag, name in ((metrics, "metrics"), (record, "record")):
             if flag:
                 raise NotImplementedError(
                     f"AdaptiveEngine.run({name}=True) is not ported yet "
-                    f"(ROADMAP Queue 1, item {item})")
+                    f"(ROADMAP Queue 1, item 7)")
+        if device_loop:
+            if on_segment is not None:
+                raise ValueError(
+                    "device_loop=True runs all segments without a host point "
+                    "between them; there is none for on_segment -- use the "
+                    "host-alternating path")
+            return self._run_device_loop(arrivals, segments)
         ordered = sorted(arrivals, key=lambda tw: tw[0])
         bounds = np.linspace(0, len(ordered), segments + 1).astype(int)
-        results, n_obs, t_starts = [], [], []
+        results, n_obs, t_starts, health = [], [], [], []
+        requeue: list[Workload] = []
         for k in range(segments):
             chunk = ordered[bounds[k]:bounds[k + 1]]
+            if requeue:
+                t0 = chunk[0][0] if chunk else 0.0
+                chunk = [(t0, w) for w in requeue] + chunk
+                requeue = []
             engine = self.engine_for_segment(k)
+            events: "tuple[HealthEvent, ...]" = ()
             if self.stream:
                 # the segment's rows go trace -> ring -> one banked update
                 # without a host log; the estimators consume the FULL block
@@ -528,9 +576,17 @@ class AdaptiveEngine:
                 used = 0
                 if res.stream_block is not None:
                     self.ring.push(res.stream_block)
-                    # the indexed table update: the dense form's values
-                    # without forming the [2, m, T, T] statistics
-                    used = self.bank.update_device(res.stream_block, sparse_tables=True)
+                    if self.fleet is not None:
+                        used, evs = self.fleet.observe(res.stream_block, segment=k)
+                        events = tuple(evs)
+                        evicted = {ev.server for ev in evs if ev.kind == "evict"}
+                        if evicted:
+                            requeue = [w for (_, w), p in zip(chunk, res.placements)
+                                       if p in evicted or p is None]
+                    else:
+                        # the indexed table update: the dense form's values
+                        # without forming the [2, m, T, T] statistics
+                        used = self.bank.update_device(res.stream_block, sparse_tables=True)
             else:
                 res = engine.run(chunk, telemetry=True)
                 used = sum(est.update(res.observations.for_server(s))
@@ -538,6 +594,184 @@ class AdaptiveEngine:
             results.append(res)
             n_obs.append(used)
             t_starts.append(chunk[0][0] if chunk else 0.0)
+            health.append(events)
             if on_segment is not None:
                 on_segment(k, res, self)
-        return AdaptiveResult(tuple(results), tuple(n_obs), tuple(t_starts))
+        return AdaptiveResult(tuple(results), tuple(n_obs), tuple(t_starts), tuple(health))
+
+    # -- the fused device-resident loop -----------------------------------
+    def _run_device_loop(self, arrivals: Sequence[tuple[float, Workload]],
+                         segments: int) -> AdaptiveResult:
+        """One ``run_closed_loop`` over the whole multi-segment run.
+
+        Host work is prologue (pack the arrivals and dynamics, snapshot the
+        live estimator, detector and pool state into the carry) and
+        epilogue (one read of every segment's outputs, then the final carry
+        mirrored into the host objects through
+        ``FleetController.adopt_device_outcome`` /
+        ``PooledEstimatorBank.adopt_rows``). Per-segment ``EngineResult`` s
+        carry no ``observations`` / ``stream_block``: the telemetry was
+        consumed on the device (the ring holds the bounded history).
+        """
+        from ..fleet.detect import CusumState
+        from .closed_loop import (ClosedLoopConfig, LoopCarry, SegmentIn, run_closed_loop,
+                                  stack_outputs)
+
+        if not self.stream:
+            raise ValueError("device_loop=True requires stream mode "
+                             "(stream=True or a fleet controller)")
+        n = len(arrivals)
+        if n == 0 or segments <= 0 or n % segments != 0:
+            raise ValueError(
+                f"device_loop=True needs a non-empty arrival trace divisible "
+                f"by segments (got {n} arrivals / {segments} segments); the "
+                f"host-alternating path handles ragged chunks")
+        m = len(self.servers)
+        n_seg = n // segments
+        R = n_seg  # requeue capacity: one segment's worth of in-flight work
+        if R + n_seg > self.ring.capacity:
+            raise ValueError(
+                f"segment size {n_seg} (+{R} requeue slots) exceeds the "
+                f"telemetry ring capacity {self.ring.capacity}")
+        e0 = self.estimators[0]
+        if any(e.confidence_floor != e0.confidence_floor for e in self.estimators):
+            raise ValueError("device_loop=True blends every row's D with one "
+                             "confidence_floor; estimators disagree")
+        dev = self.device
+
+        ordered = sorted(arrivals, key=lambda tw: tw[0])
+        times = np.asarray([t for t, _ in ordered], np.float64)
+        wtypes = np.asarray([type_index(w) for _, w in ordered], np.int32)
+        nbytes = np.asarray([w.data_total for _, w in ordered], np.float64)
+
+        # segments bucket to a power-of-two count (padding masked by
+        # seg_valid), as JAX buckets its compiled scan
+        S_cap = 4
+        while S_cap < segments:
+            S_cap *= 2
+        arr_time = np.zeros((S_cap, n_seg), np.float32)
+        arr_type = np.zeros((S_cap, n_seg), np.int32)
+        arr_bytes = np.ones((S_cap, n_seg), np.float32)
+        t0s = []
+        for k in range(segments):
+            sl = slice(k * n_seg, (k + 1) * n_seg)
+            t0 = float(times[k * n_seg])
+            t0s.append(t0)
+            arr_time[k] = times[sl] - t0
+            arr_type[k] = wtypes[sl]
+            arr_bytes[k] = nbytes[sl]
+
+        # per-segment worlds, deduplicated; the cluster's structural tables
+        # must hold for all of them
+        structural = [(s.llc_bytes, s.llc_tolerance) for s in self.servers]
+        spec_of: dict[tuple[ServerSpec, ...], int] = {}
+        dyn_idx = np.zeros(S_cap, np.int64)
+        for k in range(segments):
+            specs = (tuple(self.drift.specs_at(self.servers, k))
+                     if self.drift is not None else self.servers)
+            if [(s.llc_bytes, s.llc_tolerance) for s in specs] != structural:
+                raise ValueError(
+                    "device_loop=True keeps one cluster for all segments: "
+                    "drift may not change llc_bytes/llc_tolerance (run the "
+                    "host-alternating path for structural drift)")
+            dyn_idx[k] = spec_of.setdefault(specs, len(spec_of))
+        for specs in spec_of:
+            if specs not in self._dyn_cache:
+                self._dyn_cache[specs] = PackedDynamics.build(list(specs), device=dev)
+        dyn_stack = tuple(self._dyn_cache[s] for s in spec_of)
+        cluster = PackedCluster.build(list(self.servers),
+                                      torch.zeros((GRID_T, GRID_T), dtype=torch.float32,
+                                                  device=dev), self.alpha, device=dev)
+        Lp_t = torch.stack([e._L_prior.T for e in self.estimators]).contiguous()
+        logb_priors = torch.stack([e._logb_prior for e in self.estimators]).to(torch.float32)
+
+        scorer = None if self.scorer == "torch" else make_scorer(self.scorer)
+        h = e0._hypers
+        est_h = dict(lr=h["lr"], decay=h["decay"], step_damp=h["step_damp"],
+                     solo_eps=h["solo_eps"], est_max_lost_frac=h["max_lost_frac"],
+                     scatter=h["scatter"])
+        i32 = dict(dtype=torch.int32, device=dev)
+        queue = dict(req_type=torch.zeros(R, **i32),
+                     req_bytes=torch.ones(R, dtype=torch.float32, device=dev),
+                     req_n=torch.zeros((), **i32), ring=self.ring._buf,
+                     ring_ptr=torch.tensor(self.ring.ptr, **i32),
+                     ring_total=torch.tensor(self.ring.total, **i32))
+        fc = self.fleet
+        if fc is not None:
+            fc._require_bound()
+            config = ClosedLoopConfig(
+                objective=self.objective, scorer=scorer, fleet=True,
+                warmup_segments=fc.warmup_segments, cusum_k=fc.cusum_k, cusum_h=fc.cusum_h,
+                level_decay=fc.level_decay, fail_floor=fc.fail_floor,
+                min_exposure=fc.min_exposure, det_max_lost_frac=fc.max_lost_frac,
+                confidence_floor=float(e0.confidence_floor), **est_h)
+            carry0 = LoopCarry(
+                bank=fc.pool.bank.stacked_state(), det=fc.detector.state,
+                row_map=torch.from_numpy(fc.pool.row_of.astype(np.int32)).to(dev),
+                read_row=torch.from_numpy(fc.pool._read_row.astype(np.int32)).to(dev),
+                active=torch.from_numpy(fc._active.copy()).to(dev),
+                seen=torch.tensor(fc._segments_seen, **i32), **queue)
+        else:
+            config = ClosedLoopConfig(objective=self.objective, scorer=scorer, fleet=False,
+                                      confidence_floor=float(e0.confidence_floor), **est_h)
+            carry0 = LoopCarry(
+                bank=self.bank.stacked_state(), det=CusumState.zeros(m, device=dev),
+                row_map=torch.arange(m, **i32), read_row=torch.arange(m, **i32),
+                active=torch.ones(m, dtype=torch.bool, device=dev),
+                seen=torch.zeros((), **i32), **queue)
+        xs = SegmentIn(
+            arr_time=torch.from_numpy(arr_time).to(dev),
+            arr_type=torch.from_numpy(arr_type).to(dev),
+            arr_bytes=torch.from_numpy(arr_bytes).to(dev), dyn_idx=dyn_idx,
+            seg_valid=torch.from_numpy(np.arange(S_cap) < segments).to(dev))
+
+        final, outs = run_closed_loop(cluster, dyn_stack, Lp_t, logb_priors, carry0, xs, config,
+                                      cache=self._closed_loops)
+        ys, stats = stack_outputs(outs)
+
+        # failures surface before any state is adopted, leaving the host
+        # objects where they were (the failed run never happened)
+        if ys.deadlock[:segments].any():
+            raise Deadlock("deadlock: queued workloads fit no empty server")
+        if ys.req_overflow[:segments].any():
+            raise RuntimeError(
+                f"eviction requeued more than one segment's worth of work "
+                f"({R} slots); run the host-alternating path")
+
+        results, n_obs = [], []
+        for k in range(segments):
+            nv = int(ys.n_valid[k])
+            t0 = t0s[k]
+            placement = ys.placement[k][:nv]
+            pt = ys.place_time[k][:nv].astype(np.float64)
+            ft = ys.finish_time[k][:nv].astype(np.float64)
+            pt = np.where(pt >= 0.0, pt + t0, pt)
+            ft = np.where(np.isfinite(ft), ft + t0, ft)
+            results.append(EngineResult(
+                placements=tuple(int(p) if p != QUEUED else None for p in placement),
+                was_queued=tuple(bool(q) for q in ys.was_queued[k][:nv]),
+                place_times=tuple(float(t) for t in pt),
+                finish_times=tuple(float(t) for t in ft),
+                makespan=float(ys.makespan[k]) + t0,
+                max_observed_degradation=float(ys.max_deg[k]),
+                backend="torch", stats=stats[k]))
+            n_obs.append(int(ys.used[k]))
+
+        if fc is not None:
+            outcomes = [dict(segment=k, split_fired=ys.split_fired[k],
+                             split_stat=ys.split_stat[k], evict_fired=ys.evict_fired[k],
+                             evict_stat=ys.evict_stat[k], evict_route=ys.evict_route[k],
+                             active_after=ys.active_after[k])
+                        for k in range(segments)]
+            per_seg = fc.adopt_device_outcome(
+                final.bank, final.det, final.row_map.cpu().numpy(),
+                final.read_row.cpu().numpy(), final.active.cpu().numpy(), outcomes)
+            health = [tuple(evs) for evs in per_seg]
+        else:
+            self.bank._stacked = final.bank
+            self.bank._dirty = True
+            health = [() for _ in range(segments)]
+        self.ring._buf = final.ring
+        self.ring.ptr = int(final.ring_ptr)
+        self.ring.total = int(final.ring_total)
+        return AdaptiveResult(tuple(results), tuple(n_obs), tuple(t0s), tuple(health))

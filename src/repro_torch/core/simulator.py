@@ -21,9 +21,25 @@ engine's rate tables (``contention.type_tables``) are built from.
 """
 from __future__ import annotations
 
+from typing import Sequence
+
 from .server import ServerSpec
 from .throughput import amortized, level_of, level_params, solo_throughput
 from .workload import Workload
+
+
+def competing_cache_bytes(server: ServerSpec, workloads: Sequence[Workload]) -> float:
+    """LHS of Eqn (2): sum RS_i + sum_{FS_i <= CacheSize} FS_i.
+
+    Workloads whose FS exceeds the LLC do not compete for it (§IV.A) -- they
+    stream through -- so only their request buffers count.
+    """
+    total = 0.0
+    for w in workloads:
+        total += w.rs
+        if w.fs <= server.llc_bytes:
+            total += w.fs
+    return total
 
 
 def _demands(server: ServerSpec, w: Workload, t_base: float, lost_cache: bool) -> dict:

@@ -36,7 +36,7 @@ from .drift import (
 from .estimator import (DeviceEstimatorState, EstimatorBank, StreamingEstimator,
                         make_scatter)
 from .log import (ObservationLog, ObservationRing, RingBlock, block_from_log,
-                  observations_from_trace, rows_from_trace)
+                  observations_from_trace, ring_write_masked, rows_from_trace)
 
 __all__ = [
     "DeviceEstimatorState",
@@ -58,6 +58,7 @@ __all__ = [
     "merge_schedules",
     "observations_from_trace",
     "perturb_spec",
+    "ring_write_masked",
     "rows_from_trace",
     "scale_perf",
     "stochastic_congestion",

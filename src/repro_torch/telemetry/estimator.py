@@ -183,7 +183,7 @@ def _bank_core(
         # weights, so the confidence state does not depend on how the stream
         # is chunked
         rank = torch.cumsum(onehot_s.to(f32), dim=0)  # [B, m]
-        dec = torch.tensor(decay, dtype=f32, device=dev)
+        dec = torch.full((), decay, dtype=f32, device=dev)  # a fill, not a host copy
         w_bm = torch.where(onehot_s, torch.pow(dec, n_used[None, :].to(f32) - rank),
                            torch.zeros((), dtype=f32, device=dev))
         w = w_bm.sum(dim=1)  # [B]: a row has at most one bank-row column

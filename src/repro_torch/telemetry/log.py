@@ -226,6 +226,27 @@ def rows_from_trace(trace, arr_type: Sequence[int] | torch.Tensor,
     )
 
 
+def ring_write_masked(buf: RingBlock, block: RingBlock, ptr: torch.Tensor,
+                      n_valid: int | torch.Tensor) -> RingBlock:
+    """Masked modular ring write with a traced row count: rows [0, n_valid)
+    of ``block`` land at [ptr, ptr + n_valid) mod capacity and the rest are
+    dropped (JAX's ``_ring_write_masked``, whose scatter drops out-of-bounds
+    rows). ``ptr`` and ``n_valid`` may be device scalars: nothing is read
+    back to the host. Returns new ring tensors (the fused closed loop's
+    carry), each written through one extra dump row that is sliced away;
+    ``n_valid`` must not exceed the capacity."""
+    cap = buf.ints.shape[0]
+    n = block.ints.shape[0]
+    i = torch.arange(n, dtype=torch.int64, device=buf.co.device)
+    idx = torch.where(i < n_valid, (ptr + i) % cap, cap)
+    out = []
+    for b, v in zip(buf, block):
+        ext = torch.cat([b, b[:1]])  # row ``cap`` takes the dropped rows
+        ext.index_copy_(0, idx, v.to(b.dtype))
+        out.append(ext[:cap])
+    return RingBlock(*out)
+
+
 class ObservationRing:
     """Fixed-capacity ring of observation rows on the device.
 

@@ -5,8 +5,9 @@ The port and the JAX ``AdaptiveEngine`` run one replayed trace under a
 congestion drift: every segment must place and queue identically, consume
 the same observations, and leave the same estimated D. The profiled prior
 places like the true-D oracle from the first segment, segment engines are
-cached, the modes not ported yet raise, and an estimator's state carried
-across from JAX computes the same next update.
+cached, the modes not ported yet raise (the fleet plane and the fused loop
+now run), and an estimator's state carried across from JAX computes the
+same next update.
 """
 import numpy as np
 import pytest
@@ -21,6 +22,7 @@ from repro_torch.core import M1 as TM1
 from repro_torch.core import M2 as TM2
 from repro_torch.core import AdaptiveEngine as TorchAdaptive
 from repro_torch.core import ConsolidationEngine as TorchEngine
+from repro_torch.fleet import FleetController
 from repro_torch.telemetry import ObservationLog, StreamingEstimator
 from repro_torch.telemetry import drift as tdrift
 from test_telemetry import _POOL, T, _pair_trace, _replayed_trace
@@ -133,16 +135,31 @@ def test_cluster_build_casts_any_D_form_alike():
 
 
 def test_unported_modes_raise():
+    """``metrics`` and ``record`` (item 7) still raise on both engines; the
+    fleet plane (item 5) and the fused loop (item 6) are ported: they
+    construct and run, and the fused loop refuses a non-stream engine with
+    JAX's ``ValueError``."""
     # the stream (item 4a) is ported: tests/test_torch_stream.py holds it
     stream = TorchAdaptive([TM1], stream=True, scatter="numpy", device="cpu")
     assert stream.ring is not None and stream.bank is not None
     assert TorchEngine([TM1], device="cpu").run([], telemetry="device").stream_block is None
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TorchAdaptive([TM1], fleet=object(), scatter="numpy", device="cpu")
-    for eng in (TorchAdaptive([TM1], scatter="numpy", device="cpu"), stream):
-        for flag in ("device_loop", "metrics", "record"):
+    plain = TorchAdaptive([TM1], scatter="numpy", device="cpu")
+    for eng in (plain, stream):
+        for flag in ("metrics", "record"):
             with pytest.raises(NotImplementedError, match=flag):
                 eng.run([], segments=1, **{flag: True})
+    with pytest.raises(ValueError, match="stream"):
+        plain.run(_segment(n=4), segments=1, device_loop=True)
+    fleet = FleetController()
+    fleeted = TorchAdaptive([TM1, TM1], fleet=fleet, scatter="torch", device="cpu")
+    assert fleeted.stream and fleeted.bank is None and fleet.pool is not None
+    seg = _segment(n=8)
+    host = fleeted.run(seg, segments=2)
+    assert len(host.health) == 2 and host.total_obs > 0
+    fused = TorchAdaptive([TM1, TM1], fleet=FleetController(), scatter="torch",
+                          device="cpu").run(seg, segments=2, device_loop=True)
+    assert [r.placements for r in fused.segments] == [r.placements for r in host.segments]
+    assert fused.n_obs == host.n_obs
     with pytest.raises(ValueError):
         TorchAdaptive([TM1], prior="learned", scatter="numpy", device="cpu")
 

@@ -15,10 +15,11 @@ import torch
 from repro.core import M1, M2, PAPER_CLUSTER, ConsolidationEngine
 from repro.core import PackedCluster as JaxCluster
 from repro.core import PackedDynamics as JaxDynamics
-from repro.core import Workload, contention, counts_from_assignments
+from repro.core import Workload, contention, counts_from_assignments, criteria
 from repro.core import profile_pairwise_fast, run_trace as jax_run_trace, simulate_corun
 from repro.core import snap_to_grid, type_index
 from repro.core.units import KB, MB
+from repro.core.workload import grid_types
 from repro_torch import convert
 from repro_torch.core import ConsolidationEngine as TorchEngine
 from repro_torch.core import Deadlock
@@ -28,7 +29,9 @@ from repro_torch.core import PAPER_CLUSTER as T_PAPER_CLUSTER
 from repro_torch.core import PackedCluster, PackedDynamics, corun_rates, run_trace
 from repro_torch.core import score_candidates, score_candidates_torch
 from repro_torch.core import contention as tcontention
+from repro_torch.core import criteria as tcriteria
 from repro_torch.core import engine_torch
+from repro_torch.core.workload import grid_types as tgrid_types
 from repro_torch.kernels.consolidation import consolidation_scores_torch
 from test_engine import _trace
 
@@ -182,6 +185,14 @@ def test_copied_numpy_modules_bitwise(spec):
     got, want = tcontention.type_tables(ts), contention.type_tables(js)
     assert got.keys() == want.keys()
     assert all(np.array_equal(got[k], want[k]) for k in want)
+    # core/criteria.py: the same constants and the same admission checks
+    assert tcriteria.DEGRADATION_LIMIT == criteria.DEGRADATION_LIMIT
+    assert tcriteria.eviction_rate_floor(0.4) == criteria.eviction_rate_floor(0.4)
+    D = contention.profile_pairwise_fast(js)
+    for sl in (slice(0), slice(1), slice(100, 104), slice(None, None, 23)):
+        a = tcriteria.check_consolidation(ts, tgrid_types()[sl], D, alpha=1.3)
+        b = criteria.check_consolidation(js, grid_types()[sl], D, alpha=1.3)
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
 
 
 def test_dynamics_build_equals_jax_and_convert():
