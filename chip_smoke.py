@@ -12,7 +12,8 @@ layers run their selective scan through the hand-written CUDA
 ``mamba_scan`` and whose attention layers take a sliding window in the
 flash kernel, and the fleet-health plane with the fused closed loop, whose
 CUSUM scan and action loops are hand-written CUDA (``cusum_scan``,
-``fleet_actions``) -- in fourteen phases (14 runs after 7):
+``fleet_actions``), with the observability plane and the float64 oracle's
+tensor twins -- in fifteen phases (14 runs after 7, 15 last):
 
   1. environment: torch and CUDA versions, the card's name and power limit;
   2. build: nvcc builds every kernel under ``src/repro_torch/kernels/csrc``;
@@ -173,7 +174,29 @@ CUSUM scan and action loops are hand-written CUDA (``cusum_scan``,
      segments of 4096) on both paths, which must decide identically; wall
      and loop reads per segment of both paths, both kernels' device ms
      beside their plain versions and bounds (an acting and a quiet launch
-     of ``fleet_actions``).
+     of ``fleet_actions``);
+ 15. observability and the oracle (ROADMAP items 3 and 7; run last): the engine at
+     rack width (64 servers, 1024 arrivals) and fleet width (1024, 4096)
+     with ``metrics=True, record=True``, whose placements and queue
+     decisions must equal the flags-off run's (phase 5's at fleet width),
+     whose counters must equal ``LoopStats`` and the result's counts and
+     whose decision ring must rebuild every placement
+     (``explain.check_reconstruction``); µs per decision on and off, and
+     kernels and device µs per step on and off in a profiled rerun of the
+     first 64 arrivals, the flags-off count per step equal to phase 4's; a small
+     trace with both flags whose frame and ring on the card equal the CPU's
+     (integer columns exactly, floats within 1e-5); phase 14's rack again
+     with both flags on the host-alternating path and the fused loop
+     (segment body under the sync debug mode's "error"): phase 14's
+     decisions, counters equal to each other and to the health events,
+     rings' integer columns equal, wall per segment on and off;
+     ``explain.attribute_run`` over a recorded adaptive rack run (64
+     servers, 3 x 32), which must telescope to each segment's regret within
+     1e-5; ``local_search_torch`` at 64 servers from a greedy packing made
+     on half the rack, by the kernel (one launch per iteration) and by its
+     plain version, which must make the same moves, then at 1024 servers
+     where memory allows, ms per iteration and peak memory; and
+     ``admission_check(metrics=True)``.
 
 Then a JSON line with each kernel's numbers, the ``nvidia-smi`` name/power
 line, and a last JSON line ``{"ok": true, "device": {...}}``. Any failed
@@ -218,6 +241,9 @@ SCATTER_ATOL, SCATTER_RTOL = 2e-5, 1e-5
 #: flash_attention vs its plain version (tests/test_kernels.py's bounds for
 #: the Pallas kernel): a bf16 output rounds once, f32 sums run in another order
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+#: the main path's runs that phase 15 compares its flagged runs with: phase
+#: 4's profiled kernels per step, phase 5's fleet run
+MAIN_RUNS: dict = {}
 
 
 class CheckFailed(RuntimeError):
@@ -666,6 +692,7 @@ def phase_rack(device, m: int = 64, n: int = 1024, small=(16, 64)) -> int:
         share = kernel_shares(busy, named, pwall_prof, score_counts(), "rack")
         stats = out[0].stats
         steps = stats.host_syncs * stats.block_steps
+        MAIN_RUNS["rack_profile"] = (n_kernels, steps, busy)
         print(f"[4 rack] profiled rerun of the first 256 arrivals (graph replays): device "
               f"kernels {busy:.4f} s of {pwall_prof:.3f} s wall, {n_kernels} kernels in "
               f"{steps} steps ({stats.events} micro-events): {n_kernels / steps:.1f} kernels "
@@ -744,6 +771,7 @@ def phase_fleet(device, m: int = 1024, n: int = 4096) -> dict:
     print(f"[5 fleet] m={m} n={n} scorer=cuda: " + describe(res, wall, launches, peak)
           + f"; the first run at this capacity, capture included, {first:.3f} s")
 
+    MAIN_RUNS["fleet"] = dict(res=res, wall=wall, arrivals=arrivals)
     plain = ConsolidationEngine(servers, D=eng.D, scorer=plain_scorer, device=device)
     pres, pwall, _, ppeak = drive(plain, arrivals, device)
     rel = check_same_route(res, pres, "fleet")
@@ -1505,7 +1533,7 @@ def read_all_launches() -> dict:
 
 
 def fleet_health_run(servers, arrivals, segments: int, drift, device, device_loop: bool,
-                     tape: list | None = None, count: bool = False) -> dict:
+                     tape: list | None = None, count: bool = False, obs: bool = False) -> dict:
     """One adaptive run with ``FleetController`` on the host-alternating path or
     the fused loop (``device_loop``), ``scorer='cuda'`` and ``scatter='cuda'``,
     the launch counts zeroed just before it and read just after (the fused
@@ -1514,7 +1542,9 @@ def fleet_health_run(servers, arrivals, segments: int, drift, device, device_loo
     so its wall per segment is the run's over the segments; on the card its
     segment body runs under ``segment_body_sync_free`` and every event-loop
     capture is timed (``capture_clock``). ``count`` runs it under the sync
-    debug mode's warnings instead (``count_syncs``), with no clock."""
+    debug mode's warnings instead (``count_syncs``), with no clock. ``obs``
+    runs it with ``metrics=True, record=True`` (phase 15), the decision ring
+    sized for every row of the run."""
     import gc
 
     import numpy as np
@@ -1527,7 +1557,8 @@ def fleet_health_run(servers, arrivals, segments: int, drift, device, device_loo
     fleet = FleetController(mesh=MeshConfig())
     eng = AdaptiveEngine(servers, drift=drift, scorer="cuda" if on_card else "torch",
                          scatter="cuda" if on_card else "torch", device=device, prior=0.0,
-                         decay=0.997, fleet=fleet, ring_capacity=2 * len(arrivals) // segments)
+                         decay=0.997, fleet=fleet, ring_capacity=2 * len(arrivals) // segments,
+                         decision_capacity=4 * len(arrivals))
     stamps = []
 
     def stamp(k, res, engine):
@@ -1551,7 +1582,8 @@ def fleet_health_run(servers, arrivals, segments: int, drift, device, device_loo
             stack.enter_context(segment_body_sync_free())
         t0 = time.perf_counter()
         run = lambda: eng.run(arrivals, segments=segments, device_loop=device_loop,  # noqa: E731
-                              on_segment=None if device_loop else stamp)
+                              on_segment=None if device_loop else stamp, metrics=obs,
+                              record=obs)
         if count:
             got = []
             synced = count_syncs(lambda: got.append(run()))
@@ -1798,6 +1830,413 @@ def phase_fleet_health(device, rack_shape=(64, 8, 256), fleet_shape=(1024, 4, 40
             free_card()
     print(f"[14 fleet health] launches held to their plain versions {dict(out['checked'])}")
     return out
+
+
+# -- phase 15: observability and the oracle ------------------------------------
+
+def obs_counter_checks(res, frame, label: str) -> dict:
+    """The engine's frame against ``LoopStats`` and the counts taken from the
+    result: every arrival arrives once, places once (at arrival or from
+    the drain) and finishes once on its server; each micro-event is one of
+    arrive, finish, drain. Returns the counters."""
+    import numpy as np
+    from repro_torch.obs import metrics as M
+
+    n = len(res.placements)
+    queued = sum(res.was_queued)
+    c = {name: M.counter_value(frame, name) for name in M.COUNTERS}
+    want = dict(events=res.stats.events, arrivals=n,
+                placements=sum(p is not None for p in res.placements), queued=queued,
+                drain_placements=queued, drain_full_scans=res.stats.drain_full_scans,
+                finishes=sum(t < float("inf") for t in res.finish_times), deadlocks=0,
+                drain_steps=res.stats.events - 2 * n)
+    for name, value in want.items():
+        check(c[name] == value, f"{label}: counter {name} {c[name]}, the run says {value}")
+    per = np.bincount([p for p in res.placements if p is not None], minlength=frame.m)
+    for col in ("placements", "finishes"):
+        check(np.array_equal(M.server_values(frame, col), per),
+              f"{label}: per-server {col} differ from the result's placements")
+    check(M.gauge_value(frame, "queue_peak") >= (1 if queued else 0),
+          f"{label}: queue_peak {M.gauge_value(frame, 'queue_peak')} with {queued} queued")
+    for hist in ("waiting_time", "headroom", "slowdown"):
+        total = int(M.hist_counts(frame, hist).sum())
+        check(total == n, f"{label}: {total} {hist} samples for {n} arrivals")
+    return c
+
+
+def obs_ring_checks(rec, placements, label: str) -> int:
+    """The ring rebuilds every placement (``explain.check_reconstruction``);
+    returns its rows."""
+    from repro_torch.obs import explain
+    from repro_torch.obs.recorder import DecisionRing
+
+    ring = DecisionRing(rec.capacity, rec.ptr.device)
+    ring.adopt(rec)
+    check(ring.total <= ring.capacity, f"{label}: the ring wrapped ({ring.total} rows)")
+    bad = explain.check_reconstruction(ring, [placements])
+    check(not bad, f"{label}: the ring does not rebuild the run: {bad[:3]}")
+    return ring.total
+
+
+def profile_run(run) -> tuple[int, int, float]:
+    """(device kernels, steps, device seconds) of a profiled call of ``run``
+    (an engine run; a first call captures its graph)."""
+    run()
+    out = []
+    busy, _, _, n_kernels = device_busy(lambda: out.append(run()), ())
+    stats = out[0].stats
+    return n_kernels, stats.host_syncs * stats.block_steps, busy
+
+
+def obs_engine(device, m: int, n: int, gap: float, base: dict | None, label: str) -> dict:
+    """The engine at ``m`` servers, ``n`` arrivals with ``metrics`` and
+    ``record`` on: the first run captures, the second is timed. Its
+    placements and queue decisions must equal the flags-off run (``base``,
+    or a run made here), its counters ``LoopStats`` and the result, its
+    ring every placement."""
+    import gc
+
+    import torch
+    from repro_torch.core import ConsolidationEngine
+    from repro_torch.kernels import consolidation as kc
+
+    servers = rack(m)
+    arrivals = trace(n, gap=gap)
+    if base is None:
+        off = ConsolidationEngine(servers, scorer="cuda", device=device)
+        off.run(arrivals)  # capture
+        res_off, wall_off, _, _ = drive(off, arrivals, device)
+    else:
+        res_off, wall_off = base["res"], base["wall"]
+    eng = ConsolidationEngine(servers, scorer="cuda", device=device)
+    t0 = time.perf_counter()
+    eng.run(arrivals, metrics=True, record=True)  # captures the flagged graph
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.synchronize()
+    kc.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.run(arrivals, metrics=True, record=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sum(kc.LAUNCHES.values())
+    check(res.placements == res_off.placements and res.was_queued == res_off.was_queued,
+          f"{label}: metrics/record changed a decision, first at arrival "
+          f"{first_divergence(res.placements, res_off.placements)}")
+    check(res.stats == res_off.stats, f"{label}: loop stats {res.stats} vs {res_off.stats}")
+    counters = obs_counter_checks(res, res.metrics, label)
+    rows = obs_ring_checks(res.decisions, res.placements, label)
+    check(rows == n + counters["drain_placements"], f"{label}: {rows} ring rows")
+    return dict(eng=eng, arrivals=arrivals, res=res, wall=wall, wall_off=wall_off,
+                first=first, launches=launches, counters=counters, rows=rows)
+
+
+def obs_small_parity(device, m: int = 16, n: int = 64) -> dict:
+    """A small trace with both flags on the card and on the CPU: the same
+    frame counters, gauges and per-server columns, the ring's integer
+    columns equal (candidate ids outside near-ties) and its float columns
+    within TOL."""
+    import numpy as np
+    from repro_torch.core import ConsolidationEngine
+    from repro_torch.obs import metrics as M
+    from repro_torch.obs.recorder import DecisionRing
+
+    arrivals = trace(n, gap=2e-5)
+    runs = []
+    for dev in ("cpu", device):
+        res = ConsolidationEngine(rack(m), scorer="cuda", device=dev).run(
+            arrivals, metrics=True, record=True)
+        ring = DecisionRing(res.decisions.capacity, dev)
+        ring.adopt(res.decisions)
+        runs.append((res, ring.columns()))
+    (cpu, ccols), (card, gcols) = runs
+    check(card.placements == cpu.placements, "obs small trace: card and CPU place differently")
+    for name in ("counters", "gauges", "per_server"):
+        check(np.array_equal(getattr(card.metrics, name).cpu().numpy(),
+                             getattr(cpu.metrics, name).numpy()),
+              f"obs small trace: frame {name} differ between card and CPU")
+    hist_same = bool(np.array_equal(card.metrics.hist.cpu().numpy(), cpu.metrics.hist.numpy()))
+    gap, ties = 0.0, 0
+    for name, a in gcols.items():
+        b = ccols[name]
+        if name == "cand":
+            # the kernel and its plain version round apart in the last bit,
+            # so a rank is not held where a neighbour's score lies within
+            # the scheduler's tie margin but not equal, on either device
+            # (exact ties break by index on both; the last slot's lower
+            # neighbour is off the ring: held only at inf)
+            sc = ccols["score"]
+            with np.errstate(invalid="ignore"):
+                near = [(g > 0) & (g <= 1e-6) for g in
+                        (np.abs(np.diff(sc, axis=1)), np.abs(np.diff(gcols["score"], axis=1)))]
+                apart = ~(near[0] | near[1])
+            clear = np.ones_like(sc, bool)
+            clear[:, 1:] &= apart
+            clear[:, :-1] &= apart
+            clear[:, -1] &= ~np.isfinite(sc[:, -1])
+            clear |= ~np.isfinite(sc)
+            ties = int((~clear).sum())
+            check(np.array_equal(a[clear], b[clear]), "obs small trace: candidates differ")
+        elif a.dtype.kind == "i":
+            check(np.array_equal(a, b), f"obs small trace: ring column {name} differs")
+        else:
+            fin = np.isfinite(b)
+            check(np.array_equal(np.isfinite(a), fin), f"obs small trace: ring {name} inf")
+            if fin.any():
+                gap = max(gap, float(np.abs(a[fin] - b[fin]).max()))
+    check(gap <= TOL, f"obs small trace: ring floats within {gap:.3g} > {TOL}")
+    return dict(rows=len(gcols["arrival"]), float_gap=gap, hist_same=hist_same, ties=ties,
+                queued=M.counter_value(card.metrics, "queued"))
+
+
+def obs_adaptive(device, health: dict, rack_shape=(64, 8, 256), failing: int = 5) -> dict:
+    """Phase 14's rack run again with ``metrics`` and ``record`` on, on the
+    host-alternating path and the fused loop (its segment body under the
+    sync debug mode's "error"): the decisions of phase 14's unflagged runs,
+    the shared counters equal to each other and to the health events, the
+    two rings' integer columns equal."""
+    import numpy as np
+    import torch
+    from repro_torch.obs import metrics as M
+    from repro_torch.obs import explain
+    from repro_torch.telemetry import gradual_decay
+
+    m, k, n = rack_shape
+    servers = rack(m)
+    arrivals = trace(k * n, gap=1e-4 * 64 / m, seed=13)
+    drift = gradual_decay(servers, server=failing, rate=0.65, start=1, segments=k)
+    runs = {name: fleet_health_run(servers, arrivals, k, drift, device, device_loop, obs=True)
+            for name, device_loop in (("host", False), ("fused", True))}
+    shared = [i for i, c in enumerate(M.COUNTERS) if c != "d_cols_refreshed"]
+    frames = {}
+    for name, r in runs.items():
+        base = health["rack"][name]["res"]
+        res = r["res"]
+        for j, (a, b) in enumerate(zip(res.segments, base.segments)):
+            check(a.placements == b.placements and a.was_queued == b.was_queued,
+                  f"obs adaptive {name}: segment {j} decides differently with the flags on")
+        check(events_of(res) == events_of(base), f"obs adaptive {name}: health events differ")
+        f = res.metrics
+        kinds = collections.Counter(kind for kind, _, _ in events_of(res))
+        placed = sum(len(s.placements) for s in res.segments)
+        for cname, value in (("segments", k), ("splits", kinds["split"]),
+                             ("evictions", kinds["evict"]), ("arrivals", placed)):
+            check(M.counter_value(f, cname) == value, f"obs adaptive {name}: {cname} "
+                  f"{M.counter_value(f, cname)} vs {value}")
+        # every requeued arrival is placed again in the next segment; an
+        # eviction in the last segment counts its requeue with no next one
+        check(M.counter_value(f, "requeues") >= placed - len(arrivals),
+              f"obs adaptive {name}: requeues {M.counter_value(f, 'requeues')} < "
+              f"{placed - len(arrivals)} arrivals placed twice")
+        bad = explain.check_reconstruction(res.decisions, [s.placements for s in res.segments])
+        check(not bad, f"obs adaptive {name}: the ring does not rebuild the run: {bad[:3]}")
+        frames[name] = f
+    hf, ff = frames["host"], frames["fused"]
+    check(torch.equal(hf.counters[shared], ff.counters[shared]),
+          "obs adaptive: host and fused counters differ")
+    hc, fc = runs["host"]["res"].decisions.columns(), runs["fused"]["res"].decisions.columns()
+    for col in ("arrival", "segment", "server", "kind", "qdepth", "pool_row", "cand"):
+        check(np.array_equal(hc[col], fc[col]), f"obs adaptive: ring column {col} differs")
+    return dict(runs=runs, counters={c: M.counter_value(hf, c) for c in M.COUNTERS},
+                rows=len(hc["arrival"]),
+                walls_off={name: health["rack"][name]["wall"] / k for name in runs})
+
+
+def obs_attribution(device, m: int = 64, segments: int = 3, per_segment: int = 32) -> dict:
+    """A recorded adaptive rack run attributed by ``explain.attribute_run``
+    (float64 forced replays, p + 1 per segment of p decisions):
+    ``check_exactness`` at JAX's 1e-5 and ``check_reconstruction``."""
+    import numpy as np
+    from repro_torch.core import AdaptiveEngine, profile_pairwise_fast
+    from repro_torch.obs import explain
+
+    servers = rack(m)
+    arrivals = trace(segments * per_segment, gap=2e-5, seed=21)
+    eng = AdaptiveEngine(servers, prior=0.0, decay=0.997, scorer="cuda",
+                         scatter="cuda" if device.type == "cuda" else "torch", device=device,
+                         decision_capacity=4 * len(arrivals))
+    res = eng.run(arrivals, segments=segments, record=True)
+    ordered = sorted(arrivals, key=lambda tw: tw[0])
+    bounds = np.linspace(0, len(ordered), segments + 1).astype(int)
+    chunks = [ordered[bounds[j]:bounds[j + 1]] for j in range(segments)]
+    D = {s: profile_pairwise_fast(s) for s in set(servers)}
+    t0 = time.perf_counter()
+    atts = explain.attribute_run(res.decisions, chunks, lambda j: eng.servers,
+                                 lambda j: [D[s] for s in eng.servers], alpha=eng.alpha,
+                                 objective=eng.objective, durations=res.durations)
+    wall = time.perf_counter() - t0
+    check(len(atts) == segments, f"attribution: {len(atts)} segments attributed")
+    bad = explain.check_exactness(atts) + explain.check_reconstruction(
+        res.decisions, [r.placements for r in res.segments])
+    check(not bad, f"attribution: {bad[:3]}")
+    err = max(abs(sum(d.delta for d in a.decisions) - a.regret) for a in atts)
+    return dict(atts=atts, wall=wall, err=err, decisions=sum(len(a.decisions) for a in atts))
+
+
+def obs_local_search(device, m: int, n: int, plain: bool) -> dict:
+    """``local_search_torch`` from a ``greedy_sequence`` packing made while
+    half the fleet was masked out (servers back from maintenance), on the
+    kernel's wrapper -- one launch per iteration at Q = T -- and, with
+    ``plain``, on its plain version, which must make the same moves to the
+    same counts. ms per iteration and peak memory above the start."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core import PackedCluster, profile_pairwise_fast, type_index
+    from repro_torch.core.binpack_torch import greedy_sequence
+    from repro_torch.core.engine_torch import SEARCH_BLOCK, local_search_torch
+    from repro_torch.kernels import consolidation as kc
+
+    servers = rack(m)
+    D = {s: profile_pairwise_fast(s) for s in set(servers)}
+    Ds = [D[s] for s in servers]
+    half = np.r_[np.ones(m // 2), np.zeros(m - m // 2)]
+    cl_half = PackedCluster.build(servers, Ds, active=half, device=device)
+    cl = PackedCluster.build(servers, Ds, device=device)
+    wt = torch.tensor([type_index(w) for _, w in trace(n, gap=1e-4)], device=device)
+    counts, _ = greedy_sequence(cl_half, torch.zeros((m, GRID_T), device=device), wt)
+    del cl_half
+    out = {"workloads": int(counts.sum())}
+    for route, scorer in (("cuda", None), ("plain", plain_scorer)):
+        if route == "plain" and not plain:
+            continue
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kc.reset_launches()
+        t0 = time.perf_counter()
+        c, moves = local_search_torch(cl, counts, 100, scorer=scorer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        moves = int(moves)
+        iters = -(-(moves + 1) // SEARCH_BLOCK) * SEARCH_BLOCK
+        launches = sum(kc.LAUNCHES.values())
+        check(route != "cuda" or device.type != "cuda" or launches == iters,
+              f"local search m={m}: {launches} scorer launches for {iters} iterations")
+        check(torch.equal(c.sum(0), counts.sum(0)), f"local search m={m}: workloads lost")
+        out[route] = dict(counts=c, moves=moves, iters=iters, ms=1e3 * wall / iters,
+                          launches=launches if route == "cuda" else 0,
+                          peak=torch.cuda.max_memory_allocated() - base)
+    if plain:
+        check(out["cuda"]["moves"] == out["plain"]["moves"] > 0
+              and torch.equal(out["cuda"]["counts"], out["plain"]["counts"]),
+              f"local search m={m}: kernel route {out['cuda']['moves']} moves, plain route "
+              f"{out['plain']['moves']}, counts equal "
+              f"{torch.equal(out['cuda']['counts'], out['plain']['counts'])}")
+    return out
+
+
+def phase_observability(device, health: dict) -> dict:
+    """Phase 15: the metrics plane, the decision recorder, regret
+    attribution, local search and admission metrics on the card (ROADMAP
+    items 3 and 7). Returns the consolidation_scores launches of its main
+    path runs."""
+    import torch
+    from repro_torch.kernels import consolidation as kc
+    from repro_torch.launch import serve
+
+    on = {}
+    # a. the engine at rack and fleet width, flags on against flags off
+    rk = obs_engine(device, 64, 1024, 1e-4, None, "obs rack")
+    fl = MAIN_RUNS.get("fleet")  # phase 5's flags-off run (None: run one here)
+    fw = obs_engine(device, 1024, 4096, 1e-4 * 64 / 1024, fl, "obs fleet")
+    launches = rk["launches"] + fw["launches"]
+    # the first 64 arrivals: a profile of the flags-on loop over phase 4's
+    # 256 holds ~350,000 kernels, whose parsing outlasts the run
+    eng, head = rk["eng"], rk["arrivals"][:64]
+    prof = {"off": profile_run(lambda: eng.run(head)),
+            "on": profile_run(lambda: eng.run(head, metrics=True, record=True))}
+    del rk["eng"], fw["eng"]
+    want = MAIN_RUNS.get("rack_profile", (0, 0, 0.0))
+    # one kernel more or fewer in a step moves kernels per step by one; the
+    # kernels around the replays (copies in and out, the status reads) by
+    # a few hundredths
+    check(not want[1] or abs(prof["off"][0] / prof["off"][1] - want[0] / want[1]) < 0.5,
+          f"obs rack: {prof['off'][0]} kernels in {prof['off'][1]} steps with the flags off, "
+          f"phase 4 saw {want[0]} in {want[1]}")
+    for label, r in (("rack m=64 n=1024", rk), ("fleet m=1024 n=4096", fw)):
+        n = len(r["arrivals"])
+        print(f"[15 obs] engine {label}, metrics and record on: placements and queue "
+              f"decisions equal to the flags-off run, counters equal to LoopStats and the "
+              f"result {r['counters']}, the ring ({r['rows']} rows) rebuilds every placement; "
+              f"{1e6 * r['wall'] / n:.1f} us/decision on vs {1e6 * r['wall_off'] / n:.1f} off; "
+              f"{r['res'].stats.host_syncs} loop reads; first run at this capacity (capture) "
+              f"{r['first']:.3f} s; consolidation_scores launches {r['launches']}")
+    per = {tag: (k / s, 1e6 * b / s) for tag, (k, s, b) in prof.items()}
+    print(f"[15 obs] rack profiled rerun of the first 64 arrivals: flags off {prof['off'][0]} "
+          f"kernels in {prof['off'][1]} steps = {per['off'][0]:.1f} kernels and "
+          f"{per['off'][1]:.1f} us of device time per step (phase 4: "
+          f"{want[0] / want[1] if want[1] else 'not measured'}); flags on "
+          f"{prof['on'][0]} kernels in {prof['on'][1]} steps = {per['on'][0]:.1f} kernels and "
+          f"{per['on'][1]:.1f} us per step")
+    small = obs_small_parity(device)
+    print(f"[15 obs] small trace m=16 n=64, both flags: card == CPU (frame counters, gauges, "
+          f"per-server columns; ring integer columns, {small['rows']} rows, candidate ids "
+          f"but {small['ties']} slots near a tie; ring floats within "
+          f"{small['float_gap']:.3g}; histograms bitwise equal: {small['hist_same']}; queued "
+          f"{small['queued']})")
+
+    # b. the adaptive rack recorded, both paths
+    kc.reset_launches()
+    ad = obs_adaptive(device, health)
+    for name, r in ad["runs"].items():
+        launches += r["launches"]["consolidation_scores"]
+        print(f"[15 obs] adaptive rack {name}, metrics and record on: decisions and health "
+              f"events equal to phase 14's unflagged run; wall per segment "
+              f"{r['wall'] / len(r['res'].segments):.3f} s on vs "
+              f"{ad['walls_off'][name]:.3f} off; captures {len(r['captures'])} taking "
+              f"{sum(r['captures']):.3f} s; launches {r['launches']}")
+    print(f"[15 obs] adaptive rack: host and fused counters equal except d_cols_refreshed "
+          f"({ad['counters']}), rings' integer columns equal ({ad['rows']} rows), the fused "
+          f"segment body ran under the sync debug mode's 'error'")
+    free_card()
+
+    # c. regret attribution over a recorded rack run
+    at = obs_attribution(device)
+    print(f"[15 obs] attribution m=64 3x32: {at['decisions']} decisions over "
+          f"{len(at['atts'])} segments, regret per segment "
+          f"{[round(a.regret, 6) for a in at['atts']]}, by bucket "
+          f"{[{k: round(v, 6) for k, v in a.by_bucket.items()} for a in at['atts']]}, "
+          f"|sum(deltas) - regret| <= {at['err']:.3g} (limit 1e-5), replays took "
+          f"{at['wall']:.2f} s on the host")
+
+    # d. local search
+    ls = obs_local_search(device, 64, 256, plain=True)
+    launches += ls["cuda"]["launches"]
+    print(f"[15 obs] local search m=64 from a greedy packing of {ls['workloads']} on half the "
+          f"rack: kernel route {ls['cuda']['moves']} moves in {ls['cuda']['iters']} iterations "
+          f"({ls['cuda']['launches']} scorer launches), {ls['cuda']['ms']:.3f} ms/iteration; "
+          f"plain route the same moves and counts, {ls['plain']['ms']:.3f} ms/iteration")
+    free_card()
+    free, _ = torch.cuda.mem_get_info()
+    big = None
+    if free > 16 * 2**30:
+        big = obs_local_search(device, 1024, 2048, plain=False)
+        launches += big["cuda"]["launches"]
+        print(f"[15 obs] local search m=1024 from a greedy packing of {big['workloads']} on "
+              f"half the fleet: {big['cuda']['moves']} moves in {big['cuda']['iters']} "
+              f"iterations, {big['cuda']['ms']:.3f} ms/iteration, peak device memory above "
+              f"the start {big['cuda']['peak'] / 2**30:.2f} GiB")
+    else:
+        print(f"[15 obs] local search m=1024 not run: {free / 2**30:.1f} GiB free")
+    free_card()
+
+    # e. admission with the metrics plane
+    plain_admit = serve.admission_check("tinyllama-1.1b", 8, device=device)
+    placements, frame = serve.admission_check("tinyllama-1.1b", 8, device=device,
+                                              metrics=True)
+    from repro_torch.obs import metrics as M
+    check(placements == plain_admit and M.counter_value(frame, "arrivals") == 8,
+          f"admission metrics: {placements} vs {plain_admit}")
+    print(f"[15 obs] admission_check(metrics=True) on the card: placements {placements}, "
+          f"waiting-time and slowdown p50/p95/p99 "
+          f"{M.percentiles(frame, 'waiting_time').round(6).tolist()} / "
+          f"{M.percentiles(frame, 'slowdown').round(4).tolist()}")
+    on.update(launches=launches, prof=prof)
+    return on
 
 
 #: (label, B, Sq, Skv, H, Hkv, dh, causal, q_offset, window): the serving
@@ -3149,6 +3588,12 @@ def main() -> int:
     scatter = phase_pair_scatter(device)
     adaptive = phase_adaptive(device)
     health = phase_fleet_health(device)
+    # phase 15 compares with the rack runs' results and walls; the engines
+    # (their captured graphs) go before the serving phases draw their models
+    health.pop("fleet")
+    health["rack"] = {name: {"res": health["rack"][name]["res"],
+                             "wall": health["rack"][name]["wall"]} for name in ("host", "fused")}
+    free_card()
     flash = phase_flash(device)
     served = phase_serve(device)
     wkv = phase_rwkv_scan(device)
@@ -3156,13 +3601,18 @@ def main() -> int:
     free_card()
     scan = phase_mamba_scan(device)
     served_jamba = phase_serve_jamba(device)
+    free_card()
+    # last, so that its profiled and captured runs leave nothing to the
+    # serving phases' profiles
+    obs = phase_observability(device, health)
 
     q = LOOP_Q  # the event loop's one call per micro-event, on every grid type
     print(json.dumps({"kernels": [{
         "name": "consolidation_scores", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/consolidation_scores.cu",
         "replaces": "src/repro/kernels/consolidation.py:65",
-        "launches": n_launch,
+        "launches": n_launch + obs["launches"],
+        "launches_phase_15": obs["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in [*rows.values(), *fleet.values()]),
         "ms": rows[q]["ms"], "plain_ms": rows[q]["plain_ms"],
         "bound_ms": rows[q]["bound_ms"], "bound_by": rows[q]["bound_by"],

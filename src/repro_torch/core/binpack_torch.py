@@ -28,7 +28,7 @@ import torch
 
 from ..device import resolve_device
 from .server import ServerSpec
-from .workload import FS_GRID, RS_GRID
+from .workload import FS_GRID, RS_GRID, Workload, type_index
 
 QUEUED = -1  # sentinel placement: no feasible server (criterion-1 queue)
 
@@ -98,6 +98,17 @@ class PackedCluster:
     @property
     def device(self) -> torch.device:
         return self.D.device
+
+
+def counts_from_assignments(cluster: PackedCluster,
+                            assignments: Sequence[Sequence[Workload]]) -> torch.Tensor:
+    """Resident type counts [m, T] of per-server workload lists, on the
+    cluster's device."""
+    c = np.zeros((cluster.m, cluster.T), np.float32)
+    for s, ws in enumerate(assignments):
+        for w in ws:
+            c[s, type_index(w)] += 1.0
+    return torch.from_numpy(c).to(cluster.device)
 
 
 # --- per-server loads, fully vectorized ----------------------------------------
@@ -209,12 +220,21 @@ def choose(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Lowest-``score`` server [Q] among those that pass both criteria and
     the ``cluster.active`` mask, and whether one does; QUEUED where none."""
+    return choose_scored(cluster, cache_after, maxd_after, score)[:2]
+
+
+def choose_scored(
+    cluster: PackedCluster, cache_after: torch.Tensor, maxd_after: torch.Tensor,
+    score: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`choose`, with the feasibility-masked scores [Q, m] it chose
+    from (inf where infeasible): the decision recorder's candidate rows."""
     feasible = ((maxd_after < cluster.degradation_limit) & (cache_after <= 1.0)
                 & (cluster.active > 0.5)[None, :])
     score = torch.where(feasible, score, torch.inf)
     best = argmin_with_margin(score)  # oracle tie-breaking (lowest index)
     ok = feasible.any(1)
-    return torch.where(ok, best, QUEUED), ok
+    return torch.where(ok, best, QUEUED), ok, score
 
 
 # --- the greedy step (Fig 8), one arrival ---------------------------------------
@@ -249,3 +269,74 @@ def greedy_sequence(
     if not placements:
         return counts, torch.empty(0, dtype=torch.int32, device=counts.device)
     return counts, torch.cat(placements).to(torch.int32)
+
+
+# --- vectorized brute force ------------------------------------------------------
+
+def evaluate_assignment(
+    cluster: PackedCluster, counts0: torch.Tensor, wtypes: torch.Tensor, assign: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cost + feasibility of complete assignments (QUEUED allowed), batched:
+    ``assign`` [n] or [B, n] gives cost and ok of shape [] or [B].
+
+    Cost = sum of per-server average loads + 1.0 per queued workload (so a
+    feasible placement always beats queueing), matching
+    ``binpack.brute_force``. An assignment placing work on a server the
+    fleet-health mask (``cluster.active``) has evicted is infeasible.
+    """
+    m, T = cluster.m, cluster.T
+    single = assign.dim() == 1
+    a = (assign[None] if single else assign).long()  # [B, n]
+    types = torch.arange(T, device=counts0.device)
+    onehots = (wtypes.long()[:, None] == types[None, :]).to(counts0.dtype)  # [n, T]
+    placed = a >= 0
+    srv = torch.where(placed, a, 0)
+    servers = torch.arange(m, device=counts0.device)
+    scatter = ((srv[..., None] == servers) & placed[..., None]).to(counts0.dtype)  # [B, n, m]
+    counts = counts0[None] + torch.einsum("bnm,nt->bmt", scatter, onehots)  # [B, m, T]
+    comp = counts @ cluster.rs + (counts * cluster.resident) @ cluster.fs  # [B, m]
+    cache = comp / cluster.llc_budget
+    col = torch.einsum("bmt,mtu->bmu", counts, cluster.D)  # [B, m, T]
+    diag = torch.diagonal(cluster.D, dim1=1, dim2=2)
+    d_pred = torch.clamp(col - diag, 0.0, 1.0)
+    present = counts > 0
+    maxd = torch.where(present, d_pred, -torch.inf).amax(-1)
+    maxd = torch.where(present.any(-1), maxd, 0.0)
+    on_inactive = (placed & (cluster.active[srv] <= 0.5)).any(-1)
+    ok = ((maxd < cluster.degradation_limit) & (cache <= 1.0)).all(-1) & ~on_inactive
+    cost = (0.5 * (cache + maxd)).sum(-1) + (~placed).sum(-1)
+    cost = torch.where(ok, cost, torch.inf)
+    return (cost[0], ok[0]) if single else (cost, ok)
+
+
+def brute_force_torch(
+    cluster: PackedCluster,
+    counts0: torch.Tensor,
+    wtypes: torch.Tensor,
+    allow_queue: bool = True,
+    batch: int = 4096,
+) -> tuple[float, np.ndarray]:
+    """Exhaustive optimum over all (m[+1])^n assignments, evaluated ``batch``
+    at a time on the cluster's device (one host read per chunk). Ties keep
+    the first assignment in enumeration order, as ``brute_force_jax``."""
+    n = int(wtypes.shape[0])
+    base = cluster.m + (1 if allow_queue else 0)
+    total = base**n
+
+    digits = np.arange(total)
+    combos = np.stack([(digits // base**k) % base for k in range(n)], axis=1)
+    if allow_queue:
+        combos = np.where(combos == cluster.m, QUEUED, combos)
+
+    wt = wtypes.to(cluster.device)
+    best_cost, best_assign = np.inf, None
+    for start in range(0, total, batch):
+        chunk = torch.from_numpy(combos[start:start + batch]).to(cluster.device)
+        costs, _ = evaluate_assignment(cluster, counts0, wt, chunk)
+        costs = costs.cpu().numpy()
+        i = int(costs.argmin())
+        if costs[i] < best_cost:
+            best_cost, best_assign = float(costs[i]), combos[start + i]
+    if not np.isfinite(best_cost):
+        raise RuntimeError("brute force (torch) found no feasible assignment")
+    return best_cost, np.asarray(best_assign)

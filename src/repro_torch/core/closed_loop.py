@@ -39,9 +39,14 @@ both paths schedule on the same bits (JAX blends in float32 and its tests
 absorb the 1-ulp drift). It is rebuilt whole every segment; an untouched
 entry recomputes to the same value.
 
-The JAX loop's metrics plane and decision recorder (``metrics``,
-``record``) wait for ROADMAP item 7 (``AdaptiveEngine.run`` raises on
-them) and its sharded branch (``axis``) for item 8.
+``ClosedLoopConfig.metrics`` and ``.record`` carry the observability plane
+(``repro_torch.obs``), as JAX's do: every segment's event loop updates a
+fresh MetricFrame that the segment body merges into ``LoopCarry.metrics``
+with the closed-loop accounting (segments, splits, evictions, requeues,
+ring rows, D columns touched, the CUSUM-level histogram and three
+high-water gauges), and the decision ring rides ``LoopCarry.rec``, its
+context sampled from the carry at segment entry. Both stay on the device,
+with no host read. The sharded branch (``axis``) waits for ROADMAP item 8.
 """
 from __future__ import annotations
 
@@ -52,6 +57,8 @@ import numpy as np
 import torch
 
 from ..fleet.controller import fleet_step
+from ..obs import metrics as obs_metrics
+from ..obs import recorder as obs_recorder
 from ..fleet.detect import CusumState, _cusum_update
 from ..telemetry.estimator import DeviceEstimatorState, _bank_core, _blend_prior_t, _remap_rows
 from ..telemetry.log import RingBlock, ring_write_masked, rows_from_trace
@@ -86,6 +93,11 @@ class ClosedLoopConfig:
     solo_eps: float = 0.05
     est_max_lost_frac: float = 0.5
     scatter: str = "cuda"
+    # the observability plane: a MetricFrame in the carry (the event loop's
+    # metrics plus the per-segment accounting), and the decision recorder,
+    # which needs LoopCarry.rec to hold a RecState
+    metrics: bool = False
+    record: bool = False
 
 
 class LoopCarry(NamedTuple):
@@ -103,6 +115,8 @@ class LoopCarry(NamedTuple):
     ring: RingBlock  # telemetry ring tensors [capacity, ...]
     ring_ptr: torch.Tensor  # i32 ring write cursor
     ring_total: torch.Tensor  # i32 rows ever pushed
+    metrics: "obs_metrics.MetricFrame | None" = None  # the run's metrics plane
+    rec: "obs_recorder.RecState | None" = None  # the decision recorder's ring
 
 
 class SegmentIn(NamedTuple):
@@ -240,10 +254,33 @@ def _fold_segment(carry: LoopCarry, trace: EngineTrace, a_type, a_bytes, n_valid
     # the host path's per-segment ring push: exactly n_valid rows land
     cap = carry.ring.ints.shape[0]
     ring = ring_write_masked(carry.ring, block, carry.ring_ptr, n_valid)
+
+    mf = carry.metrics
+    if config.metrics:
+        # fold the segment's engine frame into the run frame, then add the
+        # closed-loop accounting the host path keeps
+        mf = obs_metrics.merge(carry.metrics, trace.metrics)
+        obs_metrics.count_(mf, "segments", seg_valid)
+        obs_metrics.count_(mf, "splits", split_fired.sum(dtype=torch.int32))
+        obs_metrics.count_(mf, "evictions", evict_fired.sum(dtype=torch.int32))
+        obs_metrics.count_(mf, "requeues", req_cnt)
+        obs_metrics.count_(mf, "ring_rows", n_valid)
+        # block rows naming a live (bank row, type) pair: the D columns the
+        # segment's telemetry can have moved (JAX re-blends just these)
+        touched = ((a_type >= 0) & (a_type < bank.L_t.shape[-1]) & (rblock.server >= 0)
+                   & (rblock.server < m)).sum(dtype=torch.int32)
+        obs_metrics.count_(mf, "d_cols_refreshed", touched)
+        if config.fleet:
+            obs_metrics.observe_(mf, "cusum_level", split_stat, carry.active & seg_valid)
+        obs_metrics.gauge_max_(mf, "ring_occupancy_peak",
+                               torch.clamp(carry.ring_total + n_valid, max=cap))
+        obs_metrics.gauge_max_(mf, "evicted_peak", (~active).sum(dtype=torch.float32))
+        obs_metrics.gauge_max_(mf, "requeue_peak", req_cnt)
     new = LoopCarry(
         bank=bank, det=det, row_map=row_map, read_row=read_row, active=active, seen=seen,
         req_type=req_type, req_bytes=req_bytes, req_n=req_cnt, ring=ring,
-        ring_ptr=(carry.ring_ptr + n_valid) % cap, ring_total=carry.ring_total + n_valid)
+        ring_ptr=(carry.ring_ptr + n_valid) % cap, ring_total=carry.ring_total + n_valid,
+        metrics=mf, rec=trace.rec if config.record else carry.rec)
     out_k = SegmentOut(
         placement=placement, was_queued=trace.was_queued, place_time=trace.place_time,
         finish_time=trace.finish_time, makespan=trace.makespan, max_deg=trace.max_deg,
@@ -281,9 +318,19 @@ def run_closed_loop(
         a_time, a_type, a_bytes, n_valid = _assemble(
             carry, xs.arr_time[k], xs.arr_type[k], xs.arr_bytes[k], seg_valid, n_seg)
         cluster_k = dataclasses.replace(cluster, D=D, active=carry.active.to(torch.float32))
+        rec_ctx = None
+        if config.record:
+            # the estimator / detector state the scheduler consults *this*
+            # segment, before the post-segment update
+            rec_ctx = obs_recorder.RecCtx(
+                n_pair=carry.bank.n_pair_t,
+                row_of=torch.clamp(carry.read_row, 0, carry.read_row.shape[0] - 1),
+                cusum=carry.det.stat.amax(1), pool_row=carry.read_row, segment=carry.seen)
         trace = trace_segment(cluster_k, dyn_stack[int(xs.dyn_idx[k])], a_time, a_type,
                               a_bytes, n_valid, objective=config.objective,
-                              scorer=config.scorer, telemetry=True, cache=cache)
+                              scorer=config.scorer, telemetry=True, metrics=config.metrics,
+                              record=config.record, rec=carry.rec, rec_ctx=rec_ctx,
+                              cache=cache)
         carry, D, out_k = _fold_segment(carry, trace, a_type, a_bytes, n_valid, seg_valid,
                                         Lp_t, logb_priors, config)
         outs.append(out_k)

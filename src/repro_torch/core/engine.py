@@ -6,9 +6,9 @@ arrival trace [(time, workload)] through the paper's online operating model
 the device-resident ``engine_torch.trace_segment`` loop, the trace padded to
 a power-of-two capacity (``capacity``) so that traces of one capacity share
 one loop: on the card, one captured CUDA graph of a block of micro-events,
-replayed until the trace is done. The runtime is PyTorch only; the
-float64 oracle (``OnlineScheduler``) stays in the JAX package as the
-reference the tests hold this engine to.
+replayed until the trace is done. ``backend='numpy'`` runs the float64
+oracle instead (``core.scheduler.OnlineScheduler``, the copied reference
+event loop), as the JAX engine's numpy backend does.
 
 Candidate scoring goes through the shared (counts, wtypes) ->
 (cache_after, maxd_after) interface, provided by
@@ -28,10 +28,15 @@ segment. ``fleet=FleetController(...)`` adds the fleet-health control plane
 (pooling, drift detection, eviction and requeue), and ``run(device_loop=
 True)`` runs every segment through the fused closed loop
 (``core.closed_loop``) with no host decision between segments.
+
+``run(metrics=True, record=True)`` on either engine adds the observability
+plane (``repro_torch.obs``): the run's MetricFrame on ``result.metrics``
+and the decision flight recorder on ``result.decisions``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import TYPE_CHECKING, Callable, Literal, Sequence
 
 import numpy as np
@@ -39,20 +44,28 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.consolidation import consolidation_scores
+from ..obs import metrics as obs_metrics
+from ..obs import recorder as obs_recorder
+from ..obs import trace as obs_trace
+from ..obs.metrics import MetricFrame
+from ..obs.recorder import DecisionRing
 from ..telemetry.estimator import EstimatorBank, ScatterName, StreamingEstimator
 from ..telemetry.log import (ObservationLog, ObservationRing, RingBlock,
                              observations_from_trace, rows_from_trace)
+from .binpack import ClusterState, greedy_place
 from .binpack_torch import PackedCluster, score_candidates_torch
 from .contention import profile_pairwise_fast, type_tables
 from .engine_torch import QUEUED, EngineTrace, LoopStats, PackedDynamics, Scorer, trace_segment
+from .scheduler import OnlineScheduler
 from .server import ServerSpec
-from .workload import FS_GRID, RS_GRID, Workload, type_index
+from .workload import FS_GRID, RS_GRID, Workload, snap_to_grid, type_index
 
 if TYPE_CHECKING:
     from ..fleet import FleetController, HealthEvent
     from ..telemetry.drift import DriftSchedule
 
 ScorerName = Literal["cuda", "torch"]
+Backend = Literal["torch", "numpy"]
 
 #: the smallest event-loop capacity: short traces share one shape
 MIN_CAPACITY = 8
@@ -103,6 +116,12 @@ class EngineResult:
     #: the same records as validity-masked device rows (run(telemetry=
     #: 'device')): what AdaptiveEngine's stream mode folds into its ring
     stream_block: RingBlock | None = None
+    #: the metrics plane (run(metrics=True)): queue depth, waiting time,
+    #: Eqn-4 headroom, slowdown, per-server floor violations (repro_torch.obs)
+    metrics: MetricFrame | None = None
+    #: decision flight recorder state (run(record=True)): one provenance row
+    #: per placement commit / queue decision, in trace (arrival-sorted) order
+    decisions: "obs_recorder.RecState | None" = None
 
     @property
     def queued_indices(self) -> tuple[int, ...]:
@@ -118,7 +137,9 @@ class ConsolidationEngine:
 
     ``device=None`` means the card and raises without one; pass
     ``device='cpu'`` to run on the CPU. ``scorer`` is a backend name or a
-    callable with the shared scoring signature.
+    callable with the shared scoring signature. ``backend='numpy'`` runs
+    every trace through the float64 oracle (``OnlineScheduler``) instead of
+    the device event loop.
     """
 
     def __init__(
@@ -131,10 +152,14 @@ class ConsolidationEngine:
         active: Sequence[bool] | np.ndarray | None = None,
         *,
         device: str | torch.device | None = None,
+        backend: Backend = "torch",
     ):
         self.device = resolve_device(device)
         if isinstance(scorer, str) and scorer not in ("cuda", "torch"):
             raise ValueError(f"unknown scorer backend {scorer!r}")
+        if backend not in ("torch", "numpy"):
+            raise ValueError(f"unknown engine backend {backend!r}")
+        self.backend = backend
         self.servers = tuple(servers)
         if D is None:
             # keyed by the frozen spec value, not its name: same-name variant
@@ -211,10 +236,13 @@ class ConsolidationEngine:
     def run(
         self,
         arrivals: Sequence[tuple[float, Workload]],
+        backend: Backend | None = None,
         *,
         telemetry: bool | Literal["host", "device"] = False,
         metrics: bool = False,
         record: bool = False,
+        rec: "obs_recorder.RecState | None" = None,
+        rec_ctx: "obs_recorder.RecCtx | None" = None,
     ) -> EngineResult:
         """Simulate arrivals [(time, workload)] to completion of all work.
 
@@ -229,22 +257,50 @@ class ConsolidationEngine:
         ``'device'`` attaches the same records as a validity-masked
         ``stream_block`` (``RingBlock``) instead, with nothing filtered or
         read back: the input of ``update_device`` and the observation ring.
-        The JAX engine's ``metrics`` and ``record`` outputs are not ported
-        yet and raise ``NotImplementedError``.
+
+        ``metrics=True`` updates the ``repro_torch.obs`` MetricFrame in the
+        event loop and attaches it as ``result.metrics`` (waiting-time /
+        headroom / slowdown histograms, queue depth, per-server floor
+        violations). ``record=True`` writes the decision flight recorder in
+        the event loop and attaches the ring state as ``result.decisions``:
+        one provenance row per placement commit or queue decision,
+        decision-identical to an unrecorded run. ``rec`` continues an
+        existing ring across calls and ``rec_ctx`` supplies the estimator /
+        detector context to sample; both default per run. Telemetry,
+        metrics and recording are the device loop's: the numpy backend
+        raises ``ValueError`` on them, as JAX's does.
+
+        ``backend`` overrides the engine's backend for this call.
         """
         if telemetry not in (False, True, "host", "device"):
             raise ValueError(f"unknown telemetry mode {telemetry!r}")
-        for flag, name in ((metrics, "metrics"), (record, "record")):
-            if flag:
-                raise NotImplementedError(f"run({name}=...) is not ported yet")
+        backend = backend or self.backend
+        if backend not in ("torch", "numpy"):
+            raise ValueError(f"unknown engine backend {backend!r}")
+        if backend == "numpy":
+            for flag, name in ((telemetry, "telemetry"), (metrics, "metrics"),
+                               (record, "record")):
+                if flag:
+                    raise ValueError(f"{name} requires the torch engine backend")
+            if self._active is not None and not self._active.all():
+                raise ValueError("server masking (set_active) requires the torch "
+                                 "engine backend; the numpy oracle has no mask")
         if not arrivals:
             obs = (ObservationLog.empty(self.cluster.T, self.device)
                    if telemetry in (True, "host") else None)
-            return EngineResult((), (), (), (), 0.0, 0.0, "torch", observations=obs)
-        return self._run_torch(arrivals, telemetry)
+            frame = obs_metrics.zeros(len(self.servers), self.device) if metrics else None
+            return EngineResult((), (), (), (), 0.0, 0.0, backend, observations=obs,
+                                metrics=frame, decisions=rec if record else None)
+        if backend == "numpy":
+            return self._run_oracle(arrivals)
+        return self._run_torch(arrivals, telemetry, metrics=metrics, record=record, rec=rec,
+                               rec_ctx=rec_ctx)
 
     def _run_torch(self, arrivals: Sequence[tuple[float, Workload]],
-                   telemetry: bool | Literal["host", "device"] = False) -> EngineResult:
+                   telemetry: bool | Literal["host", "device"] = False, *,
+                   metrics: bool = False, record: bool = False,
+                   rec: "obs_recorder.RecState | None" = None,
+                   rec_ctx: "obs_recorder.RecCtx | None" = None) -> EngineResult:
         n = len(arrivals)
         times = np.asarray([t for t, _ in arrivals], np.float64)
         order = np.argsort(times, kind="stable")
@@ -272,9 +328,15 @@ class ConsolidationEngine:
             scorer = self.scorer
         else:
             scorer = None if self.scorer == "torch" else make_scorer(self.scorer)
+        if record and rec is None:
+            # a fresh ring of 2n rows, as JAX's run_trace mints one; the
+            # padded capacity would size it by the padding instead
+            rec = obs_recorder.init(2 * n, dev)
         trace = _head(trace_segment(self.cluster, self.dyn, arr_time, arr_type, arr_bytes, n,
                                     objective=self.objective, scorer=scorer,
-                                    telemetry=bool(telemetry), cache=self._loops), n)
+                                    telemetry=bool(telemetry), metrics=metrics,
+                                    record=record, rec=rec, rec_ctx=rec_ctx,
+                                    cache=self._loops), n)
         arr_type, arr_bytes = arr_type[:n], arr_bytes[:n]
         if bool(trace.deadlock):
             raise Deadlock("deadlock: queued workloads fit no empty server")
@@ -305,6 +367,46 @@ class ConsolidationEngine:
             stats=trace.stats,
             observations=obs,
             stream_block=block,
+            metrics=trace.metrics,
+            decisions=trace.rec,
+        )
+
+    # -- reference oracle -------------------------------------------------
+    def _run_oracle(self, arrivals: Sequence[tuple[float, Workload]]) -> EngineResult:
+        """The float64 reference event loop (``OnlineScheduler``) over the
+        engine's D, as JAX's ``backend='numpy'``."""
+        D = [d.cpu().numpy() if torch.is_tensor(d) else np.asarray(d) for d in self.D]
+        state = ClusterState.empty(list(self.servers), D, self.alpha)
+        place = functools.partial(greedy_place, objective=self.objective)
+        sched = OnlineScheduler(state, place=place)
+        # distinct object identities per arrival so events map back uniquely
+        # (callers may legitimately pass the same Workload object many times)
+        copies = [(t, dataclasses.replace(snap_to_grid(w))) for t, w in arrivals]
+        result = sched.run(copies)
+
+        idx_of = {id(w): i for i, (_, w) in enumerate(copies)}
+        n = len(copies)
+        was_queued = [False] * n
+        place_time = [-1.0] * n
+        finish_time = [float("inf")] * n
+        for e in result.events:
+            i = idx_of.get(id(e.workload))
+            if i is None:
+                continue
+            if e.kind == "queue":
+                was_queued[i] = True
+            elif e.kind == "place":
+                place_time[i] = e.time
+            elif e.kind == "finish":
+                finish_time[i] = e.time
+        return EngineResult(
+            placements=tuple(result.placements[i] for i in range(n)),
+            was_queued=tuple(was_queued),
+            place_times=tuple(place_time),
+            finish_times=tuple(finish_time),
+            makespan=float(result.makespan),
+            max_observed_degradation=float(result.max_observed_degradation),
+            backend="numpy",
         )
 
 
@@ -334,6 +436,13 @@ class AdaptiveResult:
     #: fleet-health events fired after each segment (empty without a fleet
     #: controller): splits and evictions, in the order they were taken
     health: "tuple[tuple[HealthEvent, ...], ...]" = ()
+    #: merged run-level MetricFrame (run(metrics=True)): the per-segment
+    #: engine frames merged, plus the closed-loop counters (segments,
+    #: splits, evictions, requeues, ring rows) and gauges
+    metrics: MetricFrame | None = None
+    #: the engine's decision flight recorder after the run (run(record=True)):
+    #: the host mirror whose ring holds every recorded placement decision
+    decisions: "DecisionRing | None" = None
 
     @property
     def makespans(self) -> tuple[float, ...]:
@@ -388,8 +497,10 @@ class AdaptiveEngine:
     work (placed on the evicted server in the detection segment, or never
     placed) is requeued at the head of the next segment.
 
-    The JAX package's metrics plane and decision recorder are not ported
-    yet and raise ``NotImplementedError``.
+    ``run(metrics=True)`` merges every segment's MetricFrame with the
+    closed-loop counters into one run frame, and ``run(record=True)``
+    records every segment's decisions into one ring (``self.decisions``, of
+    ``decision_capacity`` rows, minted on first use), on both paths.
     """
 
     def __init__(
@@ -408,6 +519,7 @@ class AdaptiveEngine:
         stream: bool = False,
         ring_capacity: int = 4096,
         fleet: "FleetController | None" = None,
+        decision_capacity: int = 1024,
         *,
         device: str | torch.device | None = None,
     ):
@@ -440,6 +552,10 @@ class AdaptiveEngine:
         self._dyn_cache: dict[tuple[ServerSpec, ...], PackedDynamics] = {}
         #: the fused loop's event loops per shape (their graphs on the card)
         self._closed_loops: dict = {}
+        # the decision flight recorder's host mirror, minted on the first
+        # run(record=True) (capacity is spent in decisions, not segments)
+        self.decision_capacity = int(decision_capacity)
+        self.decisions: DecisionRing | None = None
 
         priors: list[np.ndarray | float]
         if isinstance(prior, str):
@@ -514,6 +630,31 @@ class AdaptiveEngine:
         self._engine_cache[specs] = engine
         return engine
 
+    def _decision_ring(self) -> DecisionRing:
+        """The recorder's host mirror, minted on first use."""
+        if self.decisions is None:
+            self.decisions = DecisionRing(self.decision_capacity, self.device)
+        return self.decisions
+
+    def _recorder_ctx(self, segment: int) -> "obs_recorder.RecCtx":
+        """Per-segment recorder context from the live host-side state --
+        what the *next* engine run's scheduler will consult."""
+        if self.fleet is not None:
+            # stamp with the controller's live burn-in clock -- the fused
+            # loop stamps carry.seen, which starts at _segments_seen
+            return self.fleet.recorder_ctx(self.fleet._segments_seen)
+        m = len(self.servers)
+        if self.bank is not None:
+            n_pair = self.bank.stacked_state().n_pair_t
+        else:
+            n_pair = torch.stack([e.n_pair.T for e in self.estimators]).to(torch.float32)
+        ident = torch.arange(m, dtype=torch.int32, device=self.device)
+        return obs_recorder.RecCtx(
+            n_pair=n_pair, row_of=ident,
+            cusum=torch.zeros((m,), dtype=torch.float32, device=self.device),  # no detector
+            pool_row=ident, segment=torch.tensor(segment, dtype=torch.int32,
+                                                 device=self.device))
+
     # -- the loop ---------------------------------------------------------
     def run(
         self,
@@ -540,22 +681,30 @@ class AdaptiveEngine:
         final state, with no host read between segments beyond the event
         loop's one per block. It requires stream mode, an arrival count
         divisible by ``segments``, drift that leaves ``llc_bytes`` /
-        ``llc_tolerance`` alone, and no ``on_segment``. ``metrics`` and
-        ``record`` are the JAX engine's metrics plane and decision recorder;
-        they are not ported yet and raise.
+        ``llc_tolerance`` alone, and no ``on_segment``.
+
+        ``metrics=True`` updates the ``repro_torch.obs`` MetricFrame in every
+        segment's event loop and attaches the merged run frame as
+        ``result.metrics``; the split/evict/requeue counters match
+        ``result.health`` on both paths. Here it is merged per segment on the
+        host; on the fused loop it rides the carry.
+
+        ``record=True`` records every segment's decisions into one ring
+        (``self.decisions``, capacity ``decision_capacity``), sampling the
+        estimator pair exposure / detector CUSUM state the segment's
+        scheduler consulted, and returns it on ``result.decisions``.
+        Decisions are unchanged.
         """
-        for flag, name in ((metrics, "metrics"), (record, "record")):
-            if flag:
-                raise NotImplementedError(
-                    f"AdaptiveEngine.run({name}=True) is not ported yet "
-                    f"(ROADMAP Queue 1, item 7)")
         if device_loop:
             if on_segment is not None:
                 raise ValueError(
                     "device_loop=True runs all segments without a host point "
                     "between them; there is none for on_segment -- use the "
                     "host-alternating path")
-            return self._run_device_loop(arrivals, segments)
+            return self._run_device_loop(arrivals, segments, metrics=metrics, record=record)
+        m = len(self.servers)
+        frame = obs_metrics.zeros(m, self.device) if metrics else None
+        ring = self._decision_ring() if record else None
         ordered = sorted(arrivals, key=lambda tw: tw[0])
         bounds = np.linspace(0, len(ordered), segments + 1).astype(int)
         results, n_obs, t_starts, health = [], [], [], []
@@ -567,12 +716,15 @@ class AdaptiveEngine:
                 chunk = [(t0, w) for w in requeue] + chunk
                 requeue = []
             engine = self.engine_for_segment(k)
+            obs_kw = dict(metrics=metrics)
+            if record:
+                obs_kw.update(record=True, rec=ring.state, rec_ctx=self._recorder_ctx(k))
             events: "tuple[HealthEvent, ...]" = ()
             if self.stream:
                 # the segment's rows go trace -> ring -> one banked update
                 # without a host log; the estimators consume the FULL block
                 # (the ring keeps only its newest capacity rows for history)
-                res = engine.run(chunk, telemetry="device")
+                res = engine.run(chunk, telemetry="device", **obs_kw)
                 used = 0
                 if res.stream_block is not None:
                     self.ring.push(res.stream_block)
@@ -588,20 +740,41 @@ class AdaptiveEngine:
                         # without forming the [2, m, T, T] statistics
                         used = self.bank.update_device(res.stream_block, sparse_tables=True)
             else:
-                res = engine.run(chunk, telemetry=True)
+                res = engine.run(chunk, telemetry=True, **obs_kw)
                 used = sum(est.update(res.observations.for_server(s))
                            for s, est in enumerate(self.estimators))
+            if record and res.decisions is not None:
+                ring.adopt(res.decisions)  # the next segment continues it
+            if metrics:
+                # the closed-loop accounting the fused loop keeps in its
+                # carry, from the host's own bookkeeping
+                frame = obs_metrics.merge(frame, res.metrics)
+                obs_metrics.count_(frame, "segments", 1)
+                obs_metrics.count_(frame, "splits", sum(1 for ev in events if ev.kind == "split"))
+                obs_metrics.count_(frame, "evictions",
+                                   sum(1 for ev in events if ev.kind == "evict"))
+                obs_metrics.count_(frame, "requeues", len(requeue))
+                obs_metrics.gauge_max_(frame, "requeue_peak", float(len(requeue)))
+                if self.stream:
+                    obs_metrics.count_(frame, "ring_rows", len(chunk))
+                    obs_metrics.gauge_max_(frame, "ring_occupancy_peak",
+                                           float(min(self.ring.total, self.ring.capacity)))
+                if self.fleet is not None:
+                    obs_metrics.gauge_max_(frame, "evicted_peak",
+                                           float((~self.fleet.active_mask()).sum()))
             results.append(res)
             n_obs.append(used)
             t_starts.append(chunk[0][0] if chunk else 0.0)
             health.append(events)
             if on_segment is not None:
                 on_segment(k, res, self)
-        return AdaptiveResult(tuple(results), tuple(n_obs), tuple(t_starts), tuple(health))
+        return AdaptiveResult(tuple(results), tuple(n_obs), tuple(t_starts), tuple(health),
+                              metrics=frame, decisions=ring)
 
     # -- the fused device-resident loop -----------------------------------
     def _run_device_loop(self, arrivals: Sequence[tuple[float, Workload]],
-                         segments: int) -> AdaptiveResult:
+                         segments: int, *, metrics: bool = False,
+                         record: bool = False) -> AdaptiveResult:
         """One ``run_closed_loop`` over the whole multi-segment run.
 
         Host work is prologue (pack the arrivals and dynamics, snapshot the
@@ -612,6 +785,12 @@ class AdaptiveEngine:
         ``PooledEstimatorBank.adopt_rows``). Per-segment ``EngineResult`` s
         carry no ``observations`` / ``stream_block``: the telemetry was
         consumed on the device (the ring holds the bounded history).
+
+        The three host phases are wrapped in ``repro_torch.obs.trace`` spans
+        (``closed_loop.pack`` / ``.dispatch`` / ``.epilogue``). With
+        ``metrics=True`` the MetricFrame rides the carry and the run frame is
+        returned on ``AdaptiveResult.metrics``; with ``record=True`` the
+        decision ring does, and is adopted into ``self.decisions``.
         """
         from ..fleet.detect import CusumState
         from .closed_loop import (ClosedLoopConfig, LoopCarry, SegmentIn, run_closed_loop,
@@ -639,95 +818,103 @@ class AdaptiveEngine:
                              "confidence_floor; estimators disagree")
         dev = self.device
 
-        ordered = sorted(arrivals, key=lambda tw: tw[0])
-        times = np.asarray([t for t, _ in ordered], np.float64)
-        wtypes = np.asarray([type_index(w) for _, w in ordered], np.int32)
-        nbytes = np.asarray([w.data_total for _, w in ordered], np.float64)
+        with obs_trace.span("closed_loop.pack", segments=segments, m=m):
+            ordered = sorted(arrivals, key=lambda tw: tw[0])
+            times = np.asarray([t for t, _ in ordered], np.float64)
+            wtypes = np.asarray([type_index(w) for _, w in ordered], np.int32)
+            nbytes = np.asarray([w.data_total for _, w in ordered], np.float64)
 
-        # segments bucket to a power-of-two count (padding masked by
-        # seg_valid), as JAX buckets its compiled scan
-        S_cap = 4
-        while S_cap < segments:
-            S_cap *= 2
-        arr_time = np.zeros((S_cap, n_seg), np.float32)
-        arr_type = np.zeros((S_cap, n_seg), np.int32)
-        arr_bytes = np.ones((S_cap, n_seg), np.float32)
-        t0s = []
-        for k in range(segments):
-            sl = slice(k * n_seg, (k + 1) * n_seg)
-            t0 = float(times[k * n_seg])
-            t0s.append(t0)
-            arr_time[k] = times[sl] - t0
-            arr_type[k] = wtypes[sl]
-            arr_bytes[k] = nbytes[sl]
+            # segments bucket to a power-of-two count (padding masked by
+            # seg_valid), as JAX buckets its compiled scan
+            S_cap = 4
+            while S_cap < segments:
+                S_cap *= 2
+            arr_time = np.zeros((S_cap, n_seg), np.float32)
+            arr_type = np.zeros((S_cap, n_seg), np.int32)
+            arr_bytes = np.ones((S_cap, n_seg), np.float32)
+            t0s = []
+            for k in range(segments):
+                sl = slice(k * n_seg, (k + 1) * n_seg)
+                t0 = float(times[k * n_seg])
+                t0s.append(t0)
+                arr_time[k] = times[sl] - t0
+                arr_type[k] = wtypes[sl]
+                arr_bytes[k] = nbytes[sl]
 
-        # per-segment worlds, deduplicated; the cluster's structural tables
-        # must hold for all of them
-        structural = [(s.llc_bytes, s.llc_tolerance) for s in self.servers]
-        spec_of: dict[tuple[ServerSpec, ...], int] = {}
-        dyn_idx = np.zeros(S_cap, np.int64)
-        for k in range(segments):
-            specs = (tuple(self.drift.specs_at(self.servers, k))
-                     if self.drift is not None else self.servers)
-            if [(s.llc_bytes, s.llc_tolerance) for s in specs] != structural:
-                raise ValueError(
-                    "device_loop=True keeps one cluster for all segments: "
-                    "drift may not change llc_bytes/llc_tolerance (run the "
-                    "host-alternating path for structural drift)")
-            dyn_idx[k] = spec_of.setdefault(specs, len(spec_of))
-        for specs in spec_of:
-            if specs not in self._dyn_cache:
-                self._dyn_cache[specs] = PackedDynamics.build(list(specs), device=dev)
-        dyn_stack = tuple(self._dyn_cache[s] for s in spec_of)
-        cluster = PackedCluster.build(list(self.servers),
-                                      torch.zeros((GRID_T, GRID_T), dtype=torch.float32,
-                                                  device=dev), self.alpha, device=dev)
-        Lp_t = torch.stack([e._L_prior.T for e in self.estimators]).contiguous()
-        logb_priors = torch.stack([e._logb_prior for e in self.estimators]).to(torch.float32)
+            # per-segment worlds, deduplicated; the cluster's structural tables
+            # must hold for all of them
+            structural = [(s.llc_bytes, s.llc_tolerance) for s in self.servers]
+            spec_of: dict[tuple[ServerSpec, ...], int] = {}
+            dyn_idx = np.zeros(S_cap, np.int64)
+            for k in range(segments):
+                specs = (tuple(self.drift.specs_at(self.servers, k))
+                         if self.drift is not None else self.servers)
+                if [(s.llc_bytes, s.llc_tolerance) for s in specs] != structural:
+                    raise ValueError(
+                        "device_loop=True keeps one cluster for all segments: "
+                        "drift may not change llc_bytes/llc_tolerance (run the "
+                        "host-alternating path for structural drift)")
+                dyn_idx[k] = spec_of.setdefault(specs, len(spec_of))
+            for specs in spec_of:
+                if specs not in self._dyn_cache:
+                    self._dyn_cache[specs] = PackedDynamics.build(list(specs), device=dev)
+            dyn_stack = tuple(self._dyn_cache[s] for s in spec_of)
+            cluster = PackedCluster.build(list(self.servers),
+                                          torch.zeros((GRID_T, GRID_T), dtype=torch.float32,
+                                                      device=dev), self.alpha, device=dev)
+            Lp_t = torch.stack([e._L_prior.T for e in self.estimators]).contiguous()
+            logb_priors = torch.stack([e._logb_prior for e in self.estimators]).to(torch.float32)
 
-        scorer = None if self.scorer == "torch" else make_scorer(self.scorer)
-        h = e0._hypers
-        est_h = dict(lr=h["lr"], decay=h["decay"], step_damp=h["step_damp"],
-                     solo_eps=h["solo_eps"], est_max_lost_frac=h["max_lost_frac"],
-                     scatter=h["scatter"])
-        i32 = dict(dtype=torch.int32, device=dev)
-        queue = dict(req_type=torch.zeros(R, **i32),
-                     req_bytes=torch.ones(R, dtype=torch.float32, device=dev),
-                     req_n=torch.zeros((), **i32), ring=self.ring._buf,
-                     ring_ptr=torch.tensor(self.ring.ptr, **i32),
-                     ring_total=torch.tensor(self.ring.total, **i32))
-        fc = self.fleet
-        if fc is not None:
-            fc._require_bound()
-            config = ClosedLoopConfig(
-                objective=self.objective, scorer=scorer, fleet=True,
-                warmup_segments=fc.warmup_segments, cusum_k=fc.cusum_k, cusum_h=fc.cusum_h,
-                level_decay=fc.level_decay, fail_floor=fc.fail_floor,
-                min_exposure=fc.min_exposure, det_max_lost_frac=fc.max_lost_frac,
-                confidence_floor=float(e0.confidence_floor), **est_h)
-            carry0 = LoopCarry(
-                bank=fc.pool.bank.stacked_state(), det=fc.detector.state,
-                row_map=torch.from_numpy(fc.pool.row_of.astype(np.int32)).to(dev),
-                read_row=torch.from_numpy(fc.pool._read_row.astype(np.int32)).to(dev),
-                active=torch.from_numpy(fc._active.copy()).to(dev),
-                seen=torch.tensor(fc._segments_seen, **i32), **queue)
-        else:
-            config = ClosedLoopConfig(objective=self.objective, scorer=scorer, fleet=False,
-                                      confidence_floor=float(e0.confidence_floor), **est_h)
-            carry0 = LoopCarry(
-                bank=self.bank.stacked_state(), det=CusumState.zeros(m, device=dev),
-                row_map=torch.arange(m, **i32), read_row=torch.arange(m, **i32),
-                active=torch.ones(m, dtype=torch.bool, device=dev),
-                seen=torch.zeros((), **i32), **queue)
-        xs = SegmentIn(
-            arr_time=torch.from_numpy(arr_time).to(dev),
-            arr_type=torch.from_numpy(arr_type).to(dev),
-            arr_bytes=torch.from_numpy(arr_bytes).to(dev), dyn_idx=dyn_idx,
-            seg_valid=torch.from_numpy(np.arange(S_cap) < segments).to(dev))
+            scorer = None if self.scorer == "torch" else make_scorer(self.scorer)
+            h = e0._hypers
+            est_h = dict(lr=h["lr"], decay=h["decay"], step_damp=h["step_damp"],
+                         solo_eps=h["solo_eps"], est_max_lost_frac=h["max_lost_frac"],
+                         scatter=h["scatter"])
+            i32 = dict(dtype=torch.int32, device=dev)
+            queue = dict(req_type=torch.zeros(R, **i32),
+                         req_bytes=torch.ones(R, dtype=torch.float32, device=dev),
+                         req_n=torch.zeros((), **i32), ring=self.ring._buf,
+                         ring_ptr=torch.tensor(self.ring.ptr, **i32),
+                         ring_total=torch.tensor(self.ring.total, **i32))
+            # the observability plane's carry, built here: a tensor made from
+            # host data inside a segment would be a copy that waits on the card
+            obs0 = dict(metrics=obs_metrics.zeros(m, dev) if metrics else None,
+                        rec=obs_recorder.clone(self._decision_ring().state) if record else None)
+            fc = self.fleet
+            if fc is not None:
+                fc._require_bound()
+                config = ClosedLoopConfig(
+                    objective=self.objective, scorer=scorer, fleet=True,
+                    warmup_segments=fc.warmup_segments, cusum_k=fc.cusum_k, cusum_h=fc.cusum_h,
+                    level_decay=fc.level_decay, fail_floor=fc.fail_floor,
+                    min_exposure=fc.min_exposure, det_max_lost_frac=fc.max_lost_frac,
+                    confidence_floor=float(e0.confidence_floor), metrics=metrics, record=record,
+                    **est_h)
+                carry0 = LoopCarry(
+                    bank=fc.pool.bank.stacked_state(), det=fc.detector.state,
+                    row_map=torch.from_numpy(fc.pool.row_of.astype(np.int32)).to(dev),
+                    read_row=torch.from_numpy(fc.pool._read_row.astype(np.int32)).to(dev),
+                    active=torch.from_numpy(fc._active.copy()).to(dev),
+                    seen=torch.tensor(fc._segments_seen, **i32), **queue, **obs0)
+            else:
+                config = ClosedLoopConfig(objective=self.objective, scorer=scorer, fleet=False,
+                                          confidence_floor=float(e0.confidence_floor), metrics=metrics, record=record,
+                    **est_h)
+                carry0 = LoopCarry(
+                    bank=self.bank.stacked_state(), det=CusumState.zeros(m, device=dev),
+                    row_map=torch.arange(m, **i32), read_row=torch.arange(m, **i32),
+                    active=torch.ones(m, dtype=torch.bool, device=dev),
+                    seen=torch.zeros((), **i32), **queue, **obs0)
+            xs = SegmentIn(
+                arr_time=torch.from_numpy(arr_time).to(dev),
+                arr_type=torch.from_numpy(arr_type).to(dev),
+                arr_bytes=torch.from_numpy(arr_bytes).to(dev), dyn_idx=dyn_idx,
+                seg_valid=torch.from_numpy(np.arange(S_cap) < segments).to(dev))
 
-        final, outs = run_closed_loop(cluster, dyn_stack, Lp_t, logb_priors, carry0, xs, config,
-                                      cache=self._closed_loops)
-        ys, stats = stack_outputs(outs)
+        with obs_trace.span("closed_loop.dispatch", segments=segments, m=m, s_cap=S_cap):
+            final, outs = run_closed_loop(cluster, dyn_stack, Lp_t, logb_priors, carry0, xs, config,
+                                          cache=self._closed_loops)
+            ys, stats = stack_outputs(outs)
 
         # failures surface before any state is adopted, leaving the host
         # objects where they were (the failed run never happened)
@@ -738,40 +925,48 @@ class AdaptiveEngine:
                 f"eviction requeued more than one segment's worth of work "
                 f"({R} slots); run the host-alternating path")
 
-        results, n_obs = [], []
-        for k in range(segments):
-            nv = int(ys.n_valid[k])
-            t0 = t0s[k]
-            placement = ys.placement[k][:nv]
-            pt = ys.place_time[k][:nv].astype(np.float64)
-            ft = ys.finish_time[k][:nv].astype(np.float64)
-            pt = np.where(pt >= 0.0, pt + t0, pt)
-            ft = np.where(np.isfinite(ft), ft + t0, ft)
-            results.append(EngineResult(
-                placements=tuple(int(p) if p != QUEUED else None for p in placement),
-                was_queued=tuple(bool(q) for q in ys.was_queued[k][:nv]),
-                place_times=tuple(float(t) for t in pt),
-                finish_times=tuple(float(t) for t in ft),
-                makespan=float(ys.makespan[k]) + t0,
-                max_observed_degradation=float(ys.max_deg[k]),
-                backend="torch", stats=stats[k]))
-            n_obs.append(int(ys.used[k]))
+        with obs_trace.span("closed_loop.epilogue", segments=segments):
+            results, n_obs = [], []
+            for k in range(segments):
+                nv = int(ys.n_valid[k])
+                t0 = t0s[k]
+                placement = ys.placement[k][:nv]
+                pt = ys.place_time[k][:nv].astype(np.float64)
+                ft = ys.finish_time[k][:nv].astype(np.float64)
+                pt = np.where(pt >= 0.0, pt + t0, pt)
+                ft = np.where(np.isfinite(ft), ft + t0, ft)
+                results.append(EngineResult(
+                    placements=tuple(int(p) if p != QUEUED else None for p in placement),
+                    was_queued=tuple(bool(q) for q in ys.was_queued[k][:nv]),
+                    place_times=tuple(float(t) for t in pt),
+                    finish_times=tuple(float(t) for t in ft),
+                    makespan=float(ys.makespan[k]) + t0,
+                    max_observed_degradation=float(ys.max_deg[k]),
+                    backend="torch", stats=stats[k]))
+                n_obs.append(int(ys.used[k]))
 
-        if fc is not None:
-            outcomes = [dict(segment=k, split_fired=ys.split_fired[k],
-                             split_stat=ys.split_stat[k], evict_fired=ys.evict_fired[k],
-                             evict_stat=ys.evict_stat[k], evict_route=ys.evict_route[k],
-                             active_after=ys.active_after[k])
-                        for k in range(segments)]
-            per_seg = fc.adopt_device_outcome(
-                final.bank, final.det, final.row_map.cpu().numpy(),
-                final.read_row.cpu().numpy(), final.active.cpu().numpy(), outcomes)
-            health = [tuple(evs) for evs in per_seg]
-        else:
-            self.bank._stacked = final.bank
-            self.bank._dirty = True
-            health = [() for _ in range(segments)]
-        self.ring._buf = final.ring
-        self.ring.ptr = int(final.ring_ptr)
-        self.ring.total = int(final.ring_total)
-        return AdaptiveResult(tuple(results), tuple(n_obs), tuple(t0s), tuple(health))
+            if fc is not None:
+                outcomes = [dict(segment=k, split_fired=ys.split_fired[k],
+                                 split_stat=ys.split_stat[k], evict_fired=ys.evict_fired[k],
+                                 evict_stat=ys.evict_stat[k], evict_route=ys.evict_route[k],
+                                 active_after=ys.active_after[k])
+                            for k in range(segments)]
+                per_seg = fc.adopt_device_outcome(
+                    final.bank, final.det, final.row_map.cpu().numpy(),
+                    final.read_row.cpu().numpy(), final.active.cpu().numpy(), outcomes)
+                health = [tuple(evs) for evs in per_seg]
+            else:
+                self.bank._stacked = final.bank
+                self.bank._dirty = True
+                health = [() for _ in range(segments)]
+            self.ring._buf = final.ring
+            self.ring.ptr = int(final.ring_ptr)
+            self.ring.total = int(final.ring_total)
+            if record:
+                self.decisions.adopt(final.rec)
+            log = obs_trace.active_log()
+            if metrics and log is not None:
+                log.snapshot("closed_loop.metrics", obs_metrics.snapshot(final.metrics))
+        return AdaptiveResult(tuple(results), tuple(n_obs), tuple(t0s), tuple(health),
+                              metrics=final.metrics,
+                              decisions=self.decisions if record else None)

@@ -42,6 +42,14 @@ State encoding (m servers, K = n run-slots per server, n arrivals, T types):
 as in JAX) bounds the arrivals the loop consumes, and rows past it keep the
 initial sentinels.
 
+``metrics=True`` and ``record=True`` add the observability plane
+(``repro_torch.obs``) to the step, as JAX's static flags do: a MetricFrame
+and a decision ring held in static buffers and updated in place at JAX's
+commit sites. As the step runs every branch, each update takes its
+branch's mask as its increment or weight (a gauge's value is -inf off its
+mask, a ring row is written back unchanged). With both flags off the step
+runs exactly the operations it ran without the plane.
+
 Ground-truth rates reproduce the simulator exactly for grid-typed
 workloads: with per-type counts c the log co-run slowdown of a type-t
 workload on server s is
@@ -67,7 +75,10 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import consolidation as kc
-from .binpack_torch import PackedCluster, choose, loads_from_sums, scores_from_sums
+from ..obs import metrics as obs_metrics
+from ..obs import recorder as obs_recorder
+from .binpack_torch import (PackedCluster, choose_scored, loads_from_sums, scores_from_sums,
+                            server_loads)
 from .contention import pair_slowdown_matrices, type_tables
 from .server import ServerSpec
 
@@ -214,6 +225,8 @@ class EngineTrace:
     obs_lost: torch.Tensor  # f32[n] (zeros unless telemetry=True)
     obs_logr: torch.Tensor  # f32[n] (zeros unless telemetry=True)
     stats: LoopStats
+    metrics: "obs_metrics.MetricFrame | None" = None  # run(metrics=True)
+    rec: "obs_recorder.RecState | None" = None  # run(record=True): the ring after the run
 
 
 def corun_rates(
@@ -257,13 +270,15 @@ class _TraceLoop:
     0-d."""
 
     def __init__(self, cluster, dyn, arr_time, arr_type, arr_bytes, objective, scorer,
-                 telemetry=False, n_valid=None, n_steps=None):
+                 telemetry=False, n_valid=None, n_steps=None, *, metrics=False, record=False,
+                 rec_capacity=None, npair_rows=None, rec=None, rec_ctx=None):
         self.n = self.K = n = int(arr_time.shape[0])
         self.m, self.T = m, T = cluster.m, cluster.T
         self.W = min(8, n)  # drain fast-path window (first W queued candidates)
         self.n_steps = 4 * n + 8 if n_steps is None else int(n_steps)
         self.S = max(1, min(BLOCK_STEPS, self.n_steps))
         self.objective, self.scorer, self.telemetry = objective, scorer, telemetry
+        self.metrics, self.record = metrics, record
         self.device = dev = cluster.device
         f32 = dict(dtype=torch.float32, device=dev)
         # the inputs every run copies in: a captured block reads these
@@ -289,11 +304,29 @@ class _TraceLoop:
         self.status = torch.zeros(4, dtype=torch.int32, device=dev)
         self.graph: torch.cuda.CUDAGraph | None = None
         self.tally: collections.Counter = collections.Counter()  # kernel launches per replay
-        self.load(cluster, dyn, arr_time, arr_type, arr_bytes, n if n_valid is None else n_valid)
+        if metrics or record:
+            self.servers = torch.arange(m, dtype=torch.int32, device=dev)
+            self.diagD = torch.empty((m, T), **f32)  # the scoring D's diagonal
+        # the observability plane's static buffers: the frame and the ring the
+        # block updates in place, and the recorder's context it samples
+        self.mf = obs_metrics.zeros(m, dev) if metrics else None
+        if record:
+            self.rec = obs_recorder.init(2 * n if rec_capacity is None else rec_capacity, dev)
+            i32 = dict(dtype=torch.int32, device=dev)
+            self.ctx = obs_recorder.RecCtx(
+                n_pair=None if npair_rows is None else torch.empty((npair_rows, T, T), **f32),
+                row_of=torch.empty((m,), **i32), cusum=torch.empty((m,), **f32),
+                pool_row=torch.empty((m,), **i32), segment=torch.empty((), **i32))
+        self._rec_in = None  # the ring a run continues (None: a fresh one)
+        self.load(cluster, dyn, arr_time, arr_type, arr_bytes, n if n_valid is None else n_valid,
+                  rec=rec, rec_ctx=rec_ctx)
 
-    def load(self, cluster, dyn, arr_time, arr_type, arr_bytes, n_valid) -> None:
+    def load(self, cluster, dyn, arr_time, arr_type, arr_bytes, n_valid, rec=None,
+             rec_ctx=None) -> None:
         """Copy a trace's inputs into the static buffers (device to device;
-        ``n_valid`` an int or a 0-d tensor)."""
+        ``n_valid`` an int or a 0-d tensor). With ``record``: ``rec`` is the
+        ring the run continues (None: a fresh one) and ``rec_ctx`` the
+        context it samples (None: ``recorder.default_ctx``)."""
         T, c = self.T, self.cluster
         for f in _CLUSTER_TENSORS:
             getattr(c, f).copy_(getattr(cluster, f))
@@ -317,13 +350,28 @@ class _TraceLoop:
             self.n_valid.copy_(n_valid)
         else:
             self.n_valid.fill_(int(n_valid))
+        if self.metrics or self.record:
+            self.diagD.copy_(torch.diagonal(c.D, dim1=1, dim2=2))
+        if self.record:
+            if rec is not None and rec.capacity != self.rec.capacity:
+                raise ValueError(f"a ring of capacity {rec.capacity} for a loop of "
+                                 f"{self.rec.capacity}")
+            self._rec_in = rec
+            if rec_ctx is None:
+                rec_ctx = obs_recorder.default_ctx(self.m, self.device)
+            if (rec_ctx.n_pair is None) != (self.ctx.n_pair is None):
+                raise ValueError("a recorder context with and without pair exposure for one "
+                                 "loop")
+            for dst, src in zip(self.ctx, rec_ctx):
+                if dst is not None:
+                    dst.copy_(src)
 
     # -- scoring ------------------------------------------------------------
     def pick_types(self, st):
         """Scoring + Fig-8 argmin (Table II / Fig-8 objective) for a candidate
-        of every grid type: (server [T], feasible [T]). The in-loop scorer
-        (``scorer=None``) reads the maintained sums instead of recomputing
-        counts @ D."""
+        of every grid type: (server [T], feasible [T], feasibility-masked
+        score [T, m]). The in-loop scorer (``scorer=None``) reads the
+        maintained sums instead of recomputing counts @ D."""
         cl = self.cluster
         if self.scorer is None:
             cache_a, maxd_a = scores_from_sums(cl, st.counts, st.comp, st.col0, self.types)
@@ -338,7 +386,7 @@ class _TraceLoop:
             score = 0.5 * (dcache + (maxd_a - maxd_now[None, :]))
         else:  # literal Fig 8: minimize the post-allocation average
             score = 0.5 * (cache_a + maxd_a)
-        return choose(cl, cache_a, maxd_a, score)
+        return choose_scored(cl, cache_a, maxd_a, score)
 
     # -- state updates --------------------------------------------------------
     def apply_delta(self, st, server, wtype, sign):
@@ -360,10 +408,21 @@ class _TraceLoop:
         st.colog_keep.index_copy_(0, server, sums[:, T:2 * T])
         st.colog_lost.index_copy_(0, server, sums[:, 2 * T:3 * T])
 
-    def place_if(self, st, found, idx, server, wtype, nbytes, t, queue_on_fail):
+    def place_if(self, st, found, idx, server, wtype, nbytes, t, queue_on_fail, *, on=None,
+                 score_row=None):
         """Commit arrival ``idx`` to ``server`` where ``found``; where not,
         queue it where ``queue_on_fail`` (a bool or a mask), else change
-        nothing. ``idx`` may be n (no candidate) when not ``found``."""
+        nothing. ``idx`` may be n (no candidate) when not ``found``.
+
+        ``queue_on_fail`` other than False marks an arrival-time decision,
+        the rest drain commits. With the observability plane: ``on`` is the
+        branch's mask (an arrival records a row whenever on, a drain only
+        where found) and ``score_row`` [m] the committed candidate's
+        feasibility-masked scores, the recorder's provenance."""
+        at_arrival = queue_on_fail is not False
+        if self.record:
+            server_g = torch.where(found, server, QUEUED)
+            qdepth = st.queued.sum(dtype=torch.int32)
         server = torch.where(found, server, 0)
         self.apply_delta(st, server, wtype, found.to(torch.float32))
         # first free slot; K == n, so one exists whenever found
@@ -377,6 +436,44 @@ class _TraceLoop:
         _put_if(st.was_queued, (i,), fail, fail)
         _put_if(st.placement, (i,), server, found)
         _put_if(st.place_time, (i,), t.reshape(1), found)
+        if not (self.metrics or self.record):
+            return
+        # Eqn-4 headroom of the committed server, post-commit: how much of
+        # the degradation budget this placement left on the table
+        d_pred = torch.clamp(st.col0[server] - self.diagD[server], 0.0, 1.0)  # [1, T]
+        present = st.counts[server] > 0
+        maxd_s = torch.where(present, d_pred, -torch.inf).amax(1)
+        maxd_s = torch.where(present.any(1), maxd_s, 0.0)
+        headroom = self.cluster.degradation_limit - maxd_s  # [1]
+        if self.metrics:
+            mf = self.mf
+            obs_metrics.count_(mf, "placements", found[0])
+            if at_arrival:  # the §V queue decision
+                obs_metrics.count_(mf, "queued", fail[0])
+            else:
+                obs_metrics.count_(mf, "drain_placements", found[0])
+            obs_metrics.observe_(mf, "waiting_time", t - self.arr_time[i], found)
+            obs_metrics.observe_(mf, "headroom", headroom, found)
+            obs_metrics.add_server_(mf, "placements", (self.servers == server) & found)
+        if self.record:
+            ctx = self.ctx
+            cand, csc = obs_recorder.top_candidates(score_row)
+            if ctx.n_pair is None:
+                npmin = torch.full_like(headroom, -1.0)
+            else:
+                row = torch.clamp(ctx.row_of[server], 0, ctx.n_pair.shape[0] - 1)
+                npmin = obs_recorder.pair_exposure_min(
+                    ctx.n_pair.index_select(0, row.long())[0], st.counts[server][0], wtype)
+            kind = (torch.where(found, obs_recorder.KIND_ARRIVE, obs_recorder.KIND_QUEUED)
+                    if at_arrival else torch.full_like(server, obs_recorder.KIND_DRAIN))
+            obs_recorder.record_row(
+                self.rec, on=on if at_arrival else found, arrival=idx, segment=ctx.segment,
+                server=server_g, kind=kind, qdepth=qdepth,
+                pool_row=torch.where(found, ctx.pool_row[server], -1), cand=cand, scores=csc,
+                t=t, headroom=torch.where(found, headroom, 0.0),
+                margin=obs_recorder.tie_margin(csc),
+                n_pair_min=torch.where(found, npmin, -1.0),
+                cusum=torch.where(found, ctx.cusum[server], 0.0))
 
     def advance(self, st, rate, rates, overflow, dt, moving):
         """Run every slot for ``dt`` where ``moving`` (a FINISH or an ARRIVE
@@ -405,7 +502,7 @@ class _TraceLoop:
         W = self.W
         if on is None:
             on = torch.ones((), dtype=torch.bool, device=self.device)
-        servers, ok = self.pick_types(st) if pick is None else pick
+        servers, ok, score = self.pick_types(st) if pick is None else pick
         # Queue order == arrival order (workloads are never re-queued), so the
         # first feasible *queued arrival index* is the item the oracle places:
         # the window of the first W queued finds it when its rank is <= W,
@@ -418,10 +515,14 @@ class _TraceLoop:
         st.full_scans.add_((on & full[0]).to(torch.int32))
         wq = self.arr_type[q]
         self.place_if(st, found & on, q, servers[wq], wq, self.arr_bytes[q], st.now,
-                      queue_on_fail=False)
+                      queue_on_fail=False, on=on, score_row=score[wq][0] if self.record else None)
         no_active = ~(st.slot_type >= 0).any()
         # deadlock: nothing runs, nothing arrives, the queue is stuck
         dead = ~found[0] & no_active & (st.ai >= self.n_valid) & st.queued.any()
+        if self.metrics:
+            obs_metrics.count_(self.mf, "drain_steps", on)
+            obs_metrics.count_(self.mf, "drain_full_scans", on & full[0])
+            obs_metrics.count_(self.mf, "deadlocks", on & dead & ~st.deadlock)
         st.deadlock.copy_(st.deadlock | (on & dead))
         st.draining.copy_(torch.where(on, found[0], st.draining))
 
@@ -434,6 +535,16 @@ class _TraceLoop:
         _put_if(st.slot_type, (s_fin, k_fin), self.free_slot, on)
         _put_if(st.slot_arr, (s_fin, k_fin), self.free_slot, on)
         _put_if(st.finish_time, (idx,), t_fin.reshape(1), on)
+        if self.metrics:
+            # observed slowdown = actual duration / solo duration on the
+            # server that ran it -- the serving-SLO quantity next to waiting
+            srate = self.solo[s_fin, wtype]
+            solo_dur = self.arr_bytes[idx] / torch.clamp(srate, min=1e-30)
+            actual = t_fin - st.place_time[idx]
+            mf = self.mf
+            obs_metrics.count_(mf, "finishes", on)
+            obs_metrics.observe_(mf, "slowdown", actual / torch.clamp(solo_dur, min=1e-30), on)
+            obs_metrics.add_server_(mf, "finishes", (self.servers == s_fin) & on)
         st.makespan.copy_(torch.where(on, t_fin, st.makespan))
         # §V: completion may unblock the queue
         st.draining.copy_(torch.where(on, st.queued.any(), st.draining))
@@ -441,10 +552,13 @@ class _TraceLoop:
     def arrive_branch(self, st, on, pick, a, t_arr):
         """Run the Fig-8 greedy on arrival ``a`` at ``t_arr``; queue it if no
         server passes both criteria."""
-        servers, ok = pick
+        servers, ok, score = pick
         wtype = self.arr_type[a]
+        if self.metrics:
+            obs_metrics.count_(self.mf, "arrivals", on)
         self.place_if(st, ok[wtype] & on, a, servers[wtype], wtype, self.arr_bytes[a], t_arr,
-                      queue_on_fail=on)
+                      queue_on_fail=on, on=on,
+                      score_row=score[wtype][0] if self.record else None)
         st.ai.add_(on.to(torch.int32))
 
     # -- the loop ---------------------------------------------------------------
@@ -484,6 +598,18 @@ class _TraceLoop:
         # observed (ground-truth) degradation of the running set, for audits
         deg = torch.where(st.counts > 0, 1.0 - rate / self.solo, -torch.inf)
         st.max_deg.copy_(torch.where(live, torch.maximum(st.max_deg, deg.max()), st.max_deg))
+        if self.metrics:
+            mf = self.mf
+            qdepth = st.queued.sum(dtype=torch.float32)
+            obs_metrics.count_(mf, "events", live)
+            obs_metrics.observe_(mf, "queue_depth", qdepth, live)
+            obs_metrics.gauge_max_(mf, "queue_peak", torch.where(live, qdepth, -torch.inf))
+            # utilization-floor violations: events where a running slot's
+            # observed degradation exceeded the paper's limit, per server
+            obs_metrics.add_server_(
+                mf, "floor_violations",
+                (deg > self.cluster.degradation_limit).any(1) & live)
+            obs_metrics.add_server_(mf, "busy_events", active.any(1) & live)
         pick = self.pick_types(st)  # advancing time leaves the scores as they are
         t_fin = st.now + flat[k_flat][0]
         t_next = torch.where(finish, t_fin, torch.where(arrive, t_arr, st.now))
@@ -533,9 +659,9 @@ class _TraceLoop:
         st = self.st
         on_card = self.device.type == "cuda"
         if on_card and self.graph is None:
-            st.reset()
+            self._reset()
             self._capture()
-        st.reset()
+        self._reset()
         reads = 0
         for _ in range(-(-self.n_steps // self.S)):
             if on_card:
@@ -551,7 +677,23 @@ class _TraceLoop:
             st.placement.clone(), st.was_queued.clone(), st.place_time.clone(),
             st.finish_time.clone(), st.makespan.clone(), st.max_deg.clone(),
             st.deadlock.clone(), st.obs_co.clone(), st.obs_lost.clone(), st.obs_logr.clone(),
-            LoopStats(events, reads, full_scans, self.S))
+            LoopStats(events, reads, full_scans, self.S),
+            metrics=obs_metrics.clone(self.mf) if self.metrics else None,
+            rec=obs_recorder.clone(self.rec) if self.record else None)
+
+    def _reset(self) -> None:
+        """The state, the frame and the ring at a run's start, in place."""
+        self.st.reset()
+        if self.metrics:
+            obs_metrics.reset_(self.mf)
+        if self.record:
+            if self._rec_in is None:
+                self.rec.block.ints.fill_(-1)
+                self.rec.block.floats.zero_()
+                self.rec.ptr.zero_()
+                self.rec.total.zero_()
+            else:
+                obs_recorder.copy_(self.rec, self._rec_in)
 
 
 def trace_segment(
@@ -566,6 +708,10 @@ def trace_segment(
     scorer: Scorer | None = None,
     n_steps: int | None = None,
     telemetry: bool = False,
+    metrics: bool = False,
+    record: bool = False,
+    rec: "obs_recorder.RecState | None" = None,
+    rec_ctx: "obs_recorder.RecCtx | None" = None,
     cache: dict | None = None,
 ) -> EngineTrace:
     """Body of :func:`run_trace`, with an arrival count apart from the shape.
@@ -579,23 +725,34 @@ def trace_segment(
     places exactly as the unpadded one: finish ties break in flat (server,
     slot) order, which more slots per server keep.
 
+    ``metrics``, ``record``, ``rec`` and ``rec_ctx`` are :func:`run_trace`'s.
+
     ``cache`` (a dict the caller keeps) holds one loop per shape (m, n, T,
-    device, degradation limit, objective, scorer, n_steps, telemetry), with
-    its static buffers and, on the card, its captured graph; a hit copies
-    this trace's inputs into it, as JAX compiles once per shape.
+    device, degradation limit, objective, scorer, n_steps, telemetry, and
+    the observability plane's flags, ring capacity and pair-exposure rows),
+    with its static buffers and, on the card, its captured graph; a hit
+    copies this trace's inputs into it, as JAX compiles once per shape.
     """
     n = int(arr_time.shape[0])
     n_steps = 4 * n + 8 if n_steps is None else int(n_steps)
+    record = bool(record)
+    rec_capacity = (2 * n if rec is None else rec.capacity) if record else None
+    npair_rows = (int(rec_ctx.n_pair.shape[0]) if record and rec_ctx is not None
+                  and rec_ctx.n_pair is not None else None)
     key = (cluster.m, n, cluster.T, str(cluster.device), cluster.degradation_limit,
-           objective, scorer, n_steps, bool(telemetry))
+           objective, scorer, n_steps, bool(telemetry), bool(metrics), record, rec_capacity,
+           npair_rows)
     loop = None if cache is None else cache.get(key)
     if loop is None:
         loop = _TraceLoop(cluster, dyn, arr_time, arr_type, arr_bytes, objective, scorer,
-                          bool(telemetry), n_valid=n_valid, n_steps=n_steps)
+                          bool(telemetry), n_valid=n_valid, n_steps=n_steps,
+                          metrics=bool(metrics), record=record, rec_capacity=rec_capacity,
+                          npair_rows=npair_rows, rec=rec, rec_ctx=rec_ctx)
         if cache is not None:
             cache[key] = loop
     else:
-        loop.load(cluster, dyn, arr_time, arr_type, arr_bytes, n_valid)
+        loop.load(cluster, dyn, arr_time, arr_type, arr_bytes, n_valid, rec=rec,
+                  rec_ctx=rec_ctx)
     return loop.run()
 
 
@@ -612,6 +769,8 @@ def run_trace(
     telemetry: bool = False,
     metrics: bool = False,
     record: bool = False,
+    rec: "obs_recorder.RecState | None" = None,
+    rec_ctx: "obs_recorder.RecCtx | None" = None,
     axis=None,
     cache: dict | None = None,
 ) -> EngineTrace:
@@ -637,15 +796,107 @@ def run_trace(
     time-integrated co-resident type counts, time past the physical TDP and
     log instantaneous rate over its run (``obs_co``, ``obs_lost``,
     ``obs_logr``), the input of ``telemetry.observations_from_trace``.
-    The JAX engine's ``metrics``, ``record`` and ``axis`` paths are not
-    ported yet and raise.
+
+    ``metrics=True`` updates an ``obs.MetricFrame`` in the loop (queue depth
+    per event, waiting time and Eqn-4 headroom at commit, drain occupancy,
+    observed slowdown at finish, per-server floor violations) and returns
+    it on ``EngineTrace.metrics``; decisions are unchanged.
+
+    ``record=True`` writes the decision flight recorder (``obs.recorder``):
+    one provenance row per placement commit or queue-at-arrival decision,
+    returned on ``EngineTrace.rec``. ``rec`` continues an existing ring
+    (default: a fresh ring of capacity 2n) and ``rec_ctx`` supplies the
+    estimator/detector context to sample (default: the no-estimator
+    context). Recording never feeds back into scoring.
+
+    The JAX engine's server axis (``axis``) is not ported yet and raises.
     """
-    for flag, name, item in ((metrics, "metrics", "7"), (record, "record", "7"),
-                             (axis is not None, "axis", "8")):
-        if flag:
-            raise NotImplementedError(
-                f"run_trace({name}=...) is not ported yet (ROADMAP Queue 1, item {item})")
+    if axis is not None:
+        raise NotImplementedError(
+            "run_trace(axis=...) is not ported yet (ROADMAP Queue 1, item 8)")
     n = int(arr_time.shape[0])
     return trace_segment(cluster, dyn, arr_time, arr_type, arr_bytes, n,
                          objective=objective, scorer=scorer, n_steps=n_steps,
-                         telemetry=telemetry, cache=cache)
+                         telemetry=telemetry, metrics=metrics, record=record, rec=rec,
+                         rec_ctx=rec_ctx, cache=cache)
+
+
+# --- tensor local search (core/refine.py's device backend) ------------------------
+
+#: iterations of the local search per host read (one block of masked moves)
+SEARCH_BLOCK = 8
+
+
+def local_search_torch(
+    cluster: PackedCluster, counts: torch.Tensor, max_iters: int = 100, *,
+    scorer: Scorer | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Best-improvement hill-climb over single-workload relocations.
+
+    The counterpart of JAX's ``local_search_jax``: every (source server s,
+    resident type t, target server u) move is scored in one vectorized
+    evaluation -- the additions through the shared scorer on every type at
+    once (Q = T; ``scorer=None`` is the CUDA kernel's wrapper, which runs
+    its plain version on CPU tensors), the removals by the same load
+    algebra -- and the steepest feasible descent step is applied until no
+    move improves the paper's global objective (sum of per-server average
+    loads) or ``max_iters`` moves are made. Ties break as ``jnp.argmin``
+    does: the first index of the flattened ``[m, T, m]`` delta.
+
+    JAX's ``while_loop`` becomes blocks of ``SEARCH_BLOCK`` iterations with
+    one host read each: an iteration after the search has stopped is masked and
+    changes nothing. Returns (counts, n_moves) as tensors on the device.
+    """
+    m, T = counts.shape
+    dev = counts.device
+    if scorer is None:
+        def scorer(cl, c, wtypes):
+            return kc.consolidation_scores(
+                c, cl.D, cl.rs, cl.resident * cl.fs[None, :], cl.llc_budget,
+                wtypes.to(torch.int32))
+    c = counts.to(torch.float32).clone()
+    types = torch.arange(T, dtype=torch.int32, device=dev)
+    diag = torch.diagonal(cluster.D, dim1=1, dim2=2)  # [m, T]
+    delta_add = cluster.rs[None, :] + cluster.resident * cluster.fs[None, :]  # [m, T]
+    eye_t = torch.eye(T, dtype=c.dtype, device=dev)
+    not_self = ~torch.eye(m, dtype=torch.bool, device=dev)[:, None, :]  # [m, 1, m]
+    eligible = (cluster.active > 0.5)[:, None]  # [m, 1]
+    moves = torch.zeros((), dtype=torch.int32, device=dev)
+    live = torch.ones((), dtype=torch.bool, device=dev)
+
+    def iteration():
+        cache_now, maxd_now = server_loads(cluster, c)
+        avg0 = 0.5 * (cache_now + maxd_now)  # [m]
+        # loads of each server after removing one of each type [m, T]
+        comp0 = c @ cluster.rs + (c * cluster.resident) @ cluster.fs
+        cache_rm = (comp0[:, None] - delta_add) / cluster.llc_budget[:, None]
+        col0 = torch.einsum("mt,mtu->mu", c, cluster.D)
+        d_rm = torch.clamp(col0[:, None, :] - cluster.D - diag[:, None, :], 0.0, 1.0)
+        present = (c[:, None, :] - eye_t[None]) > 0  # [m, T(moved), T]
+        maxd_rm = torch.where(present, d_rm, -torch.inf).amax(-1)
+        maxd_rm = torch.where(present.any(-1), maxd_rm, 0.0)
+        # additions: the shared scorer, every type on every server
+        cache_ad, maxd_ad = (a.T for a in scorer(cluster, c, types))  # [m, T]
+        avg_rm = 0.5 * (cache_rm + maxd_rm)
+        avg_ad = 0.5 * (cache_ad + maxd_ad)
+        # relocation targets honour the fleet-health mask like every other
+        # scoring consumer: no move may land work on an evicted server
+        feas_ad = (maxd_ad < cluster.degradation_limit) & (cache_ad <= 1.0) & eligible
+        # delta[s, t, u] = objective change of moving one type-t from s to u
+        delta = (avg_rm - avg0[:, None])[:, :, None] + (avg_ad - avg0[:, None]).T[None, :, :]
+        valid = (c[:, :, None] > 0) & feas_ad.T[None, :, :] & not_self
+        delta = torch.where(valid, delta, torch.inf).reshape(-1)
+        flat = torch.argmin(delta)  # the first minimal index, as jnp.argmin
+        improve = live & (delta[flat] < -1e-9) & (moves < max_iters)
+        s, t, u = flat // (T * m), (flat // m) % T, flat % m
+        inc = improve.to(c.dtype)
+        c.view(-1).index_add_(0, torch.stack([s * T + t, u * T + t]), torch.stack([-inc, inc]))
+        moves.add_(improve.to(torch.int32))
+        live.copy_(improve)
+
+    while True:
+        for _ in range(SEARCH_BLOCK):
+            iteration()
+        if not bool(live):  # the block's one host read
+            break
+    return c, moves

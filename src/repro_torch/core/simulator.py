@@ -1,9 +1,11 @@
 """Consolidated co-run simulator: the framework's stand-in for the paper's
 physical testbed (§IV, Figures 3-4, 6).
 
-Only the per-workload demand/sensitivity model and the cache-outcome base
-throughput live here: they are what the vectorized profiling and the
-engine's rate tables (``contention.type_tables``) are built from.
+The per-workload demand/sensitivity model and the cache-outcome base
+throughput are what the vectorized profiling and the engine's rate tables
+(``contention.type_tables``) are built from; ``simulate_corun`` is the
+float64 ground truth the oracle scheduler (``core.scheduler``) runs on.
+Copied from ``repro/core/simulator.py`` with the same names and arithmetic.
 
   1. LLC contention (§IV.A): the total data competing for the LLC is
        sum_i RS_i + sum_{i: FS_i <= LLC} FS_i                       (Eqn 1-2)
@@ -21,6 +23,7 @@ engine's rate tables (``contention.type_tables``) are built from.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 from .server import ServerSpec
@@ -40,6 +43,11 @@ def competing_cache_bytes(server: ServerSpec, workloads: Sequence[Workload]) -> 
         if w.fs <= server.llc_bytes:
             total += w.fs
     return total
+
+
+def cache_overflow(server: ServerSpec, workloads: Sequence[Workload]) -> bool:
+    """True when the physical LLC is past its (tolerant) capacity -> TDP hit."""
+    return competing_cache_bytes(server, workloads) > server.llc_tolerance * server.llc_bytes
 
 
 def _demands(server: ServerSpec, w: Workload, t_base: float, lost_cache: bool) -> dict:
@@ -102,3 +110,70 @@ def throughput_after_cache(server: ServerSpec, w: Workload, overflowed: bool) ->
     lvl = max(2, level_of(server, w.fs, w.op))
     bw, ov = level_params(server, lvl, w.op)
     return amortized(bw, ov, w.rs)
+
+
+def pair_slowdown(
+    server: ServerSpec,
+    w_i: Workload,
+    t_i: float,
+    w_j: Workload,
+    t_j: float,
+    lost_cache: bool,
+) -> float:
+    """d_{i,j}: the slowdown factor workload i imposes on co-runner j.
+
+    Per shared resource r with capacity C_r: proportional sharing only bites
+    when the summed demand exceeds capacity --
+        excess_r = max(0, 1 - C_r / (dem_i(r) + dem_j(r)))
+    -- plus a small baseline-interference term b_i(r). j is exposed to r for
+    a fraction s_j(r) of its critical path; independent resources compose
+    multiplicatively:
+        d_{i,j} = 1 - prod_r (1 - s_j(r) * (1 - (1-excess_r)(1-b_i(r)))).
+    """
+    dem_i = _demands(server, w_i, t_i, lost_cache)
+    dem_j = _demands(server, w_j, t_j, lost_cache)
+    sens_j = _sensitivity(server, w_j, t_j, dem_j)
+    caps = _capacities(server)
+    keep = 1.0
+    for r, cap in caps.items():
+        total = dem_i[r] + dem_j[r]
+        excess = max(0.0, 1.0 - cap / total) if total > 0 else 0.0
+        baseline = dem_i[r] / (dem_i[r] + _BASELINE * cap)
+        slow = 1.0 - (1.0 - excess) * (1.0 - baseline)
+        keep *= 1.0 - sens_j[r] * slow
+    return 1.0 - keep
+
+
+@dataclasses.dataclass(frozen=True)
+class CoRunResult:
+    throughputs: tuple[float, ...]  # bytes/s per workload under consolidation
+    solo: tuple[float, ...]  # solo throughput per workload
+    degradations: tuple[float, ...]  # D_i = 1 - T_corun / T_solo  (== O_i/(AR_i+O_i))
+    cache_overflowed: bool
+
+    @property
+    def max_degradation(self) -> float:
+        return max(self.degradations) if self.degradations else 0.0
+
+
+def simulate_corun(server: ServerSpec, workloads: Sequence[Workload]) -> CoRunResult:
+    """Ground-truth throughput of N consolidated workloads on one server."""
+    if not workloads:
+        return CoRunResult((), (), (), False)
+    overflowed = cache_overflow(server, workloads)
+    base = [throughput_after_cache(server, w, overflowed) for w in workloads]
+
+    thr, deg, solo = [], [], []
+    for j, w in enumerate(workloads):
+        slow = 1.0
+        for i in range(len(workloads)):
+            if i != j:
+                slow *= 1.0 - pair_slowdown(
+                    server, workloads[i], base[i], w, base[j], overflowed
+                )
+        t = base[j] * slow
+        s = solo_throughput(server, w)
+        thr.append(t)
+        solo.append(s)
+        deg.append(1.0 - t / s)
+    return CoRunResult(tuple(thr), tuple(solo), tuple(deg), overflowed)

@@ -288,11 +288,22 @@ class FleetController:
         return ratio.cpu().numpy().astype(np.float64)
 
     def recorder_ctx(self, segment: int):
-        """The decision recorder's per-segment context: the recorder is not
-        ported yet (ROADMAP Queue 1, item 7)."""
-        raise NotImplementedError(
-            "FleetController.recorder_ctx: the decision recorder is not ported yet "
-            "(ROADMAP Queue 1, item 7)")
+        """The decision recorder's per-segment context (``obs.recorder``):
+        the pair-exposure bank rows, pool read routing and per-server CUSUM
+        levels exactly as the *next* segment's scheduler consults them --
+        call after this segment's ``observe`` (as the fused loop samples its
+        carry at segment entry)."""
+        from ..obs import recorder as obs_recorder
+
+        self._require_bound()
+        dev = self.detector.state.stat.device
+        read_row = torch.from_numpy(self.pool._read_row.astype(np.int32)).to(dev)
+        return obs_recorder.RecCtx(
+            n_pair=self.pool.bank.stacked_state().n_pair_t,
+            row_of=read_row,
+            cusum=self.detector.state.stat.amax(1),
+            pool_row=read_row,
+            segment=torch.tensor(segment, dtype=torch.int32, device=dev))
 
     # -- the per-segment step ---------------------------------------------
     def observe(self, block: RingBlock, segment: int) -> tuple[int, list[HealthEvent]]:

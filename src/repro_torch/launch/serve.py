@@ -54,21 +54,25 @@ def admission_check(arch: str, n_streams: int, *, host: ServerSpec = H100_HOST,
     admitted on arrival and had to queue for capacity (criterion 1), and a
     deadlock admits nothing. Scores through the CUDA kernel on the card and
     the engine's own torch scorer on the CPU.
+
+    ``metrics=True`` updates the ``repro_torch.obs`` MetricFrame in the
+    admission run and returns ``(placements, frame)`` -- the frame's
+    waiting-time and slowdown histograms are the serving-SLO percentiles
+    (``None`` frame on deadlock: the run never completed).
     """
-    if metrics:
-        raise NotImplementedError(
-            "admission metrics need the obs/ plane: ROADMAP Queue 1 item 7")
     device = resolve_device(device)
     scorer = "cuda" if device.type == "cuda" else "torch"
     engine = ConsolidationEngine([host, host], scorer=scorer, device=device)
     stream = Workload(fs=64 * MB, rs=256 * KB, name=f"serve:{arch}")
     try:
-        result = engine.run([(0.0, stream)] * n_streams)
+        result = engine.run([(0.0, stream)] * n_streams, metrics=metrics)
     except Deadlock:
         # the stream fits no empty host: admit nothing rather than crash the
         # serving driver at startup
-        return [None] * n_streams
-    return [None if q else p for p, q in zip(result.placements, result.was_queued)]
+        placements = [None] * n_streams
+        return (placements, None) if metrics else placements
+    placements = [None if q else p for p, q in zip(result.placements, result.was_queued)]
+    return (placements, result.metrics) if metrics else placements
 
 
 def prepare(cfg: ModelConfig, *, requests: int, prompt_len: int, seed: int = 0,
@@ -135,8 +139,15 @@ def main(argv=None) -> torch.Tensor:
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
 
-    placements = admission_check(args.arch, args.requests, device=device)
+    placements, frame = admission_check(args.arch, args.requests, device=device, metrics=True)
     print(f"consolidation admission: {args.requests} stream(s) -> hosts {placements}")
+    if frame is not None:
+        # the paper's utilization-floor criterion as a serving SLO: waiting
+        # time (s) and slowdown (x solo) percentiles of the admission run
+        from ..obs.report import percentile_table
+
+        print("admission SLO percentiles:")
+        print(percentile_table(frame, ("waiting_time", "slowdown")))
 
     cfg = get_config(args.arch, smoke=args.smoke)
     model, lm, prompts = prepare(cfg, requests=args.requests, prompt_len=args.prompt_len,

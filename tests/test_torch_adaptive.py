@@ -134,20 +134,50 @@ def test_cluster_build_casts_any_D_form_alike():
     assert torch.equal(shared[1], want[0])
 
 
+def _assert_obs_matches_jax(got, want):
+    """The port's ``AdaptiveResult`` with ``metrics`` and ``record`` against
+    JAX's: the frame's counters, gauges and per-server columns exactly, the
+    ring's integer columns exactly and its float columns within 1e-5."""
+    from repro.obs import metrics as JM
+
+    gf, wf = got.metrics, want.metrics
+    assert np.array_equal(gf.counters.numpy(), np.asarray(wf.counters))
+    assert np.array_equal(gf.gauges.numpy(), np.asarray(wf.gauges))
+    assert np.array_equal(gf.per_server.numpy(), np.asarray(wf.per_server))
+    assert got.decisions.total == want.decisions.total == JM.counter_value(wf, "arrivals") \
+        + JM.counter_value(wf, "drain_placements")
+    gc, wc = got.decisions.columns(), want.decisions.columns()
+    for name in ("arrival", "segment", "server", "kind", "qdepth", "pool_row", "cand"):
+        assert np.array_equal(gc[name], wc[name]), name
+    for name in ("time", "headroom", "margin", "n_pair_min", "cusum", "score"):
+        np.testing.assert_allclose(gc[name], wc[name], atol=1e-5, rtol=1e-5, err_msg=name)
+
+
 def test_unported_modes_raise():
-    """``metrics`` and ``record`` (item 7) still raise on both engines; the
-    fleet plane (item 5) and the fused loop (item 6) are ported: they
-    construct and run, and the fused loop refuses a non-stream engine with
-    JAX's ``ValueError``."""
+    """``metrics`` and ``record`` (item 7) now run on both engines, host
+    path and stream, and match JAX's frame and ring on the same trace with
+    the decisions of an unflagged run; the fleet plane (item 5) and the
+    fused loop (item 6) construct and run, and the fused loop refuses a
+    non-stream engine with JAX's ``ValueError``."""
     # the stream (item 4a) is ported: tests/test_torch_stream.py holds it
     stream = TorchAdaptive([TM1], stream=True, scatter="numpy", device="cpu")
     assert stream.ring is not None and stream.bank is not None
     assert TorchEngine([TM1], device="cpu").run([], telemetry="device").stream_block is None
     plain = TorchAdaptive([TM1], scatter="numpy", device="cpu")
     for eng in (plain, stream):
-        for flag in ("metrics", "record"):
-            with pytest.raises(NotImplementedError, match=flag):
-                eng.run([], segments=1, **{flag: True})
+        empty = eng.run([], segments=1, metrics=True, record=True)
+        assert empty.decisions is eng.decisions and len(empty.decisions) == 0
+    seg = _segment(n=8)
+    for mode in (dict(), dict(stream=True)):
+        flagged = TorchAdaptive([TM1, TM2], scatter="numpy", device="cpu", **mode).run(
+            seg, segments=2, metrics=True, record=True)
+        bare = TorchAdaptive([TM1, TM2], scatter="numpy", device="cpu", **mode).run(
+            seg, segments=2)
+        want = AdaptiveEngine([M1, M2], scatter="jnp" if mode else "numpy", **mode).run(
+            seg, segments=2, metrics=True, record=True)
+        assert [r.placements for r in flagged.segments] == [r.placements for r in bare.segments]
+        assert [r.placements for r in flagged.segments] == [r.placements for r in want.segments]
+        _assert_obs_matches_jax(flagged, want)
     with pytest.raises(ValueError, match="stream"):
         plain.run(_segment(n=4), segments=1, device_loop=True)
     fleet = FleetController()

@@ -33,6 +33,7 @@ from repro_torch.core import closed_loop, engine as tengine
 from repro_torch.fleet import FleetController
 from repro_torch.kernels import cusum as kcu
 from repro_torch.kernels import fleet_actions as kfa
+from repro_torch.obs import metrics as TMetrics
 from repro_torch.telemetry import RingBlock, ring_write_masked
 from repro_torch.telemetry import gradual_decay as tgradual_decay
 from repro_torch.telemetry import stochastic_congestion as tstochastic_congestion
@@ -294,9 +295,22 @@ def test_device_loop_rejects_what_it_cannot_run(monkeypatch):
         monkeypatch.setattr(e, "confidence_floor", 3.0)
     with pytest.raises(ValueError, match="confidence_floor"):
         eng.run(arrivals, segments=2, device_loop=True)
+    # metrics and record (item 7) now run on the fused loop, as on the host
+    # path; the confidence_floor check still refuses them first
     for flag in ("metrics", "record"):
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(ValueError, match="confidence_floor"):
             eng.run(arrivals, segments=2, device_loop=True, **{flag: True})
+    ok = TorchAdaptive([TM1] * 2, prior=0.0, stream=True, scatter="torch", device="cpu")
+    res = ok.run(arrivals, segments=2, device_loop=True, metrics=True, record=True)
+    host = TorchAdaptive([TM1] * 2, prior=0.0, stream=True, scatter="torch",
+                         device="cpu").run(arrivals, segments=2, metrics=True, record=True)
+    assert [r.placements for r in res.segments] == [r.placements for r in host.segments]
+    # every counter but d_cols_refreshed, which only the fused loop keeps
+    # (JAX's device-only extra)
+    shared = [i for i, name in enumerate(TMetrics.COUNTERS) if name != "d_cols_refreshed"]
+    assert torch.equal(res.metrics.counters[shared], host.metrics.counters[shared])
+    assert TMetrics.counter_value(res.metrics, "d_cols_refreshed") > 0
+    assert torch.equal(res.decisions.state.block.ints, host.decisions.state.block.ints)
 
 
 def test_engine_cache_survives_mask_change(monkeypatch):

@@ -141,12 +141,28 @@ def test_engine_deadlock_raises():
 
 
 def test_engine_empty_trace_and_unported_flags():
+    """An empty trace on every mode; ``metrics`` and ``record`` (item 7) now
+    run as JAX's do: an empty frame, the ring passed in (or none), and the
+    numpy oracle refuses them with JAX's ``ValueError``."""
+    from repro.obs import metrics as JM
+    from repro_torch.obs import metrics as TM
+    from repro_torch.obs import recorder as TR
+
     port = TorchEngine([TM1], device="cpu")
     res = port.run([])
     assert res.backend == "torch" and res.placements == () and res.stats is None
-    for flag in ("metrics", "record"):
-        with pytest.raises(NotImplementedError):
-            port.run([], **{flag: True})
+    got = port.run([], metrics=True).metrics
+    want = ConsolidationEngine([M1]).run([], backend="jax", metrics=True).metrics
+    for a, b in zip(got, want):
+        assert np.array_equal(a.numpy(), np.asarray(b))
+    assert port.run([], record=True).decisions is None
+    ring = TR.init(4)
+    assert port.run([], record=True, rec=ring).decisions is ring
+    assert TM.counter_value(got, "events") == JM.counter_value(want, "events") == 0
+    oracle = TorchEngine([TM1], device="cpu", backend="numpy")
+    for flag in ("metrics", "record", "telemetry"):
+        with pytest.raises(ValueError, match=flag):
+            oracle.run([], **{flag: True})
     assert len(port.run([], telemetry=True).observations) == 0
     with pytest.raises(ValueError):
         TorchEngine([TM1], scorer="pallas", device="cpu")
@@ -229,8 +245,15 @@ def test_run_trace_on_carried_tables_matches_jax():
     assert bool(tt.was_queued.any())
     np.testing.assert_allclose(tt.finish_time.numpy(), np.asarray(jt.finish_time), rtol=1e-4)
     assert tt.stats.events <= 4 * len(arr) + 8
-    with pytest.raises(NotImplementedError):
-        run_trace(tc, td, torch.tensor(t), torch.tensor(ty), torch.tensor(by), metrics=True)
+    # metrics (item 7) now run, with JAX's counters and the same decisions;
+    # the server axis (item 8) still raises
+    jm = jax_run_trace(jc, jd, t, ty, by, metrics=True)
+    tm = run_trace(tc, td, torch.tensor(t), torch.tensor(ty), torch.tensor(by), metrics=True)
+    assert torch.equal(tm.placement, tt.placement) and tt.metrics is None
+    assert np.array_equal(tm.metrics.counters.numpy(), np.asarray(jm.metrics.counters))
+    assert np.array_equal(tm.metrics.per_server.numpy(), np.asarray(jm.metrics.per_server))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        run_trace(tc, td, torch.tensor(t), torch.tensor(ty), torch.tensor(by), axis=object())
 
 
 def test_masked_writes_not_found_side():

@@ -476,8 +476,19 @@ def test_fleet_controller_binds_once():
         TorchAdaptive([TM1, TM1], fleet=fleet, scatter="torch", device="cpu")
     with pytest.raises(RuntimeError, match="bind"):
         FleetController().active_mask()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        fleet.recorder_ctx(0)
+    # the recorder's context (item 7) is ported: JAX's fields on the bound
+    # fleet, and an unbound controller refuses it as JAX's does
+    ctx = fleet.recorder_ctx(3)
+    assert tuple(ctx.n_pair.shape) == (2, 230, 230) and int(ctx.segment) == 3
+    assert ctx.row_of.tolist() == ctx.pool_row.tolist() == fleet.pool._read_row.tolist()
+    assert torch.equal(ctx.cusum, fleet.detector.state.stat.amax(1))
+    jfleet = JaxController(mesh=MeshConfig())
+    AdaptiveEngine([M1, M1], fleet=jfleet)
+    jctx = jfleet.recorder_ctx(3)
+    for got, want in zip(ctx, jctx):
+        assert np.array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(RuntimeError, match="bind"):
+        FleetController().recorder_ctx(0)
     # same-spec servers pool: two M1 and one M2 make two pools
     mixed = FleetController()
     TorchAdaptive([TM1, TM2, TM1], fleet=mixed, scatter="torch", device="cpu")

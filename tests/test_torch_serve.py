@@ -152,8 +152,16 @@ def test_hosts():
     assert dataclasses.asdict(TPU_V5E_HOST) == dataclasses.asdict(JAX_TPU_V5E_HOST)
     assert H100_HOST.llc_bytes == 8 * 80 * 2**30 and H100_HOST.llc_tolerance == 1.0
     assert serve.admission_check("tinyllama-1.1b", 8, device="cpu") == [0, 1] + [0] * 6
-    with pytest.raises(NotImplementedError, match="item 7"):
-        serve.admission_check("tinyllama-1.1b", 2, device="cpu", metrics=True)
+    # admission metrics (item 7) now run: the placements of the unflagged
+    # call and JAX's admission frame, counter for counter
+    placements, frame = serve.admission_check("tinyllama-1.1b", 8, device="cpu", metrics=True)
+    assert placements == [0, 1] + [0] * 6 and frame.m == 2
+    placements, frame = serve.admission_check("tinyllama-1.1b", 8, host=TPU_V5E_HOST,
+                                              device="cpu", metrics=True)
+    jplacements, jframe = jax_admission_check("tinyllama-1.1b", 8, metrics=True)
+    assert placements == jplacements
+    assert np.array_equal(frame.counters.numpy(), np.asarray(jframe.counters))
+    assert np.array_equal(frame.per_server.numpy(), np.asarray(jframe.per_server))
 
 
 def test_sampling_draws_from_the_generator():
