@@ -13,7 +13,8 @@ layers run their selective scan through the hand-written CUDA
 flash kernel, and the fleet-health plane with the fused closed loop, whose
 CUSUM scan and action loops are hand-written CUDA (``cusum_scan``,
 ``fleet_actions``), with the observability plane and the float64 oracle's
-tensor twins -- in fifteen phases (14 runs after 7, 15 last):
+tensor twins, and the server axis over a one-rank process group -- in
+sixteen phases (14 runs after 7, 15 and 16 last):
 
   1. environment: torch and CUDA versions, the card's name and power limit;
   2. build: nvcc builds every kernel under ``src/repro_torch/kernels/csrc``;
@@ -196,7 +197,30 @@ tensor twins -- in fifteen phases (14 runs after 7, 15 last):
      on half the rack, by the kernel (one launch per iteration) and by its
      plain version, which must make the same moves, then at 1024 servers
      where memory allows, ms per iteration and peak memory; and
-     ``admission_check(metrics=True)``.
+     ``admission_check(metrics=True)``;
+ 16. the server axis (ROADMAP item 8; run last) at one rank of an NCCL
+     group (``ServerAxis.over_process_group()``, destroyed at the phase's
+     end): a. ``greedy_sequence_hier`` on the dense axis with 8 and 64 pods
+     at 1024 servers over phase 5's 4096 arrival types, from an empty fleet
+     and from a half-full one with ``col0`` supplied, bitwise equal to the
+     flat ``greedy_sequence`` (placements and counts), µs and kernels per
+     decision; b. ``run_trace(axis=)`` on phase 4's and 5's traces (cuda
+     scorer): placements, queue decisions and ``LoopStats`` equal to their
+     dense runs, finish times within 1e-5, µs per decision beside them,
+     collectives per micro-event from the axis tally, every scorer launch
+     of one captured block held to the plain version (the block rerun
+     eagerly with a tape, ending bitwise where the replay did); the same
+     with telemetry, metrics and record at rack width (the frame and the
+     ring's integer columns equal, floats within 1e-5); c. the dense axis
+     profiles phase 4's kernels per step (±0.5), beside the sharded loop's;
+     d. phase 14's rack through the fused loop on the axis with metrics and
+     record (segment body under the sync debug mode's "error"): phase 14's
+     decisions, events, routing, masks, telemetry ring, D and detector
+     within 1e-5, phase 15's counters and decision ring, every
+     ``cusum_scan`` and ``fleet_actions`` launch held to its plain version,
+     wall per segment; e. ``cusum_update_sharded``,
+     ``bank_update_sharded``, ``greedy_sequence_sharded`` and
+     ``resolve_leaders_device`` bitwise equal to the dense entries.
 
 Then a JSON line with each kernel's numbers, the ``nvidia-smi`` name/power
 line, and a last JSON line ``{"ok": true, "device": {...}}``. Any failed
@@ -667,6 +691,7 @@ def phase_rack(device, m: int = 64, n: int = 1024, small=(16, 64)) -> int:
 
     first = drive(eng, arrivals, device)[1]  # captures the loop's graph at this capacity
     res, wall, launches, peak = drive(eng, arrivals, device)
+    MAIN_RUNS["rack"] = dict(res=res, wall=wall, arrivals=arrivals)
     print(f"[4 rack] m={m} n={n} scorer=cuda: " + describe(res, wall, launches, peak)
           + f"; the first run at this capacity, capture included, {first:.3f} s")
     check_outputs(res, n, "rack cuda")
@@ -2036,6 +2061,7 @@ def obs_adaptive(device, health: dict, rack_shape=(64, 8, 256), failing: int = 5
     check(torch.equal(hf.counters[shared], ff.counters[shared]),
           "obs adaptive: host and fused counters differ")
     hc, fc = runs["host"]["res"].decisions.columns(), runs["fused"]["res"].decisions.columns()
+    MAIN_RUNS["obs_fused"] = runs["fused"]["res"]  # phase 16's sharded fused run's reference
     for col in ("arrival", "segment", "server", "kind", "qdepth", "pool_row", "cand"):
         check(np.array_equal(hc[col], fc[col]), f"obs adaptive: ring column {col} differs")
     return dict(runs=runs, counters={c: M.counter_value(hf, c) for c in M.COUNTERS},
@@ -2237,6 +2263,456 @@ def phase_observability(device, health: dict) -> dict:
           f"{M.percentiles(frame, 'slowdown').round(4).tolist()}")
     on.update(launches=launches, prof=prof)
     return on
+
+
+# -- phase 16: the server axis ------------------------------------------------
+
+def engine_arrays(arrivals, device):
+    """The engine's own trace preparation (``ConsolidationEngine._run_torch``)
+    for a trace whose length is its capacity (a power of two): times sorted
+    and taken from the first, types and bytes; plus that first time."""
+    import numpy as np
+    import torch
+    from repro_torch.core import type_index
+
+    times = np.asarray([t for t, _ in arrivals], np.float64)
+    order = np.argsort(times, kind="stable")
+    t0 = float(times.min())
+    host = (np.asarray(times[order] - t0, np.float32),
+            np.asarray([type_index(arrivals[i][1]) for i in order], np.int32),
+            np.asarray([arrivals[i][1].data_total for i in order], np.float32))
+    return tuple(torch.from_numpy(x).to(device) for x in host), t0
+
+
+def timed(fn, device):
+    """(fn(), seconds), synchronized on both sides on the card."""
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def kernels_per(fn, units: int) -> float | str:
+    """Device kernels per unit of a profiled call of ``fn`` (the card only)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return "not measured"
+    _, _, _, n_kernels = device_busy(fn, ())
+    return n_kernels / units
+
+
+def axis_greedy(device, m: int = 1024, n: int = 4096, pods=(8, 64)) -> dict:
+    """16a: ``greedy_sequence_hier`` on the dense axis against the flat
+    ``greedy_sequence`` over phase 5's arrival types, from an empty fleet
+    and from a half-full one with ``col0`` supplied: placements and final
+    counts bitwise equal. Times both per decision; kernels per decision
+    from a profiled rerun of 64 decisions."""
+    import torch
+    from repro_torch.core import (PackedCluster, greedy_sequence, greedy_sequence_hier,
+                                  profile_pairwise_fast, type_index)
+    from repro_torch.distributed import ServerAxis
+
+    servers = rack(m)
+    D = {s: profile_pairwise_fast(s) for s in set(servers)}
+    cl = PackedCluster.build(servers, [D[s] for s in servers], device=device)
+    wt = torch.tensor([type_index(w) for _, w in trace(n, gap=1e-4 * 64 / m)],
+                      dtype=torch.int32, device=device)
+    zeros = torch.zeros((m, cl.T), device=device)
+    greedy_sequence(cl, zeros, wt[:8])  # warm-up
+    (cf, pf), flat_s = timed(lambda: greedy_sequence(cl, zeros, wt), device)
+    # the fleet half-full: the flat run's first half placed; from there the
+    # flat greedy places the second half as it did (pf, cf)
+    first = pf[:n // 2].long()
+    half = torch.zeros_like(zeros).index_put_(
+        (first.clamp(min=0), wt[:n // 2].long()), (first >= 0).to(zeros.dtype), accumulate=True)
+    col0 = torch.einsum("mt,mtu->mu", half, cl.D)
+    out = dict(flat_us=1e6 * flat_s / n, queued=int((pf < 0).sum()), hier_us={})
+    for p in pods:
+        ax = ServerAxis(pods=p)
+        greedy_sequence_hier(cl, zeros, wt[:8], ax)  # warm-up
+        (ch, ph), hier_s = timed(lambda: greedy_sequence_hier(cl, zeros, wt, ax), device)
+        check(torch.equal(ph, pf) and torch.equal(ch, cf),
+              f"16a pods={p}: hierarchical placements or counts differ from the flat greedy "
+              f"(first at {first_divergence(ph.tolist(), pf.tolist())})")
+        ch2, ph2 = greedy_sequence_hier(cl, half, wt[n // 2:], ax, col0=col0)
+        check(torch.equal(ph2, pf[n // 2:]) and torch.equal(ch2, cf),
+              f"16a pods={p}: from the half-full fleet, hierarchical differs from flat")
+        out["hier_us"][p] = 1e6 * hier_s / n
+    head = wt[:64]
+    out["flat_kernels"] = kernels_per(lambda: greedy_sequence(cl, zeros, head), 64)
+    out["hier_kernels"] = kernels_per(
+        lambda: greedy_sequence_hier(cl, zeros, head, ServerAxis(pods=pods[0])), 64)
+    return out
+
+
+def capture_loop(eng, arrays, axis, cache: dict, **kw) -> None:
+    """The loop of this trace's capacity built (its graph captured on the
+    card) by a run of its first 16 arrivals (``trace_segment``'s traced
+    count: the graph is the same block of micro-events at any count)."""
+    from repro_torch.core import make_scorer
+    from repro_torch.core.engine_torch import trace_segment
+
+    m = eng.cluster.m
+    local = (lambda x: x) if axis is None else (lambda x: axis.local(x, m))  # noqa: E731
+    trace_segment(local(eng.cluster), local(eng.dyn), *arrays, 16, scorer=make_scorer("cuda"),
+                  axis=axis, cache=cache, **kw)
+
+
+def sharded_trace(eng, arrays, axis, cache: dict, **kw):
+    """``run_trace`` on the engine's cluster and dynamics with the cuda
+    scorer (the loop's call on every grid type), cached per shape and axis."""
+    from repro_torch.core import make_scorer, run_trace
+
+    return run_trace(eng.cluster, eng.dyn, *arrays, scorer=make_scorer("cuda"), axis=axis,
+                     cache=cache, **kw)
+
+
+def same_as_engine(tr, res, t0: float, label: str) -> float:
+    """The sharded trace against the engine's result of phase 4 or 5:
+    placements, queue decisions and loop stats equal, finish times within
+    TOL relative. Returns the largest relative finish-time gap."""
+    import numpy as np
+
+    place = [int(p) if p >= 0 else None for p in tr.placement.tolist()]
+    check(place == list(res.placements), f"{label}: placements differ from the dense run, "
+          f"first at arrival {first_divergence(place, res.placements)}")
+    check(tr.was_queued.tolist() == list(res.was_queued),
+          f"{label}: queue decisions differ from the dense run")
+    check(tr.stats == res.stats, f"{label}: loop stats {tr.stats} vs {res.stats}")
+    got = tr.finish_time.double().cpu().numpy() + t0
+    want = np.asarray(res.finish_times)
+    gap = float(np.max(np.abs(got - want) / np.abs(want)))
+    check(gap <= TOL, f"{label}: finish times {gap:.3g} apart relative")
+    return gap
+
+
+def block_scorer_tape(loop, label: str) -> int:
+    """Every scorer launch of one captured block, held to the plain version:
+    the block replayed from the start, then run again eagerly from the start
+    with each scorer call's inputs recorded, which must leave the state
+    bitwise as the replay did; each recorded call then goes through
+    ``kernel_error`` (1e-5 against ``consolidation_scores_torch``, both
+    kernel paths bitwise equal). Returns the launches checked."""
+    import torch
+    from repro_torch.core import kernel_args
+
+    fields = ("placement", "was_queued", "counts", "col0", "slot_rem", "finish_time", "now")
+    loop._reset()
+    loop.graph.replay()
+    replay = {f: getattr(loop.st, f).clone() for f in fields}
+    loop._reset()
+    tape, orig = [], loop.scorer
+
+    def recording(cl, counts, wtypes):
+        tape.append(kernel_args(cl, counts.clone(), wtypes.clone()))
+        return orig(cl, counts, wtypes)
+
+    loop.scorer = recording
+    try:
+        loop.block()
+    finally:
+        loop.scorer = orig
+    for f in fields:
+        check(torch.equal(getattr(loop.st, f), replay[f]),
+              f"{label}: the eager block's {f} differs from the replay's")
+    for i, args in enumerate(tape):
+        kernel_error(args, f"{label} launch {i}")
+    return len(tape)
+
+
+def axis_engine(device, axis, widths=(("rack", 64), ("fleet", 1024))) -> dict:
+    """16b and 16c: the sharded event loop at one rank on phase 4's and 5's
+    traces (``MAIN_RUNS``), against their dense runs; the flagged run at
+    rack width against the dense flagged run; the dense axis profiled as
+    phase 4 was."""
+    import torch
+    from repro_torch.core import ConsolidationEngine
+    from repro_torch.distributed import DENSE
+    from repro_torch.distributed import server_axis as sa
+    from repro_torch.kernels import consolidation as kc
+
+    on_card = device.type == "cuda"
+    out = {"launches": 0}
+    for label, m in widths:
+        base = MAIN_RUNS[label]
+        arrivals = base["arrivals"]
+        n = len(arrivals)
+        eng = ConsolidationEngine(rack(m), scorer="cuda", device=device)
+        arrays, t0 = engine_arrays(arrivals, device)
+        cache: dict = {}
+        _, first = timed(lambda: capture_loop(eng, arrays, axis, cache), device)
+        kc.reset_launches()
+        sa.reset_calls()
+        tr, wall = timed(lambda: sharded_trace(eng, arrays, axis, cache), device)
+        launches, calls = sum(kc.LAUNCHES.values()), dict(sa.CALLS)
+        check(not on_card or launches > 0, f"16b {label}: the sharded loop never launched "
+              "consolidation_scores")
+        out["launches"] += launches
+        gap = same_as_engine(tr, base["res"], t0, f"16b {label} sharded")
+        loop = next(l for l in cache.values() if l.axis is axis)
+        steps = tr.stats.host_syncs * tr.stats.block_steps
+        r = dict(m=m, n=n, wall=wall, first=first, wall_dense=base["wall"], gap=gap,
+                 launches=launches, calls=calls, stats=tr.stats,
+                 calls_per_step={k: v / steps for k, v in calls.items()})
+        if on_card:
+            r["tape"] = block_scorer_tape(loop, f"16b {label} block")
+        if label == "rack":
+            head, _ = engine_arrays(arrivals[:256], device)
+            flags = dict(telemetry=True, metrics=True, record=True)
+            runs = {}
+            for name, ax in (("dense", None), ("sharded", axis)):
+                capture_loop(eng, head, ax, cache, **flags)
+                runs[name] = sharded_trace(eng, head, ax, cache, **flags)
+            d, s = runs["dense"], runs["sharded"]
+            for f in ("placement", "was_queued"):
+                check(torch.equal(getattr(s, f), getattr(d, f)), f"16b flags: {f} differs")
+            check(s.stats == d.stats, f"16b flags: loop stats {s.stats} vs {d.stats}")
+            for f in ("counters", "gauges", "hist", "per_server"):
+                check(torch.equal(getattr(s.metrics, f), getattr(d.metrics, f)),
+                      f"16b flags: the metric frame's {f} differ")
+            check(torch.equal(s.rec.block.ints, d.rec.block.ints) and
+                  int(s.rec.total) == int(d.rec.total), "16b flags: the ring's integer "
+                  "columns differ")
+            fgap = max(float(torch.nan_to_num(a - b, nan=0.0, posinf=0.0, neginf=0.0)
+                             .abs().max())
+                       for a, b in ((s.rec.block.floats, d.rec.block.floats),
+                                    (s.finish_time, d.finish_time), (s.obs_logr, d.obs_logr),
+                                    (s.obs_co, d.obs_co)))
+            check(torch.equal(torch.isinf(s.rec.block.floats), torch.isinf(d.rec.block.floats))
+                  and fgap <= TOL, f"16b flags: ring floats / telemetry {fgap:.3g} apart")
+            r["flags_gap"] = fgap
+            if on_card:
+                # the first 64 arrivals, as phase 15 profiles them: the
+                # profiler's parse of phase 4's 256 outlasts the run
+                prof, head = {}, engine_arrays(arrivals[:64], device)[0]
+                for name, ax in (("sharded", axis), ("dense axis", DENSE)):
+                    capture_loop(eng, head, ax, cache)
+                    got = []
+                    busy, _, _, n_k = device_busy(
+                        lambda ax=ax: got.append(sharded_trace(eng, head, ax, cache)), ())
+                    st = got[0].stats
+                    prof[name] = (n_k, st.host_syncs * st.block_steps, busy)
+                want = MAIN_RUNS.get("rack_profile", (0, 0, 0.0))
+                k_dense = prof["dense axis"][0] / prof["dense axis"][1]
+                check(not want[1] or abs(k_dense - want[0] / want[1]) < 0.5,
+                      f"16c: {k_dense:.1f} kernels per step through the dense axis, phase 4 "
+                      f"saw {want[0] / max(want[1], 1):.1f}")
+                r["prof"], r["prof_phase4"] = prof, want
+                capture_loop(eng, arrays, None, cache)
+                _, dense_wall = timed(lambda: sharded_trace(eng, arrays, None, cache), device)
+                r["wall_dense_trace"] = dense_wall
+        out[label] = r
+        del eng, cache, loop
+        if on_card:
+            free_card()
+    return out
+
+
+@contextlib.contextmanager
+def closed_loop_on(axis):
+    """Every ``run_closed_loop`` the adaptive engine makes runs on ``axis``
+    (the engine's fused path builds its own config; the axis is the
+    loop's, not the engine's)."""
+    from repro_torch.core import closed_loop
+
+    orig = closed_loop.run_closed_loop
+
+    def sharded(cluster, dyn_stack, Lp_t, logb, carry, xs, config, **kw):
+        return orig(cluster, dyn_stack, Lp_t, logb, carry, xs,
+                    dataclasses.replace(config, axis=axis), **kw)
+
+    closed_loop.run_closed_loop = sharded
+    try:
+        yield
+    finally:
+        closed_loop.run_closed_loop = orig
+
+
+def axis_fused(device, axis, health: dict, rack_shape=(64, 8, 256), failing: int = 5) -> dict:
+    """16d: phase 14's rack case through the fused loop on the axis, with
+    ``metrics`` and ``record`` on: phase 14's dense fused decisions, health
+    events, routing, masks and ring, D and the detector within 1e-5; every
+    cusum_scan and fleet_actions launch held to its plain version; the
+    segment body under the sync debug mode's "error" (``fleet_health_run``
+    on the card)."""
+    import torch
+    from repro_torch.obs import explain
+    from repro_torch.obs import metrics as M
+    from repro_torch.telemetry import gradual_decay
+
+    m, k, n = rack_shape
+    servers = rack(m)
+    arrivals = trace(k * n, gap=1e-4 * 64 / m, seed=13)
+    drift = gradual_decay(servers, server=failing, rate=0.65, start=1, segments=k)
+    tape: list = []
+    with closed_loop_on(axis):
+        run = fleet_health_run(servers, arrivals, k, drift, device, True, tape, obs=True)
+    base = health["rack"]["fused"]
+    d_gap, det_gap = compare_fleet_paths(base, run, "16d sharded fused")
+    ring_a, ring_b = base["eng"].ring._buf, run["eng"].ring._buf
+    check(torch.equal(ring_a.ints, ring_b.ints) and torch.equal(ring_a.scalars, ring_b.scalars)
+          and torch.equal(ring_a.co, ring_b.co), "16d: the telemetry rings differ")
+    for name in ("pair_scatter", "cusum_scan", "split", "evict"):
+        check(device.type != "cuda" or run["launches"][name] > 0,
+              f"16d: the sharded fused loop never launched {name}")
+    checked, err = check_tape(tape, "16d sharded fused")
+    res = run["res"]
+    bad = explain.check_reconstruction(res.decisions, [s.placements for s in res.segments])
+    check(not bad, f"16d: the decision ring does not rebuild the run: {bad[:3]}")
+    flagged = MAIN_RUNS.get("obs_fused")
+    if flagged is not None:
+        check(torch.equal(res.metrics.counters, flagged.metrics.counters),
+              "16d: counters differ from phase 15's flagged dense fused run")
+        a, b = res.decisions.state.block, flagged.decisions.state.block
+        check(torch.equal(a.ints, b.ints), "16d: the decision rings' integer columns differ")
+        rgap = float(torch.nan_to_num(a.floats - b.floats, nan=0.0, posinf=0.0, neginf=0.0)
+                     .abs().max())
+        check(rgap <= TOL, f"16d: decision ring floats {rgap:.3g} apart")
+    kinds = collections.Counter(kind for kind, _, _ in events_of(res))
+    check(M.counter_value(res.metrics, "evictions") == kinds["evict"],
+          "16d: the eviction counter differs from the health events")
+    return dict(run=run, d_gap=d_gap, det_gap=det_gap, checked=checked, err=err,
+                wall_dense=base["wall"] / k, k=k, events=dict(kinds))
+
+
+def axis_entries(device, axis, fused: dict) -> dict:
+    """16e: the standalone sharded entries against the dense ones, bitwise,
+    on the sharded fused run's final state and its telemetry ring:
+    ``cusum_update_sharded``, ``bank_update_sharded`` (the banked
+    pair_scatter), ``greedy_sequence_sharded`` and
+    ``resolve_leaders_device``. Returns the pair_scatter launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core import PackedCluster, greedy_sequence, greedy_sequence_sharded
+    from repro_torch.core import profile_pairwise_fast, type_index
+    from repro_torch.fleet import cusum_update_sharded, resolve_leaders_device
+    from repro_torch.fleet.detect import _cusum_update
+    from repro_torch.kernels import telemetry as kt
+    from repro_torch.telemetry.estimator import _bank_core, _remap_rows, bank_update_sharded
+
+    run = fused["run"]
+    fleet, eng = run["fleet"], run["eng"]
+    block = eng.ring._buf
+    bank = fleet.pool.bank.stacked_state()
+    row_map = torch.from_numpy(fleet.pool.row_of.astype(np.int32)).to(device)
+    det, dd = fleet.detector.state, fleet.detector
+    kw = dict(k=float(dd.k), level_decay=float(dd.level_decay),
+              max_lost_frac=float(dd.max_lost_frac))
+    got, used = cusum_update_sharded(axis, det, block, bank.log_b, bank.L_t, row_map, **kw)
+    want, used_d = _cusum_update(det, block, bank.log_b, bank.L_t, row_map, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)) and int(used) == int(used_d),
+          "16e: cusum_update_sharded differs from the dense update")
+    rblock = _remap_rows(block, row_map)
+    hyp = dict(fleet.pool.bank._hypers, sparse_tables=True)
+    kt.reset_launches()
+    got, used = bank_update_sharded(axis, bank, rblock, **hyp)
+    scatter_launches = sum(kt.LAUNCHES.values())
+    want, used_d = _bank_core(bank, rblock, **hyp)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)) and int(used) == int(used_d),
+          "16e: bank_update_sharded differs from the dense update")
+    check(device.type != "cuda" or scatter_launches > 0,
+          "16e: bank_update_sharded never launched pair_scatter")
+    m = 64
+    servers = rack(m)
+    D = {s: profile_pairwise_fast(s) for s in set(servers)}
+    cl = PackedCluster.build(servers, [D[s] for s in servers], device=device)
+    wt = torch.tensor([type_index(w) for _, w in trace(512, gap=1e-4)], dtype=torch.int32,
+                      device=device)
+    zeros = torch.zeros((m, cl.T), device=device)
+    cs, ps = greedy_sequence_sharded(cl, zeros, wt, axis)
+    cf, pf = greedy_sequence(cl, zeros, wt)
+    check(torch.equal(ps, pf) and torch.equal(cs, cf),
+          "16e: greedy_sequence_sharded differs from the dense greedy")
+    rng = np.random.default_rng(SEED)
+    labels = rng.integers(0, 6, m)
+    leader: dict = {}
+    host = np.asarray([leader.setdefault(int(lab), s) for s, lab in enumerate(labels)])
+    dev_rows = resolve_leaders_device(axis, torch.tensor(labels, dtype=torch.int32,
+                                                         device=device))
+    check(np.array_equal(dev_rows.cpu().numpy(), host),
+          "16e: resolve_leaders_device differs from the host's leader rule")
+    return dict(scatter=scatter_launches, queued=int((pf < 0).sum()))
+
+
+def phase_server_axis(device, health: dict, greedy=(1024, 4096, (8, 64)),
+                      widths=(("rack", 64), ("fleet", 1024)), rack_shape=(64, 8, 256)) -> dict:
+    """Phase 16: the server axis (ROADMAP item 8) at one rank of a process
+    group (NCCL on the card, gloo on the CPU), run last; the group is
+    destroyed before it returns. Returns the kernel launches of its main
+    paths."""
+    import torch.distributed as dist
+    from repro_torch.distributed import ServerAxis
+
+    t_phase = time.perf_counter()
+    axis = ServerAxis.over_process_group(device=device)
+    backend = dist.get_backend(axis.group)
+    try:
+        g = axis_greedy(device, *greedy)
+        print(f"[16 axis] a. greedy_sequence_hier, dense axis, m={greedy[0]}, phase 5's "
+              f"{greedy[1]} types "
+              f"({g['queued']} queued): placements and counts bitwise equal to the flat "
+              f"greedy from an empty fleet and from a half-full one with col0 supplied; "
+              f"us per decision flat {g['flat_us']:.1f}, hier "
+              + ", ".join(f"pods {p} {us:.1f}" for p, us in g["hier_us"].items())
+              + f"; kernels per decision (64 profiled) flat {g['flat_kernels']}, hier "
+              f"{g['hier_kernels']}")
+        e = axis_engine(device, axis, widths)
+        for label, _ in widths:
+            r = e[label]
+            calls = sum(r["calls_per_step"].values())
+            print(f"[16 axis] b. sharded event loop at one {backend} rank, {label} "
+                  f"m={r['m']} n={r['n']}: placements, queue decisions and LoopStats "
+                  f"{r['stats']} equal to phase {4 if label == 'rack' else 5}'s dense run, "
+                  f"finish times within {r['gap']:.3g}; {1e6 * r['wall'] / r['n']:.1f} us per "
+                  f"decision sharded vs {1e6 * r['wall_dense'] / r['n']:.1f} dense (phase "
+                  f"{4 if label == 'rack' else 5}'s engine run)"
+                  + (f", {1e6 * r['wall_dense_trace'] / r['n']:.1f} dense run_trace"
+                     if "wall_dense_trace" in r else "")
+                  + f"; capture at this capacity (a 16-arrival run) {r['first']:.3f} s; "
+                  f"collectives per micro-event "
+                  f"{calls:.2f} {r['calls_per_step']}; consolidation_scores launches "
+                  f"{r['launches']}" + (f"; {r['tape']} scorer launches of one captured "
+                                        "block held to the plain version" if "tape" in r else ""))
+        rk = e["rack"]
+        print(f"[16 axis] b. flags (telemetry, metrics, record) at rack, 256 arrivals: "
+              f"sharded == dense (decisions, stats, the whole frame, the ring's integer "
+              f"columns), ring floats and telemetry within {rk['flags_gap']:.3g}")
+        if "prof" in rk:
+            per = {k: (n / s, 1e6 * b / s) for k, (n, s, b) in rk["prof"].items()}
+            want = rk["prof_phase4"]
+            print(f"[16 axis] c. kernels and device us per step, rack, first 64 arrivals: "
+                  f"dense axis {per['dense axis'][0]:.1f} / {per['dense axis'][1]:.1f} "
+                  f"(phase 4: {want[0] / max(want[1], 1):.1f} / "
+                  f"{1e6 * want[2] / max(want[1], 1):.1f}); sharded at one rank "
+                  f"{per['sharded'][0]:.1f} / {per['sharded'][1]:.1f}")
+        f = axis_fused(device, axis, health, rack_shape)
+        run = f["run"]
+        print(f"[16 axis] d. sharded fused loop at one rank, rack "
+              f"{' x '.join(map(str, rack_shape))}, server 5 "
+              f"decaying, metrics and record on: decisions, health events {f['events']}, "
+              f"routing, masks and the telemetry ring equal to phase 14's dense fused run; D "
+              f"within {f['d_gap']:.3g}, detector within {f['det_gap']:.3g}; launches held "
+              f"to plain {f['checked']}; wall per segment {run['wall'] / f['k']:.3f} s vs "
+              f"{f['wall_dense']:.3f} dense (phase 14, flags off); captures "
+              f"{len(run['captures'])} taking {sum(run['captures']):.3f} s; launches "
+              f"{run['launches']}")
+        x = axis_entries(device, axis, f)
+        print(f"[16 axis] e. cusum_update_sharded, bank_update_sharded ({x['scatter']} "
+              f"pair_scatter launches), greedy_sequence_sharded (m=64, 512 types, "
+              f"{x['queued']} queued) and resolve_leaders_device bitwise equal to dense")
+    finally:
+        dist.destroy_process_group()
+    print(f"[16 axis] phase took {time.perf_counter() - t_phase:.1f} s")
+    fl = f["run"]["launches"]
+    return dict(consolidation_scores=e["launches"] + fl["consolidation_scores"],
+                pair_scatter=fl["pair_scatter"] + x["scatter"], cusum_scan=fl["cusum_scan"],
+                fleet_actions=fl["fleet_actions"], checked=f["checked"], err=f["err"])
 
 
 #: (label, B, Sq, Skv, H, Hkv, dh, causal, q_offset, window): the serving
@@ -3588,11 +4064,13 @@ def main() -> int:
     scatter = phase_pair_scatter(device)
     adaptive = phase_adaptive(device)
     health = phase_fleet_health(device)
-    # phase 15 compares with the rack runs' results and walls; the engines
-    # (their captured graphs) go before the serving phases draw their models
+    # phase 15 compares with the rack runs' results and walls, phase 16 with
+    # the fused rack run's engine and controller; the other engines (their
+    # captured graphs) go before the serving phases draw their models
     health.pop("fleet")
-    health["rack"] = {name: {"res": health["rack"][name]["res"],
-                             "wall": health["rack"][name]["wall"]} for name in ("host", "fused")}
+    keep = {"host": ("res", "wall"), "fused": ("res", "wall", "eng", "fleet")}
+    health["rack"] = {name: {key: health["rack"][name][key] for key in keys}
+                      for name, keys in keep.items()}
     free_card()
     flash = phase_flash(device)
     served = phase_serve(device)
@@ -3605,14 +4083,17 @@ def main() -> int:
     # last, so that its profiled and captured runs leave nothing to the
     # serving phases' profiles
     obs = phase_observability(device, health)
+    free_card()
+    axis = phase_server_axis(device, health)
 
     q = LOOP_Q  # the event loop's one call per micro-event, on every grid type
     print(json.dumps({"kernels": [{
         "name": "consolidation_scores", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/consolidation_scores.cu",
         "replaces": "src/repro/kernels/consolidation.py:65",
-        "launches": n_launch + obs["launches"],
+        "launches": n_launch + obs["launches"] + axis["consolidation_scores"],
         "launches_phase_15": obs["launches"],
+        "launches_phase_16": axis["consolidation_scores"],
         "max_abs_err": max(r["max_abs_err"] for r in [*rows.values(), *fleet.values()]),
         "ms": rows[q]["ms"], "plain_ms": rows[q]["plain_ms"],
         "bound_ms": rows[q]["bound_ms"], "bound_by": rows[q]["bound_by"],
@@ -3636,7 +4117,8 @@ def main() -> int:
         "name": "pair_scatter", "entry": "banked", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pair_scatter.cu",
         "replaces": "src/repro/kernels/telemetry.py:150",
-        "launches": adaptive["banked"],
+        "launches": adaptive["banked"] + axis["pair_scatter"],
+        "launches_phase_16": axis["pair_scatter"],
         "max_abs_err": max(max(r["max_abs_err"], r.get("ref_err", 0.0))
                            for r in scatter["banked"].values()),
         **{key: scatter["banked"]["rack 256"][key]
@@ -3648,23 +4130,27 @@ def main() -> int:
         "name": "cusum_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cusum_scan.cu",
         "replaces": "src/repro/fleet/detect.py:85 (_cusum_update's lax.scan; no pl.pallas_call)",
-        "launches": health["launches"]["cusum_scan"],
-        "max_abs_err": health["max_abs_err"]["cusum"],
+        "launches": health["launches"]["cusum_scan"] + axis["cusum_scan"],
+        "launches_phase_16": axis["cusum_scan"],
+        "max_abs_err": max(health["max_abs_err"]["cusum"], axis["err"].get("cusum", 0.0)),
         **{key: health["cusum_rack"][key] for key in KERNEL_KEYS},
         "fleet": {key: health["cusum_fleet"][key] for key in KERNEL_KEYS},
-        "launches_held_to_plain": health["checked"]["cusum"],
+        "launches_held_to_plain": health["checked"]["cusum"] + axis["checked"].get("cusum", 0),
     }, {
         "name": "fleet_actions", "entries": "split, evict", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fleet_actions.cu",
         "replaces": "src/repro/fleet/controller.py:223 (fleet_step's two lax.fori_loops; "
                     "no pl.pallas_call)",
-        "launches": health["launches"]["fleet_actions"],
-        "max_abs_err": max(health["max_abs_err"]["split"], health["max_abs_err"]["evict"]),
+        "launches": health["launches"]["fleet_actions"] + axis["fleet_actions"],
+        "launches_phase_16": axis["fleet_actions"],
+        "max_abs_err": max(health["max_abs_err"]["split"], health["max_abs_err"]["evict"],
+                           *(axis["err"].get(e, 0.0) for e in ("split", "evict"))),
         **{key: health["actions_rack"][key] for key in KERNEL_KEYS},
         **{name: {key: health[f"actions_{tag}"][key] for key in KERNEL_KEYS}
            for name, tag in (("quiet", "rack_quiet"), ("fleet", "fleet"),
                              ("fleet_quiet", "fleet_quiet")) if f"actions_{tag}" in health},
-        "launches_held_to_plain": health["checked"]["split"] + health["checked"]["evict"],
+        "launches_held_to_plain": (health["checked"]["split"] + health["checked"]["evict"]
+                                   + sum(axis["checked"].get(e, 0) for e in ("split", "evict"))),
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

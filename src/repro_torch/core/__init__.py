@@ -7,6 +7,9 @@ Public API:
   profile_pairwise_fast, type_tables, pair_slowdown_matrices -- Eqns 1-3
   PackedCluster, server_loads, score_candidates_torch, greedy_choice,
   argmin_with_margin, greedy_step, greedy_sequence -- the Fig-8 greedy
+  greedy_sequence_sharded, greedy_sequence_hier   -- the greedy over a
+                                                     ServerAxis (sharded,
+                                                     pod-hierarchical)
   counts_from_assignments, evaluate_assignment, brute_force_torch,
   local_search_torch                              -- offline packing
   ClusterState, OnlineScheduler                   -- the float64 oracle
@@ -30,6 +33,8 @@ from .binpack_torch import (
     evaluate_assignment,
     greedy_choice,
     greedy_sequence,
+    greedy_sequence_hier,
+    greedy_sequence_sharded,
     greedy_step,
     score_candidates_torch,
     server_loads,

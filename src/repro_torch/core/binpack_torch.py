@@ -271,6 +271,205 @@ def greedy_sequence(
     return counts, torch.cat(placements).to(torch.int32)
 
 
+# --- sharded + hierarchical sequence allocation ---------------------------------
+#
+# The fleet-scale variants of ``greedy_sequence``. Both take a
+# :class:`~repro_torch.distributed.server_axis.ServerAxis` and are
+# decision-exact against the dense loop: per-server scores are computed by the
+# same arithmetic on the same rows, and only order-insensitive scalars (min,
+# first index) cross ranks. Global in, global out: every rank passes the whole
+# fleet, scores its own slice, and gets the placements (replicated) and the
+# final counts (gathered once at the end). A dense axis with one pod is
+# ``greedy_sequence`` itself.
+
+
+def _choose_from_scores(axis, score_l: torch.Tensor, m_local: int):
+    """Global (server, ok) [Q] from this rank's score columns [Q, m_local].
+
+    ``argmin_with_margin``'s tie-breaking exactly: the global min by
+    ``pmin``, then the first *global* index within the margin (the local
+    first hit globalized with the rank's offset, ``pmin`` takes the lowest).
+    Infeasible servers carry ``inf``; ``ok`` is "feasible anywhere" (the min
+    is finite iff some server is feasible)."""
+    m_g = m_local * axis.shards
+    smin = axis.pmin(score_l.amin(1))  # [Q]
+    hit = score_l <= (smin + SCORE_MARGIN)[:, None]
+    has = hit.any(1)
+    local_first = hit.to(torch.int32).argmax(1) + axis.offset(m_local)
+    best = axis.pmin(torch.where(has, local_first, m_g))
+    ok = torch.isfinite(smin)
+    return torch.where(ok, best, QUEUED), ok
+
+
+def _masked_scores(cluster: PackedCluster, counts: torch.Tensor, wtypes: torch.Tensor,
+                   objective: str) -> torch.Tensor:
+    """[Q, m] greedy scores with infeasible servers at ``inf``: the score
+    half of :func:`greedy_choice`, on any slice of the fleet."""
+    cache_after, maxd_after = score_candidates_torch(cluster, counts, wtypes)
+    avg_after = 0.5 * (cache_after + maxd_after)
+    if objective == "sum_avg":
+        score = avg_after - avg_loads(cluster, counts)[None, :]
+    else:
+        score = avg_after
+    feasible = ((maxd_after < cluster.degradation_limit) & (cache_after <= 1.0)
+                & (cluster.active > 0.5)[None, :])
+    return torch.where(feasible, score, torch.inf)
+
+
+def _commit_local(counts_l: torch.Tensor, placement: torch.Tensor, ok: torch.Tensor,
+                  wtype: torch.Tensor, lo: int) -> torch.Tensor:
+    """Add the decision to ``counts_l`` in place where this rank owns the
+    placed server (an off-rank or queued decision adds 0.0 to row 0, a
+    masked write). Returns (the local row [1], owned [1])."""
+    m_local = counts_l.shape[0]
+    s_l = placement - lo
+    owned = ok & (s_l >= 0) & (s_l < m_local)
+    index = (torch.clamp(s_l, 0, m_local - 1).long(), wtype.long())
+    counts_l.index_put_(index, counts_l[index] + owned.to(counts_l.dtype))
+    return index[0], owned
+
+
+def greedy_sequence_sharded(
+    cluster: PackedCluster, counts: torch.Tensor, wtypes: torch.Tensor, axis,
+    objective: str = "sum_avg",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``greedy_sequence`` with the server axis sharded over ``axis``.
+
+    Each rank scores its own slice of the fleet (the full Q x m candidate
+    evaluation never forms on one rank); two ``pmin`` s per decision cross
+    the group. Placements come back replicated and equal to the dense loop's;
+    the final counts are gathered on exit. No host read per decision."""
+    if not axis.is_sharded:
+        return greedy_sequence(cluster, counts, wtypes, objective)
+    m = cluster.m
+    axis.validate(m)
+    m_local = axis.local_m(m)
+    lo = axis.offset(m_local)
+    cluster_l = axis.local(cluster, m)
+    c = axis.local(counts, m).clone()
+    placements = []
+    for i in range(wtypes.shape[0]):
+        t = wtypes[i:i + 1]
+        placement, ok = _choose_from_scores(axis, _masked_scores(cluster_l, c, t, objective),
+                                            m_local)
+        _commit_local(c, placement, ok, t, lo)
+        placements.append(placement)
+    return axis.all_gather(c), _cat_placements(placements, counts.device)
+
+
+def _cat_placements(placements: list, device) -> torch.Tensor:
+    if not placements:
+        return torch.empty(0, dtype=torch.int32, device=device)
+    return torch.cat(placements).to(torch.int32)
+
+
+# --- hierarchical (pod) selection ------------------------------------------------
+
+def _incremental_scores(cluster_l: PackedCluster, counts_l: torch.Tensor, col0: torch.Tensor,
+                        comp0: torch.Tensor, maxd0: torch.Tensor, diag: torch.Tensor,
+                        t: torch.Tensor, objective: str, types: torch.Tensor) -> torch.Tensor:
+    """Exact greedy scores [m_local] from maintained per-server aggregates.
+
+    The flat scorer pays ``counts @ D`` -- O(m T^2), a full pass over the
+    [m, T, T] tensor -- on every decision. A decision changes one server's
+    counts, so the three row aggregates the score needs (``col0 = counts @
+    D`` [m, T], the cache composition ``comp0`` [m], the current max
+    predicted degradation ``maxd0`` [m]) are maintained across the scan and
+    only ``D[:, t, :]`` (O(m T)) is touched here. The expressions are the
+    dense scorer's, so the decisions are its decisions. ``t`` has shape
+    [1]; ``types`` is ``arange(T)``."""
+    rs, fs = cluster_l.rs, cluster_l.fs
+    cache0 = comp0 / cluster_l.llc_budget
+    delta = rs[t] + cluster_l.resident[:, t][:, 0] * fs[t]  # [m]
+    cache_after = (comp0 + delta) / cluster_l.llc_budget
+    Dt = cluster_l.D.index_select(1, t.long())[:, 0]  # [m, T]: the only touch of D
+    d_pred_after = torch.clamp(col0 + Dt - diag, 0.0, 1.0)
+    present_after = (counts_l > 0) | (types == t)[None, :]
+    maxd_after = torch.where(present_after, d_pred_after, -torch.inf).amax(1)
+    feasible = ((maxd_after < cluster_l.degradation_limit) & (cache_after <= 1.0)
+                & (cluster_l.active > 0.5))
+    avg_after = 0.5 * (cache_after + maxd_after)
+    if objective == "sum_avg":
+        score = avg_after - 0.5 * (cache0 + maxd0)
+    else:
+        score = avg_after
+    return torch.where(feasible, score, torch.inf)
+
+
+def _row_aggregates(cluster_l: PackedCluster, row_c: torch.Tensor, D_row: torch.Tensor,
+                    diag_row: torch.Tensor, resident_row: torch.Tensor):
+    """(col0 [1, T], comp0 [1], maxd0 [1]) of one server row, rebuilt from
+    their definitions: the refresh half of the maintenance rule. Row
+    arguments carry a leading dim of 1; ``col0`` is the flat scorer's
+    ``einsum`` on that one row."""
+    new_col = torch.einsum("mt,mtu->mu", row_c, D_row)
+    new_comp = row_c @ cluster_l.rs + (row_c * resident_row) @ cluster_l.fs
+    pres = row_c > 0
+    d_pred = torch.clamp(new_col - diag_row, 0.0, 1.0)
+    new_maxd = torch.where(pres, d_pred, -torch.inf).amax(1)
+    new_maxd = torch.where(pres.any(1), new_maxd, 0.0)
+    return new_col, new_comp, new_maxd
+
+
+def greedy_sequence_hier(
+    cluster: PackedCluster, counts: torch.Tensor, wtypes: torch.Tensor, axis,
+    objective: str = "sum_avg", col0: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pod-hierarchical greedy: O(m T) per decision via maintained
+    aggregates, sharded over whole pods.
+
+    ``axis.pods`` pods of ``m // axis.pods`` servers each; on a sharded axis
+    every rank owns ``pods // shards`` whole pods, so the pod-local state
+    (the ``col0`` aggregate) never crosses ranks. Decision-identical to
+    ``greedy_sequence`` (exact scores, exact tie-breaking). ``pods == 1``
+    is ``greedy_sequence`` on a dense axis and
+    :func:`greedy_sequence_sharded` on a sharded one.
+
+    ``col0`` optionally supplies the ``counts @ D`` seed [m, T] (it must
+    equal that product; zeros for an empty fleet); ``None`` computes it here,
+    one O(m T^2) pass for the whole sequence. Per decision the loop then
+    touches ``D[:, t, :]`` only, and rebuilds the placed server's rows of
+    ``col0``, ``comp0`` and ``maxd0`` from their definitions, never by an
+    additive drift (DESIGN.md section 15). No host read per decision.
+    """
+    if axis.pods <= 1:
+        if axis.is_sharded:
+            return greedy_sequence_sharded(cluster, counts, wtypes, axis, objective)
+        return greedy_sequence(cluster, counts, wtypes, objective)
+    m = cluster.m
+    axis.validate(m)  # raises unless shards | pods | m
+    m_local = axis.local_m(m)
+    lo = axis.offset(m_local)
+    cl = axis.local(cluster, m)
+    c = axis.local(counts, m).clone()
+    if col0 is None:
+        col0 = torch.einsum("mt,mtu->mu", c, cl.D)
+    else:
+        col0 = axis.local(col0, m).clone()
+    diag = torch.diagonal(cl.D, dim1=1, dim2=2)  # [m_local, T]
+    # one-time O(m T) seeds of the scalar aggregates, from their definitions
+    comp0 = c @ cl.rs + (c * cl.resident) @ cl.fs
+    present0 = c > 0
+    maxd0 = torch.where(present0, torch.clamp(col0 - diag, 0.0, 1.0), -torch.inf).amax(1)
+    maxd0 = torch.where(present0.any(1), maxd0, 0.0)
+    types = torch.arange(cl.T, device=c.device)
+    placements = []
+    for i in range(wtypes.shape[0]):
+        t = wtypes[i:i + 1]
+        score = _incremental_scores(cl, c, col0, comp0, maxd0, diag, t, objective, types)
+        placement, ok = _choose_from_scores(axis, score[None], m_local)
+        row, owned = _commit_local(c, placement, ok, t, lo)
+        # the exact refresh of the one row a decision touched; an off-rank or
+        # queued decision writes nothing (JAX's dropped scatter)
+        new_col, new_comp, new_maxd = _row_aggregates(
+            cl, c[row], cl.D[row], diag[row], cl.resident[row])
+        col0.index_copy_(0, row, torch.where(owned[:, None], new_col, col0[row]))
+        comp0.index_copy_(0, row, torch.where(owned, new_comp, comp0[row]))
+        maxd0.index_copy_(0, row, torch.where(owned, new_maxd, maxd0[row]))
+        placements.append(placement)
+    return axis.all_gather(c), _cat_placements(placements, counts.device)
+
+
 # --- vectorized brute force ------------------------------------------------------
 
 def evaluate_assignment(

@@ -46,7 +46,20 @@ with the closed-loop accounting (segments, splits, evictions, requeues,
 ring rows, D columns touched, the CUSUM-level histogram and three
 high-water gauges), and the decision ring rides ``LoopCarry.rec``, its
 context sampled from the carry at segment entry. Both stay on the device,
-with no host read. The sharded branch (``axis``) waits for ROADMAP item 8.
+with no host read.
+
+``ClosedLoopConfig.axis`` (a sharded ``ServerAxis``) runs the whole loop
+SPMD over a process group, as JAX's runs it under one ``shard_map``: every
+rank passes the same global inputs, and inside, the ``[m, ...]`` state (the
+cluster's tables, the dynamics, the priors ``Lp_t``, the carry's ``bank``
+and ``det``, the metric frame's per-server columns) holds the rank's own
+server rows, while the routing (``row_map``, ``read_row``), ``active``, the
+requeue buffer, the ring, ``seen`` and the decision ring are replicated.
+Each rank folds the replicated block into its own bank and detector rows
+(``_localize_block``; pool locality keeps every row inside its rank), one
+``psum`` counts the rows used, and ``fleet_step`` decides on the gathered
+``[m]`` state, the same on every rank. The carry comes back gathered; the
+segment outputs are replicated.
 """
 from __future__ import annotations
 
@@ -56,11 +69,13 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from ..distributed import server_axis as sa
 from ..fleet.controller import fleet_step
 from ..obs import metrics as obs_metrics
 from ..obs import recorder as obs_recorder
 from ..fleet.detect import CusumState, _cusum_update
-from ..telemetry.estimator import DeviceEstimatorState, _bank_core, _blend_prior_t, _remap_rows
+from ..telemetry.estimator import (DeviceEstimatorState, _bank_core, _blend_prior_t,
+                                   _localize_block, _remap_rows)
 from ..telemetry.log import RingBlock, ring_write_masked, rows_from_trace
 from .binpack_torch import PackedCluster
 from .engine_torch import EngineTrace, LoopStats, PackedDynamics, Scorer, trace_segment
@@ -98,6 +113,10 @@ class ClosedLoopConfig:
     # which needs LoopCarry.rec to hold a RecState
     metrics: bool = False
     record: bool = False
+    # the server axis: None or a dense axis runs the loop on the whole fleet;
+    # a sharded ServerAxis runs it SPMD over its process group (the module
+    # docstring)
+    axis: "sa.ServerAxis | None" = None
 
 
 class LoopCarry(NamedTuple):
@@ -162,16 +181,28 @@ def stack_outputs(outs: Sequence[SegmentOut]) -> tuple[SegmentOut, list[LoopStat
     return stacked, [o.stats for o in outs]
 
 
+def local_rows(read_row: torch.Tensor, m_local: int, lo: int | None = None) -> torch.Tensor:
+    """The rows of a server -> row map into ``m_local`` bank rows, clamped:
+    the whole map (``lo`` None, dense), or the slice of a sharded run's
+    rank whose first server is ``lo``, rebased to its local rows (pool
+    locality keeps every value in range)."""
+    if lo is None:
+        return torch.clamp(read_row, 0, m_local - 1)
+    return torch.clamp(read_row.narrow(0, lo, m_local) - lo, 0, m_local - 1)
+
+
 def full_D(bank: DeviceEstimatorState, read_row: torch.Tensor, Lp_t: torch.Tensor,
-           confidence_floor: float) -> torch.Tensor:
+           confidence_floor: float, lo: int | None = None) -> torch.Tensor:
     """The scheduler's D [m, T(u), T(t)] float32 from the carried bank: the
     host path's ``estimate_D`` blend in float64 for every bank row (the
     target-major tables, prior ``Lp_t`` float64), then one gather by the
-    read routing and one cast, as ``PackedCluster.build`` casts."""
+    read routing and one cast, as ``PackedCluster.build`` casts. ``lo``
+    (a sharded run's first server of this rank) reads the rank's own rows
+    of the global ``read_row``."""
     L_eff_t = _blend_prior_t(bank.L_t.to(torch.float64), bank.n_pair_t.to(torch.float64),
                              Lp_t, confidence_floor)
     D_rows = torch.clamp(-torch.expm1(L_eff_t), 0.0, 0.999999).to(torch.float32)
-    rows = torch.clamp(read_row, 0, D_rows.shape[0] - 1).long()
+    rows = local_rows(read_row, D_rows.shape[0], lo).long()
     return D_rows[rows].transpose(1, 2).contiguous()
 
 
@@ -201,21 +232,37 @@ def _fold_segment(carry: LoopCarry, trace: EngineTrace, a_type, a_bytes, n_valid
     no host read: observe -> estimate (``_bank_core`` through the pool
     routing), detect (the CUSUM scan against the post-update model, on the
     un-remapped block), act (``fleet_step``), the next segment's D, the
-    requeue compaction and the ring write. Returns (carry, D, outputs)."""
+    requeue compaction and the ring write. Returns (carry, D, outputs).
+
+    On a sharded axis this is the per-rank body: the carry's ``bank`` and
+    ``det`` hold the rank's rows, the block and the routing are replicated,
+    and each rank folds the block's rows of its own servers."""
+    axis = config.axis if sa.is_sharded(config.axis) else None
     m = carry.row_map.shape[0]
+    m_l = carry.bank.log_b.shape[0]
+    lo = axis.offset(m_l) if axis else None
     R = carry.req_type.shape[0]
     n_cap = a_type.shape[0]
     dev = a_type.device
     block = rows_from_trace(trace, a_type)
     rblock = _remap_rows(block, carry.row_map)
     bank, used = _bank_core(
-        carry.bank, rblock, lr=config.lr, decay=config.decay, step_damp=config.step_damp,
-        solo_eps=config.solo_eps, max_lost_frac=config.est_max_lost_frac,
-        scatter=config.scatter, sparse_tables=True)
+        carry.bank, _localize_block(rblock, lo) if axis else rblock, lr=config.lr,
+        decay=config.decay, step_damp=config.step_damp, solo_eps=config.solo_eps,
+        max_lost_frac=config.est_max_lost_frac, scatter=config.scatter, sparse_tables=True)
+    if axis:
+        used = axis.psum(used)
     seen = carry.seen + seg_valid.to(torch.int32)
     quiet = torch.zeros(m, dtype=torch.bool, device=dev)
     if config.fleet:
-        det, _ = _cusum_update(carry.det, block, bank.log_b, bank.L_t, carry.row_map,
+        # each rank folds its own servers' rows (pool locality keeps
+        # row_map inside the rank), in stream order
+        if axis:
+            det_row_map = carry.row_map.narrow(0, lo, m_l) - lo
+            det_block = _localize_block(block, lo)
+        else:
+            det_row_map, det_block = carry.row_map, block
+        det, _ = _cusum_update(carry.det, det_block, bank.log_b, bank.L_t, det_row_map,
                                k=config.cusum_k, level_decay=config.level_decay,
                                max_lost_frac=config.det_max_lost_frac)
         # burn-in: discard detector evidence, withhold actions
@@ -224,7 +271,7 @@ def _fold_segment(carry: LoopCarry, trace: EngineTrace, a_type, a_bytes, n_valid
         out = fleet_step(bank, det, carry.row_map, carry.read_row, carry.active, logb_priors,
                          seg_valid & ~in_warmup, h=config.cusum_h,
                          level_decay=config.level_decay, fail_floor=config.fail_floor,
-                         min_exposure=config.min_exposure)
+                         min_exposure=config.min_exposure, axis=axis)
         bank, det = out.bank, out.det
         row_map, read_row, active = out.row_map, out.read_row, out.active
         split_fired, split_stat = out.split_fired, out.split_stat
@@ -234,7 +281,7 @@ def _fold_segment(carry: LoopCarry, trace: EngineTrace, a_type, a_bytes, n_valid
         row_map, read_row, active = carry.row_map, carry.read_row, carry.active
         split_fired = evict_fired = evict_route = quiet
         split_stat = evict_stat = torch.zeros(m, dtype=torch.float32, device=dev)
-    D = full_D(bank, read_row, Lp_t, config.confidence_floor)
+    D = full_D(bank, read_row, Lp_t, config.confidence_floor, lo)
 
     # act -> re-schedule: work an evicted server held (or that never placed)
     # re-enters at the head of the next segment, in row order
@@ -309,29 +356,52 @@ def run_closed_loop(
     ``active`` are replaced every segment from the carried bank and mask.
     ``cache`` holds the event loop per shape (its captured graph on the
     card). Returns the final carry and the per-segment outputs, all on the
-    device."""
+    device.
+
+    With a sharded ``config.axis`` every rank passes the same global inputs
+    and gets the same global results (the module docstring)."""
+    axis = config.axis if sa.is_sharded(config.axis) else None
+    m = int(carry.row_map.shape[0])
+    lo = None
+    if axis:
+        axis.validate(m)
+        m_l = axis.local_m(m)
+        lo = axis.offset(m_l)
+        cluster, Lp_t = axis.local(cluster, m), axis.local(Lp_t, m)
+        dyn_stack = [axis.local(dyn, m) for dyn in dyn_stack]
+        carry = carry._replace(bank=axis.local(carry.bank, m), det=axis.local(carry.det, m),
+                               metrics=_per_server(carry.metrics, lambda x: axis.local(x, m)))
     n_seg = int(xs.arr_time.shape[1])
-    D = full_D(carry.bank, carry.read_row, Lp_t, config.confidence_floor)
+    D = full_D(carry.bank, carry.read_row, Lp_t, config.confidence_floor, lo)
     outs = []
     for k in range(int(xs.arr_time.shape[0])):
         seg_valid = xs.seg_valid[k]
         a_time, a_type, a_bytes, n_valid = _assemble(
             carry, xs.arr_time[k], xs.arr_type[k], xs.arr_bytes[k], seg_valid, n_seg)
-        cluster_k = dataclasses.replace(cluster, D=D, active=carry.active.to(torch.float32))
+        active = carry.active.narrow(0, lo, m_l) if axis else carry.active
+        cluster_k = dataclasses.replace(cluster, D=D, active=active.to(torch.float32))
         rec_ctx = None
         if config.record:
             # the estimator / detector state the scheduler consults *this*
             # segment, before the post-segment update
             rec_ctx = obs_recorder.RecCtx(
                 n_pair=carry.bank.n_pair_t,
-                row_of=torch.clamp(carry.read_row, 0, carry.read_row.shape[0] - 1),
+                row_of=local_rows(carry.read_row, carry.bank.log_b.shape[0], lo),
                 cusum=carry.det.stat.amax(1), pool_row=carry.read_row, segment=carry.seen)
         trace = trace_segment(cluster_k, dyn_stack[int(xs.dyn_idx[k])], a_time, a_type,
                               a_bytes, n_valid, objective=config.objective,
                               scorer=config.scorer, telemetry=True, metrics=config.metrics,
                               record=config.record, rec=carry.rec, rec_ctx=rec_ctx,
-                              cache=cache)
+                              axis=axis, cache=cache)
         carry, D, out_k = _fold_segment(carry, trace, a_type, a_bytes, n_valid, seg_valid,
                                         Lp_t, logb_priors, config)
         outs.append(out_k)
+    if axis:  # the exit gather: one collective per [m, ...] field
+        carry = carry._replace(bank=axis.gather(carry.bank, m_l), det=axis.gather(carry.det, m_l),
+                               metrics=_per_server(carry.metrics, axis.all_gather))
     return carry, outs
+
+
+def _per_server(frame, fn):
+    """``frame`` with ``fn`` applied to its per-server columns (None stays)."""
+    return None if frame is None else frame._replace(per_server=fn(frame.per_server))

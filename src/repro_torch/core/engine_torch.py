@@ -59,6 +59,16 @@ workload on server s is
 with the keep/lost variant of ``d_s`` (and of the base throughput) selected
 by the server's *physical* cache state (Eqn 2 vs llc_tolerance * CacheSize).
 
+With a sharded server axis (``axis``, a ``ServerAxis`` over a process
+group) :func:`trace_segment` is the per-rank body, as JAX's is the body of
+its ``shard_map``: the cluster and the rate tables hold this rank's servers,
+the arrivals and the queue are replicated, placements are global server
+indices, and the fleet-wide scalars of a micro-event (the earliest finish,
+any slot busy, the scorer's winner) cross ranks as ``pmin`` / ``psum`` at
+JAX's sites; a write to a server of another rank is masked, as JAX drops
+it. :func:`run_trace` is the global-in, global-out wrapper. A dense axis
+runs the unthreaded loop.
+
 A JAX scatter drops a write whose index is out of bounds, and the JAX engine
 uses that for its conditional writes. Here every conditional write is
 masked instead (the old value is written back), and every gather whose
@@ -74,11 +84,12 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..distributed import server_axis as sa
 from ..kernels import consolidation as kc
 from ..obs import metrics as obs_metrics
 from ..obs import recorder as obs_recorder
-from .binpack_torch import (PackedCluster, choose_scored, loads_from_sums, scores_from_sums,
-                            server_loads)
+from .binpack_torch import (PackedCluster, _choose_from_scores, choose_scored, loads_from_sums,
+                            scores_from_sums, server_loads)
 from .contention import pair_slowdown_matrices, type_tables
 from .server import ServerSpec
 
@@ -271,9 +282,13 @@ class _TraceLoop:
 
     def __init__(self, cluster, dyn, arr_time, arr_type, arr_bytes, objective, scorer,
                  telemetry=False, n_valid=None, n_steps=None, *, metrics=False, record=False,
-                 rec_capacity=None, npair_rows=None, rec=None, rec_ctx=None):
+                 rec_capacity=None, npair_rows=None, rec=None, rec_ctx=None, axis=None):
         self.n = self.K = n = int(arr_time.shape[0])
         self.m, self.T = m, T = cluster.m, cluster.T
+        # a sharded axis: this rank holds servers [lo, lo + m) of m_g
+        self.axis = axis if sa.is_sharded(axis) else None
+        self.lo = self.axis.offset(m) if self.axis else 0
+        self.m_g = m * self.axis.shards if self.axis else m
         self.W = min(8, n)  # drain fast-path window (first W queued candidates)
         self.n_steps = 4 * n + 8 if n_steps is None else int(n_steps)
         self.S = max(1, min(BLOCK_STEPS, self.n_steps))
@@ -304,8 +319,10 @@ class _TraceLoop:
         self.status = torch.zeros(4, dtype=torch.int32, device=dev)
         self.graph: torch.cuda.CUDAGraph | None = None
         self.tally: collections.Counter = collections.Counter()  # kernel launches per replay
+        self.calls: collections.Counter = collections.Counter()  # collectives per replay
         if metrics or record:
-            self.servers = torch.arange(m, dtype=torch.int32, device=dev)
+            # global indices of this rank's servers
+            self.servers = torch.arange(self.lo, self.lo + m, dtype=torch.int32, device=dev)
             self.diagD = torch.empty((m, T), **f32)  # the scoring D's diagonal
         # the observability plane's static buffers: the frame and the ring the
         # block updates in place, and the recorder's context it samples
@@ -316,7 +333,7 @@ class _TraceLoop:
             self.ctx = obs_recorder.RecCtx(
                 n_pair=None if npair_rows is None else torch.empty((npair_rows, T, T), **f32),
                 row_of=torch.empty((m,), **i32), cusum=torch.empty((m,), **f32),
-                pool_row=torch.empty((m,), **i32), segment=torch.empty((), **i32))
+                pool_row=torch.empty((self.m_g,), **i32), segment=torch.empty((), **i32))
         self._rec_in = None  # the ring a run continues (None: a fresh one)
         self.load(cluster, dyn, arr_time, arr_type, arr_bytes, n if n_valid is None else n_valid,
                   rec=rec, rec_ctx=rec_ctx)
@@ -358,7 +375,7 @@ class _TraceLoop:
                                  f"{self.rec.capacity}")
             self._rec_in = rec
             if rec_ctx is None:
-                rec_ctx = obs_recorder.default_ctx(self.m, self.device)
+                rec_ctx = obs_recorder.default_ctx(self.m, self.m_g, device=self.device)
             if (rec_ctx.n_pair is None) != (self.ctx.n_pair is None):
                 raise ValueError("a recorder context with and without pair exposure for one "
                                  "loop")
@@ -386,9 +403,23 @@ class _TraceLoop:
             score = 0.5 * (dcache + (maxd_a - maxd_now[None, :]))
         else:  # literal Fig 8: minimize the post-allocation average
             score = 0.5 * (cache_a + maxd_a)
+        if self.axis:
+            # score-local-then-argmin-allreduce: only (score, index) cross
+            # ranks; tie-breaking is the dense first global index
+            feasible = ((maxd_a < cl.degradation_limit) & (cache_a <= 1.0)
+                        & (cl.active > 0.5)[None, :])
+            score = torch.where(feasible, score, torch.inf)
+            best, ok = _choose_from_scores(self.axis, score, self.m)
+            return best, ok, score
         return choose_scored(cl, cache_a, maxd_a, score)
 
     # -- state updates --------------------------------------------------------
+    def owner(self, server):
+        """(this rank's row of global ``server`` [1], clamped into range, and
+        whether this rank owns it): the sharded loop's rebase."""
+        s_l = server - self.lo
+        return torch.clamp(s_l, 0, self.m - 1), (s_l >= 0) & (s_l < self.m)
+
     def apply_delta(self, st, server, wtype, sign):
         """counts update + canonical refresh of the touched server's sums.
 
@@ -398,9 +429,14 @@ class _TraceLoop:
         hold bitwise-identical sums regardless of event history, so score
         ties break by server index exactly like the float64 oracle, and
         nothing drifts over long traces. ``sign=0`` is a no-op refresh.
-        ``server``, ``wtype`` and ``sign`` have shape [1].
+        ``server``, ``wtype`` and ``sign`` have shape [1]. ``server`` is a
+        global index: on a sharded axis the owning rank applies the delta
+        and every other rank refreshes its row 0 with a delta of 0.
         """
         T = self.T
+        if self.axis:
+            server, owned = self.owner(server)
+            sign = torch.where(owned, sign, 0.0)
         st.counts.index_put_((server, wtype), st.counts[server, wtype] + sign)
         sums = (st.counts[server][:, None, :] @ self.tables[server])[:, 0]  # [1, 3T+1]
         st.comp.index_copy_(0, server, sums[:, 3 * T])
@@ -425,11 +461,18 @@ class _TraceLoop:
             qdepth = st.queued.sum(dtype=torch.int32)
         server = torch.where(found, server, 0)
         self.apply_delta(st, server, wtype, found.to(torch.float32))
+        # slot bookkeeping is owner-local; the replicated [n] queue and
+        # placement tensors take the same global values on every rank
+        if self.axis:
+            srow, owned = self.owner(server)
+            put = found & owned
+        else:
+            srow, put = server, found
         # first free slot; K == n, so one exists whenever found
-        k = (st.slot_type[server] < 0).to(torch.int32).argmax(-1)
-        _put_if(st.slot_type, (server, k), wtype, found)
-        _put_if(st.slot_rem, (server, k), nbytes, found)
-        _put_if(st.slot_arr, (server, k), idx, found)
+        k = (st.slot_type[srow] < 0).to(torch.int32).argmax(-1)
+        _put_if(st.slot_type, (srow, k), wtype, put)
+        _put_if(st.slot_rem, (srow, k), nbytes, put)
+        _put_if(st.slot_arr, (srow, k), idx, put)
         i = idx.clamp(max=self.n - 1)
         fail = queue_on_fail & ~found
         _put_if(st.queued, (i,), fail, found | fail)  # placed: off the queue
@@ -440,10 +483,12 @@ class _TraceLoop:
             return
         # Eqn-4 headroom of the committed server, post-commit: how much of
         # the degradation budget this placement left on the table
-        d_pred = torch.clamp(st.col0[server] - self.diagD[server], 0.0, 1.0)  # [1, T]
-        present = st.counts[server] > 0
+        d_pred = torch.clamp(st.col0[srow] - self.diagD[srow], 0.0, 1.0)  # [1, T]
+        present = st.counts[srow] > 0
         maxd_s = torch.where(present, d_pred, -torch.inf).amax(1)
         maxd_s = torch.where(present.any(1), maxd_s, 0.0)
+        if self.axis:  # single-owner broadcast: the consumers replicate
+            maxd_s = self.axis.pmin(torch.where(owned, maxd_s, torch.inf))
         headroom = self.cluster.degradation_limit - maxd_s  # [1]
         if self.metrics:
             mf = self.mf
@@ -457,13 +502,21 @@ class _TraceLoop:
             obs_metrics.add_server_(mf, "placements", (self.servers == server) & found)
         if self.record:
             ctx = self.ctx
-            cand, csc = obs_recorder.top_candidates(score_row)
+            # the candidate row is gathered so every rank records the same
+            # global top-K; the context is owner-sampled and pmin-broadcast
+            cand, csc = obs_recorder.top_candidates(
+                self.axis.all_gather(score_row) if self.axis else score_row)
             if ctx.n_pair is None:
                 npmin = torch.full_like(headroom, -1.0)
             else:
-                row = torch.clamp(ctx.row_of[server], 0, ctx.n_pair.shape[0] - 1)
+                row = torch.clamp(ctx.row_of[srow], 0, ctx.n_pair.shape[0] - 1)
                 npmin = obs_recorder.pair_exposure_min(
-                    ctx.n_pair.index_select(0, row.long())[0], st.counts[server][0], wtype)
+                    ctx.n_pair.index_select(0, row.long())[0], st.counts[srow][0], wtype)
+                if self.axis:
+                    npmin = self.axis.pmin(torch.where(owned, npmin, torch.inf))
+            cus = ctx.cusum[srow]
+            if self.axis:
+                cus = self.axis.pmin(torch.where(owned, cus, torch.inf))
             kind = (torch.where(found, obs_recorder.KIND_ARRIVE, obs_recorder.KIND_QUEUED)
                     if at_arrival else torch.full_like(server, obs_recorder.KIND_DRAIN))
             obs_recorder.record_row(
@@ -473,7 +526,7 @@ class _TraceLoop:
                 t=t, headroom=torch.where(found, headroom, 0.0),
                 margin=obs_recorder.tie_margin(csc),
                 n_pair_min=torch.where(found, npmin, -1.0),
-                cusum=torch.where(found, ctx.cusum[server], 0.0))
+                cusum=torch.where(found, cus, 0.0))
 
     def advance(self, st, rate, rates, overflow, dt, moving):
         """Run every slot for ``dt`` where ``moving`` (a FINISH or an ARRIVE
@@ -486,7 +539,14 @@ class _TraceLoop:
             # running arrival holds one slot on its server, whose co-resident
             # counts, TDP exposure and log rate it takes over [now, now + dt)
             running = moving & (st.placement >= 0) & torch.isinf(st.finish_time)  # [n]
-            srv = st.placement.clamp(min=0).long()
+            if self.axis:
+                # the rank owning an arrival's server integrates it; the
+                # others keep 0 there, and the run's end sums the ranks
+                srv, mine = self.owner(st.placement)
+                running = running & mine
+                srv = srv.long()
+            else:
+                srv = st.placement.clamp(min=0).long()
             co = torch.clamp(st.counts[srv] - self.own, min=0.0)  # [n, T]
             lost = overflow.to(torch.float32)[srv]
             logr = torch.log(rate[srv, self.arr_type])
@@ -516,7 +576,10 @@ class _TraceLoop:
         wq = self.arr_type[q]
         self.place_if(st, found & on, q, servers[wq], wq, self.arr_bytes[q], st.now,
                       queue_on_fail=False, on=on, score_row=score[wq][0] if self.record else None)
-        no_active = ~(st.slot_type >= 0).any()
+        act_any = (st.slot_type >= 0).any()
+        if self.axis:
+            act_any = self.axis.any(act_any)
+        no_active = ~act_any
         # deadlock: nothing runs, nothing arrives, the queue is stuck
         dead = ~found[0] & no_active & (st.ai >= self.n_valid) & st.queued.any()
         if self.metrics:
@@ -527,18 +590,33 @@ class _TraceLoop:
         st.draining.copy_(torch.where(on, found[0], st.draining))
 
     def finish_branch(self, st, on, k_flat, t_fin):
-        """Free the slot ``k_flat`` (flat (server, slot) index) at ``t_fin``."""
+        """Free the slot ``k_flat`` (flat (server, slot) index, global on a
+        sharded axis) at ``t_fin``."""
         s_fin, k_fin = k_flat // self.K, k_flat % self.K
-        idx = st.slot_arr[s_fin, k_fin].long().clamp(min=0)
-        wtype = st.slot_type[s_fin, k_fin].long().clamp(min=0)
+        if self.axis:
+            # the owning rank broadcasts the slot's arrival and type by
+            # single-owner pmins; only it clears the slot
+            ax = self.axis
+            srow, owned = self.owner(s_fin)
+            idx = ax.pmin(torch.where(owned, st.slot_arr[srow, k_fin], self.n))
+            idx = idx.long().clamp(0, self.n - 1)
+            wtype = ax.pmin(torch.where(owned, st.slot_type[srow, k_fin], self.T))
+            wtype = wtype.long().clamp(0, self.T - 1)
+            put = on & owned
+        else:
+            srow, put = s_fin, on
+            idx = st.slot_arr[s_fin, k_fin].long().clamp(min=0)
+            wtype = st.slot_type[s_fin, k_fin].long().clamp(min=0)
         self.apply_delta(st, s_fin, wtype, torch.where(on, -1.0, 0.0).reshape(1))
-        _put_if(st.slot_type, (s_fin, k_fin), self.free_slot, on)
-        _put_if(st.slot_arr, (s_fin, k_fin), self.free_slot, on)
+        _put_if(st.slot_type, (srow, k_fin), self.free_slot, put)
+        _put_if(st.slot_arr, (srow, k_fin), self.free_slot, put)
         _put_if(st.finish_time, (idx,), t_fin.reshape(1), on)
         if self.metrics:
             # observed slowdown = actual duration / solo duration on the
             # server that ran it -- the serving-SLO quantity next to waiting
-            srate = self.solo[s_fin, wtype]
+            srate = self.solo[srow, wtype]
+            if self.axis:
+                srate = self.axis.pmin(torch.where(owned, srate, torch.inf))
             solo_dur = self.arr_bytes[idx] / torch.clamp(srate, min=1e-30)
             actual = t_fin - st.place_time[idx]
             mf = self.mf
@@ -563,8 +641,10 @@ class _TraceLoop:
 
     # -- the loop ---------------------------------------------------------------
     def is_done(self, st):
-        return st.deadlock | ((st.ai >= self.n_valid) & ~(st.slot_type >= 0).any()
-                              & ~st.queued.any())
+        act_any = (st.slot_type >= 0).any()
+        if self.axis:
+            act_any = self.axis.any(act_any)
+        return st.deadlock | ((st.ai >= self.n_valid) & ~act_any & ~st.queued.any())
 
     def step(self, st) -> None:
         """One micro-event (JAX's ``event_step``): pick DRAIN, FINISH or
@@ -580,9 +660,27 @@ class _TraceLoop:
         # on same-spec servers) must resolve lowest-server-first like the
         # oracle's event loop; f32 noise would otherwise order them arbitrarily
         flat = tt.reshape(-1)
-        t_min = flat.min()
-        k_flat = (flat <= t_min * (1.0 + 1e-5)).to(torch.int32).argmax().reshape(1)
-        any_active = active.any()
+        if self.axis:
+            # the same margin argmin across ranks: the global min by pmin,
+            # the local first hit globalized by the rank's flat offset (flat
+            # order is (server, slot), so lo * K keeps it), the lowest by
+            # pmin, and the chosen slot's time broadcast by its owner
+            ax, lo_k = self.axis, self.lo * self.K
+            t_min = ax.pmin(flat.min())
+            hit = flat <= t_min * (1.0 + 1e-5)
+            g_flat = torch.where(hit.any(), hit.to(torch.int32).argmax() + lo_k,
+                                 self.m_g * self.K)
+            k_flat = ax.pmin(g_flat).reshape(1)
+            k_l = k_flat - lo_k
+            owned = (k_l >= 0) & (k_l < flat.shape[0])
+            dt = ax.pmin(torch.where(owned, flat[torch.clamp(k_l, 0, flat.shape[0] - 1)],
+                                     torch.inf))
+            any_active = ax.any(active.any())
+        else:
+            t_min = flat.min()
+            k_flat = (flat <= t_min * (1.0 + 1e-5)).to(torch.int32).argmax().reshape(1)
+            dt = flat[k_flat]
+            any_active = active.any()
         queue_any = st.queued.any()
         arrived_all = st.ai >= self.n_valid
         a = st.ai.clamp(max=n - 1).long().reshape(1)
@@ -611,7 +709,7 @@ class _TraceLoop:
                 (deg > self.cluster.degradation_limit).any(1) & live)
             obs_metrics.add_server_(mf, "busy_events", active.any(1) & live)
         pick = self.pick_types(st)  # advancing time leaves the scores as they are
-        t_fin = st.now + flat[k_flat][0]
+        t_fin = st.now + dt[0]
         t_next = torch.where(finish, t_fin, torch.where(arrive, t_arr, st.now))
         self.advance(st, rate, rates, overflow, t_next - st.now, finish | arrive)
         st.now.copy_(t_next)
@@ -631,9 +729,10 @@ class _TraceLoop:
 
     def _capture(self) -> None:
         """Warm a block up on a side stream (the kernel library's load, the
-        allocator's blocks, cuBLAS), then capture it. The wrappers count a
-        launch at capture, where nothing runs: those counts move to the
-        per-replay tally. Raises if capture fails: there is no eager
+        allocator's blocks, cuBLAS, the communicator's first collectives),
+        then capture it. The wrappers count a launch, and the axis a
+        collective, at capture, where nothing runs: those counts move to the
+        per-replay tallies. Raises if capture fails: there is no eager
         fallback on the card."""
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
@@ -641,16 +740,11 @@ class _TraceLoop:
             self.block()
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        before = collections.Counter(kc.LAUNCHES)
+        before = collections.Counter(kc.LAUNCHES), collections.Counter(sa.CALLS)
         with torch.cuda.graph(graph):
             self.block()
-        tally = collections.Counter(kc.LAUNCHES)
-        tally.subtract(before)
-        self.tally = +tally
-        for key, count in self.tally.items():
-            kc.LAUNCHES[key] -= count
-            if not kc.LAUNCHES[key]:
-                del kc.LAUNCHES[key]
+        self.tally = _move_tally(kc.LAUNCHES, before[0])
+        self.calls = _move_tally(sa.CALLS, before[1])
         self.graph = graph
 
     def run(self) -> EngineTrace:
@@ -667,16 +761,24 @@ class _TraceLoop:
             if on_card:
                 self.graph.replay()
                 kc.LAUNCHES.update(self.tally)
+                sa.CALLS.update(self.calls)
             else:
                 self.block()
             done, _, events, full_scans = self.status.tolist()
             reads += 1
             if done:
                 break
+        max_deg, obs = st.max_deg.clone(), (st.obs_co, st.obs_lost, st.obs_logr)
+        if self.axis:
+            # per-rank running max; each arrival's integrals accumulated on
+            # the one rank owning its server, so their sum is a gather
+            max_deg = self.axis.pmax(max_deg)
+            if self.telemetry:
+                obs = tuple(self.axis.psum(x) for x in obs)
         return EngineTrace(
             st.placement.clone(), st.was_queued.clone(), st.place_time.clone(),
-            st.finish_time.clone(), st.makespan.clone(), st.max_deg.clone(),
-            st.deadlock.clone(), st.obs_co.clone(), st.obs_lost.clone(), st.obs_logr.clone(),
+            st.finish_time.clone(), st.makespan.clone(), max_deg,
+            st.deadlock.clone(), *(x.clone() for x in obs),
             LoopStats(events, reads, full_scans, self.S),
             metrics=obs_metrics.clone(self.mf) if self.metrics else None,
             rec=obs_recorder.clone(self.rec) if self.record else None)
@@ -696,6 +798,19 @@ class _TraceLoop:
                 obs_recorder.copy_(self.rec, self._rec_in)
 
 
+def _move_tally(counter: collections.Counter, before: collections.Counter) -> collections.Counter:
+    """The counts ``counter`` gained since ``before``, taken back out of it:
+    what one replay of a just-captured graph launches."""
+    tally = collections.Counter(counter)
+    tally.subtract(before)
+    tally = +tally
+    for key, count in tally.items():
+        counter[key] -= count
+        if not counter[key]:
+            del counter[key]
+    return tally
+
+
 def trace_segment(
     cluster: PackedCluster,
     dyn: PackedDynamics,
@@ -712,6 +827,7 @@ def trace_segment(
     record: bool = False,
     rec: "obs_recorder.RecState | None" = None,
     rec_ctx: "obs_recorder.RecCtx | None" = None,
+    axis: "sa.ServerAxis | None" = None,
     cache: dict | None = None,
 ) -> EngineTrace:
     """Body of :func:`run_trace`, with an arrival count apart from the shape.
@@ -727,12 +843,21 @@ def trace_segment(
 
     ``metrics``, ``record``, ``rec`` and ``rec_ctx`` are :func:`run_trace`'s.
 
-    ``cache`` (a dict the caller keeps) holds one loop per shape (m, n, T,
-    device, degradation limit, objective, scorer, n_steps, telemetry, and
-    the observability plane's flags, ring capacity and pair-exposure rows),
-    with its static buffers and, on the card, its captured graph; a hit
-    copies this trace's inputs into it, as JAX compiles once per shape.
+    With a sharded ``axis`` this is the per-rank body (JAX's ``shard_map``
+    body): ``cluster`` and ``dyn`` hold this rank's server slice, the
+    arrivals, the queue and the ring are replicated, and ``rec_ctx``'s
+    ``n_pair``, ``row_of`` and ``cusum`` are local (``pool_row`` global).
+    The outputs come back replicated but for the metric frame's
+    ``per_server`` columns, which stay local.
+
+    ``cache`` (a dict the caller keeps) holds one loop per shape and axis
+    (m, n, T, device, degradation limit, objective, scorer, n_steps,
+    telemetry, the observability plane's flags, ring capacity and
+    pair-exposure rows, and the axis), with its static buffers and, on the
+    card, its captured graph; a hit copies this trace's inputs into it, as
+    JAX compiles once per shape.
     """
+    axis = axis if sa.is_sharded(axis) else None
     n = int(arr_time.shape[0])
     n_steps = 4 * n + 8 if n_steps is None else int(n_steps)
     record = bool(record)
@@ -741,13 +866,13 @@ def trace_segment(
                   and rec_ctx.n_pair is not None else None)
     key = (cluster.m, n, cluster.T, str(cluster.device), cluster.degradation_limit,
            objective, scorer, n_steps, bool(telemetry), bool(metrics), record, rec_capacity,
-           npair_rows)
+           npair_rows, axis)
     loop = None if cache is None else cache.get(key)
     if loop is None:
         loop = _TraceLoop(cluster, dyn, arr_time, arr_type, arr_bytes, objective, scorer,
                           bool(telemetry), n_valid=n_valid, n_steps=n_steps,
                           metrics=bool(metrics), record=record, rec_capacity=rec_capacity,
-                          npair_rows=npair_rows, rec=rec, rec_ctx=rec_ctx)
+                          npair_rows=npair_rows, rec=rec, rec_ctx=rec_ctx, axis=axis)
         if cache is not None:
             cache[key] = loop
     else:
@@ -771,7 +896,7 @@ def run_trace(
     record: bool = False,
     rec: "obs_recorder.RecState | None" = None,
     rec_ctx: "obs_recorder.RecCtx | None" = None,
-    axis=None,
+    axis: "sa.ServerAxis | None" = None,
     cache: dict | None = None,
 ) -> EngineTrace:
     """Run one arrival trace to completion: :func:`trace_segment` with
@@ -809,16 +934,36 @@ def run_trace(
     estimator/detector context to sample (default: the no-estimator
     context). Recording never feeds back into scoring.
 
-    The JAX engine's server axis (``axis``) is not ported yet and raises.
+    ``axis`` (a ``ServerAxis``; anything else raises TypeError) lays the
+    fleet over a process group: every rank passes the same global inputs,
+    runs the event loop on its own servers (only the per-event scalars --
+    winning score and index, earliest finish, any slot busy -- cross ranks)
+    and gets the same global result; the frame's per-server columns are
+    gathered once on exit. ``None`` or a dense axis runs the unthreaded
+    loop.
     """
-    if axis is not None:
-        raise NotImplementedError(
-            "run_trace(axis=...) is not ported yet (ROADMAP Queue 1, item 8)")
     n = int(arr_time.shape[0])
-    return trace_segment(cluster, dyn, arr_time, arr_type, arr_bytes, n,
-                         objective=objective, scorer=scorer, n_steps=n_steps,
-                         telemetry=telemetry, metrics=metrics, record=record, rec=rec,
-                         rec_ctx=rec_ctx, cache=cache)
+    kw = dict(objective=objective, scorer=scorer, n_steps=n_steps, telemetry=telemetry,
+              metrics=metrics, record=record, rec=rec, cache=cache)
+    if not sa.is_sharded(axis):
+        return trace_segment(cluster, dyn, arr_time, arr_type, arr_bytes, n, rec_ctx=rec_ctx,
+                             **kw)
+    m_g = cluster.m
+    axis.validate(m_g)
+    m_l = axis.local_m(m_g)
+    if rec_ctx is not None:
+        # per-server context rows go local (pool locality keeps every row
+        # inside its rank); the recorded pool map and clock stay global
+        rows = rec_ctx.row_of.narrow(0, axis.offset(m_l), m_l) - axis.offset(m_l)
+        rec_ctx = rec_ctx._replace(
+            n_pair=axis.local(rec_ctx.n_pair, m_g), row_of=torch.clamp(rows, 0, m_l - 1),
+            cusum=axis.local(rec_ctx.cusum, m_g))
+    out = trace_segment(axis.local(cluster, m_g), axis.local(dyn, m_g), arr_time, arr_type,
+                        arr_bytes, n, rec_ctx=rec_ctx, axis=axis, **kw)
+    if metrics:
+        out = dataclasses.replace(out, metrics=out.metrics._replace(
+            per_server=axis.all_gather(out.metrics.per_server)))
+    return out
 
 
 # --- tensor local search (core/refine.py's device backend) ------------------------

@@ -4,7 +4,9 @@
   pool        ``PooledEstimatorBank`` -- same-spec servers share one
               estimator row through a device-side server -> row map over
               the ``EstimatorBank``; splits re-route a server to its own row
-              seeded with the pool posterior.
+              seeded with the pool posterior. ``shard_local_pools`` and
+              ``resolve_leaders_device`` keep pools inside one rank of a
+              sharded ``ServerAxis``.
   detect      ``DriftDetector`` -- a chunk-invariant CUSUM over each
               server's residual stream against its pool's model, plus an
               exposure-weighted residual level for failure detection; the
@@ -20,8 +22,8 @@
 Driven end to end by ``AdaptiveEngine(fleet=FleetController(...))``.
 """
 from .controller import FleetController, HealthEvent
-from .detect import CusumState, DriftDetector
-from .pool import PooledEstimatorBank
+from .detect import CusumState, DriftDetector, cusum_update_sharded
+from .pool import PooledEstimatorBank, resolve_leaders_device, shard_local_pools
 
 __all__ = [
     "CusumState",
@@ -29,4 +31,7 @@ __all__ = [
     "FleetController",
     "HealthEvent",
     "PooledEstimatorBank",
+    "cusum_update_sharded",
+    "resolve_leaders_device",
+    "shard_local_pools",
 ]

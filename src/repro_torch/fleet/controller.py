@@ -41,6 +41,7 @@ from ..configs.base import MeshConfig
 from ..core.criteria import eviction_rate_floor
 from ..core.server import ServerSpec
 from ..distributed.fault_tolerance import HeartbeatMonitor, ReMeshPlan, plan_elastic_remesh
+from ..distributed.server_axis import is_sharded
 from ..kernels.fleet_actions import evict_loop, split_loop
 from ..telemetry.estimator import DeviceEstimatorState, StreamingEstimator
 from ..telemetry.log import RingBlock
@@ -97,6 +98,7 @@ def fleet_step(
     level_decay: float,
     fail_floor: float,
     min_exposure: float,
+    axis=None,
 ) -> FleetStepOut:
     """``FleetController.observe``'s decision logic as device tensor ops.
 
@@ -115,10 +117,28 @@ def fleet_step(
     state) decides exactly whether anything can fire; where nothing can, the
     kernel returns at its first instruction (JAX's ``lax.cond`` on
     ``take_slow``), with nothing read back to the host.
+
+    With a sharded ``axis`` this is a per-rank body: ``bank`` and ``det``
+    hold the rank's rows, the routing tensors are replicated. Fleet policy
+    is global (the failure median, live pool membership across the loops),
+    so the small per-server tables -- the detector state and the bank's
+    [m, T] base-rate columns, never the [m, T, T] estimators -- are
+    all-gathered once, the same decision program (both kernel launches)
+    runs on the gathered [m] state on every rank, and only the final bank
+    row gather is local (pool locality keeps ``src_of`` inside the rank);
+    the detector state comes back as the rank's rows.
     """
+    sharded = is_sharded(axis)
+    if sharded:
+        m_loc = int(bank.log_b.shape[0])
+        lo = axis.offset(m_loc)
+        det = CusumState(*(axis.all_gather(a) for a in det))
+        bank_lb, bank_nb = axis.all_gather(bank.log_b), axis.all_gather(bank.n_base)
+    else:
+        bank_lb, bank_nb = bank.log_b, bank.n_base
     m = int(row_map.shape[0])
     dev = row_map.device
-    rows_cap = int(bank.log_b.shape[0])
+    rows_cap = int(bank_lb.shape[0])
     ident = torch.arange(rows_cap, dtype=torch.int32, device=dev)
     inf = torch.full((), torch.inf, dtype=torch.float32, device=dev)
 
@@ -139,7 +159,7 @@ def fleet_step(
     level_hits = (exposure >= min_exposure) & (level - med <= math.log(fail_floor)) & act_ok
 
     # -- the screen: can anything fire against pre-action state? -----------
-    ratio0 = base_ratio(bank.log_b, bank.n_base, logb_priors, ident, read_row, min_exposure)
+    ratio0 = base_ratio(bank_lb, bank_nb, logb_priors, ident, read_row, min_exposure)
     row_live = row_map >= 0
     size0 = ((row_map[:, None] == row_map[None, :])
              & row_live[None, :] & row_live[:, None]).sum(dim=1)
@@ -150,15 +170,20 @@ def fleet_step(
 
     sp = split_loop(flags, row_map, read_row, ident, det.stat, det.pool_level, det.pool_n, ctl)
     # -- failures: level route vs fleet median, base route vs nominal ------
-    ratio = base_ratio(bank.log_b, bank.n_base, logb_priors, sp.src_of, sp.read_row,
-                       min_exposure)
+    ratio = base_ratio(bank_lb, bank_nb, logb_priors, sp.src_of, sp.read_row, min_exposure)
     base_ok = ratio <= fail_floor
     stat_val = torch.where(level_hits, level - med, torch.log(ratio))
     ev = evict_loop(level_hits, base_ok, stat_val, sp.row_map, sp.read_row, sp.src_of, active,
                     sp.stat, det.level, det.n, sp.pool_level, sp.pool_n, ctl)
-    src = ev.src_of.long()
+    if sharded:
+        # the rank's slice of src_of, rebased to its own rows
+        src = torch.clamp(ev.src_of.narrow(0, lo, m_loc) - lo, 0, m_loc - 1).long()
+    else:
+        src = ev.src_of.long()
     bank2 = DeviceEstimatorState(*(a[src] for a in bank))
     det2 = CusumState(ev.stat, ev.level, ev.n, ev.pool_level, ev.pool_n)
+    if sharded:  # routing ran on the gathered detector: hand back this rank's rows
+        det2 = CusumState(*(a.narrow(0, lo, m_loc) for a in det2))
     return FleetStepOut(
         bank=bank2, det=det2, row_map=ev.row_map, read_row=ev.read_row, active=ev.active,
         split_fired=sp.fired, split_stat=split_stat, evict_fired=ev.fired,

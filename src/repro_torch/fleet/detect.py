@@ -41,6 +41,7 @@ import torch
 from ..core.criteria import eviction_rate_floor
 from ..device import resolve_device
 from ..kernels.cusum import CusumState, cusum_scan
+from ..telemetry.estimator import _localize_block
 from ..telemetry.log import RingBlock
 
 
@@ -78,6 +79,33 @@ def _cusum_update(
     new = cusum_scan(state, s_clip.to(torch.int32).contiguous(), r_idx.contiguous(),
                      resid.contiguous(), valid.contiguous(), k=k, level_decay=level_decay)
     return new, valid.sum()
+
+
+def cusum_update_sharded(axis, state: CusumState, block: RingBlock, log_b, L_t, row_map, *,
+                         k: float, level_decay: float, max_lost_frac: float):
+    """``_cusum_update`` with the detector rows and the pooled tables
+    sharded over a ``ServerAxis``.
+
+    Global in, global out. Requires pool locality (DESIGN.md section 15):
+    every pool lies whole inside one rank, so ``row_map[s]`` points into the
+    rank owning server ``s``. Each rank folds the whole replicated block in
+    stream order through the ``cusum_scan`` kernel on its own rows, with
+    ``row_map`` sliced and rebased and the off-rank rows masked by the
+    range check: every (server, pool row) state sees exactly the dense
+    sequence of updates. One ``psum`` counts the rows consumed; the state
+    is gathered on exit. A dense axis is ``_cusum_update`` itself."""
+    if not axis.is_sharded:
+        return _cusum_update(state, block, log_b, L_t, row_map, k=k, level_decay=level_decay,
+                             max_lost_frac=max_lost_frac)
+    m = row_map.shape[0]
+    axis.validate(m)
+    m_local = axis.local_m(m)
+    lo = axis.offset(m_local)
+    new, used = _cusum_update(axis.local(state, m), _localize_block(block, lo),
+                              axis.local(log_b, m), axis.local(L_t, m),
+                              row_map.narrow(0, lo, m_local) - lo,
+                              k=k, level_decay=level_decay, max_lost_frac=max_lost_frac)
+    return axis.gather(new, m_local), axis.psum(used)
 
 
 def _reset_rows(state: CusumState, servers: torch.Tensor) -> CusumState:

@@ -20,8 +20,11 @@ update:
            dump mask. Reads keep returning its last estimator.
 
 Reads (``estimator_for`` / ``estimate_D``) resolve through the same map.
-The JAX package's server-axis helpers (``shard_local_pools``,
-``resolve_leaders_device``) wait for the server axis (ROADMAP item 8).
+
+Under a sharded server axis no pool may cross a rank: ``shard_local_pools``
+namespaces the labels by rank (``PooledEstimatorBank(axis=)`` applies it),
+and ``resolve_leaders_device`` elects the leaders on the device from
+per-rank pool ids.
 """
 from __future__ import annotations
 
@@ -30,21 +33,59 @@ from typing import Hashable, Sequence
 import numpy as np
 import torch
 
+from ..distributed.server_axis import is_sharded
 from ..telemetry.estimator import EstimatorBank, StreamingEstimator
 from ..telemetry.log import RingBlock
+
+
+def shard_local_pools(pools: "Sequence[Hashable]", m: int, shards: int) -> list:
+    """Namespace pool labels by rank so that no pool crosses a rank.
+
+    The sharded detector and bank contract (DESIGN.md section 15) is that
+    ``row_map[s]`` stays inside server ``s``'s rank: CUSUM pool rows and bank
+    row copies are then rank-local and the sharded update is the dense one.
+    Two same-spec servers on different ranks become two pools; the pooling
+    gain shrinks at rank boundaries instead of the correctness breaking
+    there."""
+    if m % shards:
+        raise ValueError(f"m={m} not divisible by shards={shards}")
+    m_local = m // shards
+    return [(s // m_local, lab) for s, lab in enumerate(pools)]
+
+
+def resolve_leaders_device(axis, pool_ids: torch.Tensor) -> torch.Tensor:
+    """Leader election on the device: ``row_map`` i32[m] from pool ids.
+
+    ``pool_ids`` i32[m] (global in; each rank contributes its own slice):
+    servers sharing an id share a pool, negative ids are dropped servers.
+    One all-gather moves the ids across ranks; every rank then resolves
+    each server to the lowest member index of its pool (the host
+    constructor's ``leader.setdefault`` rule) on the replicated vector.
+    O(m^2) compares: leader election runs at fleet-management frequency,
+    not per decision. Returns the replicated row_map."""
+    m = pool_ids.shape[0]
+    axis.validate(m)
+    ids = axis.all_gather(axis.local(pool_ids, m))
+    eq = ids[None, :] == ids[:, None]
+    first = eq.to(torch.int32).argmax(1).to(torch.int32)
+    return torch.where(ids >= 0, first, -1)
 
 
 class PooledEstimatorBank:
     """An :class:`EstimatorBank` routed through a mutable server -> row map.
 
     ``pools`` labels each server with a hashable pool id (servers sharing a
-    label share a row); ``None`` puts every server in its own pool.
+    label share a row); ``None`` puts every server in its own pool. ``axis``
+    (a sharded ``ServerAxis``) namespaces the labels by rank through
+    :func:`shard_local_pools`, the pool locality the sharded closed loop
+    relies on.
     """
 
     def __init__(
         self,
         estimators: Sequence[StreamingEstimator],
         pools: Sequence[Hashable] | None = None,
+        axis=None,
     ):
         self.bank = EstimatorBank(list(estimators))
         m = len(self.bank.estimators)
@@ -52,6 +93,8 @@ class PooledEstimatorBank:
             pools = list(range(m))
         if len(pools) != m:
             raise ValueError(f"{len(pools)} pool labels for {m} estimators")
+        if is_sharded(axis):
+            pools = shard_local_pools(list(pools), m, axis.shards)
         leader: dict[Hashable, int] = {}
         self.row_of = np.empty(m, np.int32)  # -1 once dropped
         for s, lab in enumerate(pools):

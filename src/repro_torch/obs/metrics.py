@@ -123,6 +123,12 @@ class MetricFrame(NamedTuple):
     hist        f32[len(HISTOGRAMS), HIST_BINS] merge: add (bit-exact for
                                                 integer weights < 2**24)
     per_server  f32[m, len(PER_SERVER)]         merge: add
+
+    Under a sharded server axis the ``per_server`` rows are the rank's own
+    servers (an entry point gathers them once on exit, as JAX's
+    ``frame_specs`` shard them); counters, gauges and histograms are
+    replicated, every rank recording the same fleet-global stream, since
+    commit decisions are broadcast.
     """
 
     counters: torch.Tensor

@@ -33,6 +33,11 @@ Row layout (``REC_TOPK = K`` candidate slots):
 :func:`record_row` writes its row in place with a masked write (the old
 row is written back when off) and advances the cursor by the mask: no
 branch and no host read, so it runs inside a captured block.
+
+Sharded runs (a ``ServerAxis`` over a process group) keep every recorded
+field replicated: per-decision scalars are owner-computed and
+``pmin``-broadcast, and the candidate row is all-gathered before the top-K
+cut, so every rank holds the same ring.
 """
 from __future__ import annotations
 
@@ -90,12 +95,17 @@ class RecCtx(NamedTuple):
     Built once per segment (host path: from the live fleet objects; fused
     loop: from the carry) -- the state the scheduler *consulted*, not the
     post-segment state.
+
+    ``n_pair``, ``row_of`` and ``cusum`` are rank-local under a sharded
+    server axis (bank rows and detector state shard by server row);
+    ``pool_row`` stays global, so the recorded row means the same on every
+    rank.
     """
 
     n_pair: "torch.Tensor | None"  # f32[rows, T, T] pair-exposure bank rows
-    row_of: torch.Tensor  # i32[m] server -> bank row
-    cusum: torch.Tensor  # f32[m] per-server CUSUM level (max S+/S-)
-    pool_row: torch.Tensor  # i32[m] recorded read row per server
+    row_of: torch.Tensor  # i32[m_local] local server -> local bank row
+    cusum: torch.Tensor  # f32[m_local] per-server CUSUM level (max S+/S-)
+    pool_row: torch.Tensor  # i32[m_global] recorded read row per server
     segment: torch.Tensor  # i32 segment counter at entry
 
 
@@ -125,15 +135,19 @@ def copy_(dst: RecState, src: RecState) -> RecState:
     return dst
 
 
-def default_ctx(m: int, device: str | torch.device = "cpu") -> RecCtx:
+def default_ctx(m_local: int, m_global: int | None = None, *,
+                device: str | torch.device = "cpu") -> RecCtx:
     """Context for engines without an estimator in the loop: identity pool
-    routing, zero CUSUM, no pair-exposure table (n_pair records -1)."""
+    routing, zero CUSUM, no pair-exposure table (n_pair records -1).
+    ``m_global`` sizes the recorded pool map on a sharded axis (default:
+    ``m_local``, the dense fleet)."""
+    m_global = m_local if m_global is None else m_global
     i32 = dict(dtype=torch.int32, device=device)
     return RecCtx(
         n_pair=None,
-        row_of=torch.arange(m, **i32),
-        cusum=torch.zeros((m,), dtype=torch.float32, device=device),
-        pool_row=torch.arange(m, **i32),
+        row_of=torch.arange(m_local, **i32),
+        cusum=torch.zeros((m_local,), dtype=torch.float32, device=device),
+        pool_row=torch.arange(m_global, **i32),
         segment=torch.zeros((), **i32))
 
 

@@ -525,6 +525,36 @@ def _remap_rows(block: RingBlock, row_map: torch.Tensor) -> RingBlock:
     return block._replace(ints=torch.stack([block.wtype, row], dim=1))
 
 
+def _localize_block(block: RingBlock, lo: int) -> RingBlock:
+    """Rebase a block's server column to a rank's slice of the fleet.
+
+    Off-rank rows land outside ``[0, m_local)`` and drop in the core's own
+    range mask (``-1`` voids stay negative on every rank), so each
+    observation updates exactly one rank's rows and the sharded bank equals
+    the dense one row by row."""
+    return block._replace(ints=torch.stack([block.wtype, block.server - lo], dim=1))
+
+
+def bank_update_sharded(axis, state: DeviceEstimatorState, block: RingBlock,
+                        **hypers) -> tuple[DeviceEstimatorState, torch.Tensor]:
+    """``_bank_core`` with the bank rows sharded over a ``ServerAxis``.
+
+    Global in, global out: the block is replicated (B rows of O(T)), every
+    rank runs the same fused core on its own rows with the server column
+    rebased (per-row arithmetic, scatter order and decay weights are all
+    rank-local, so each row's update is the dense one), one ``psum`` counts
+    the rows used, and the new state is gathered on exit. ``hypers`` are
+    ``_bank_core``'s keywords. A dense axis is ``_bank_core`` itself."""
+    if not axis.is_sharded:
+        return _bank_core(state, block, **hypers)
+    m = state.log_b.shape[0]
+    axis.validate(m)
+    m_local = axis.local_m(m)
+    new, used = _bank_core(axis.local(state, m), _localize_block(block, axis.offset(m_local)),
+                           **hypers)
+    return axis.gather(new, m_local), axis.psum(used)
+
+
 class EstimatorBank:
     """m :class:`StreamingEstimator` s updated by one fused step.
 

@@ -32,6 +32,7 @@ from repro_torch.core import contention as tcontention
 from repro_torch.core import criteria as tcriteria
 from repro_torch.core import engine_torch
 from repro_torch.core.workload import grid_types as tgrid_types
+from repro_torch.distributed import DENSE
 from repro_torch.kernels.consolidation import consolidation_scores_torch
 from test_engine import _trace
 
@@ -245,14 +246,19 @@ def test_run_trace_on_carried_tables_matches_jax():
     assert bool(tt.was_queued.any())
     np.testing.assert_allclose(tt.finish_time.numpy(), np.asarray(jt.finish_time), rtol=1e-4)
     assert tt.stats.events <= 4 * len(arr) + 8
-    # metrics (item 7) now run, with JAX's counters and the same decisions;
-    # the server axis (item 8) still raises
+    # metrics (item 7) run, with JAX's counters and the same decisions
     jm = jax_run_trace(jc, jd, t, ty, by, metrics=True)
     tm = run_trace(tc, td, torch.tensor(t), torch.tensor(ty), torch.tensor(by), metrics=True)
     assert torch.equal(tm.placement, tt.placement) and tt.metrics is None
     assert np.array_equal(tm.metrics.counters.numpy(), np.asarray(jm.metrics.counters))
     assert np.array_equal(tm.metrics.per_server.numpy(), np.asarray(jm.metrics.per_server))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # the server axis (item 8): the dense axis is the unthreaded loop, bit for
+    # bit, and anything that is not a ServerAxis is refused
+    td_ = run_trace(tc, td, torch.tensor(t), torch.tensor(ty), torch.tensor(by), axis=DENSE)
+    for f in ("placement", "was_queued", "place_time", "finish_time", "makespan", "max_deg"):
+        assert torch.equal(getattr(td_, f), getattr(tt, f)), f
+    assert td_.stats == tt.stats
+    with pytest.raises(TypeError, match="ServerAxis"):
         run_trace(tc, td, torch.tensor(t), torch.tensor(ty), torch.tensor(by), axis=object())
 
 

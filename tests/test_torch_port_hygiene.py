@@ -19,6 +19,7 @@ import repro_torch.device
 from repro_torch.configs import get_config
 from repro_torch.core import M1, ConsolidationEngine, PackedCluster, PackedDynamics
 from repro_torch.core import profile_pairwise_fast
+from repro_torch.distributed import ServerAxis
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
 from repro_torch.models import build_model
@@ -76,6 +77,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         PackedCluster.build([M1], D)
     with pytest.raises(RuntimeError, match="CUDA"):
         PackedDynamics.build([M1])
+    with pytest.raises(RuntimeError, match="CUDA"):  # NCCL on the card, never gloo
+        ServerAxis.over_process_group()
     model = build_model(get_config("tinyllama-1.1b", smoke=True))
     for serving_entry in (model.init, lambda: model.init_cache(1, 4),
                           lambda: serve.admission_check("tinyllama-1.1b", 1),
