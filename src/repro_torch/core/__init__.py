@@ -6,7 +6,11 @@ Public API:
   TPU_V5E_HOST, H100_HOST                         -- accelerator hosts as bins
   profile_pairwise_fast, type_tables, pair_slowdown_matrices -- Eqns 1-3
   PackedCluster, server_loads, score_candidates_torch, greedy_choice,
-  argmin_with_margin, greedy_step, greedy_sequence -- the Fig-8 greedy
+  argmin_with_margin, greedy_step, greedy_sequence -- the Fig-8 greedy on
+                                                     the device
+                                                     (greedy_sequence is
+                                                     JAX's
+                                                     greedy_sequence_jax)
   greedy_sequence_sharded, greedy_sequence_hier   -- the greedy over a
                                                      ServerAxis (sharded,
                                                      pod-hierarchical)
@@ -14,7 +18,11 @@ Public API:
   local_search_torch                              -- offline packing
   ClusterState, OnlineScheduler                   -- the float64 oracle
                                                      (core.binpack,
-                                                     core.scheduler)
+                                                     core.scheduler); its
+                                                     greedy_sequence, which
+                                                     is repro.core's, is
+                                                     reachable only as
+                                                     core.binpack.greedy_sequence
   PackedDynamics, trace_segment, run_trace, corun_rates -- the event loop
   ConsolidationEngine, EngineResult, Deadlock, make_scorer,
   score_candidates, kernel_args

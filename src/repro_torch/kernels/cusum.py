@@ -7,9 +7,12 @@ per valid row b, on server ``server[b]`` in pool row ``row[b]`` with
 residual ``resid[b]``, the pool-centered CUSUM pair ``stat`` [m, 2], the
 residual level ``level`` [m] and its exposure ``n`` [m], and the pool row's
 level ``pool_level`` and exposure ``pool_n`` [rows] take one step each
-(``csrc/cusum_scan.cu`` holds the recurrence, the design and the bound).
-Invalid rows change nothing. The residuals are computed before the launch:
-rows are independent there.
+(``csrc/cusum_scan.cu`` holds the recurrence, the design and the bound:
+the pool chains walked first, handing each row its centered residual, then
+the server chains, each in stream order). Invalid rows change nothing. The
+residuals are computed before the launch: rows are independent there. The
+kernel reads the state and writes a new one, so nothing is copied before
+the launch.
 
 ``cusum_scan`` launches the kernel on CUDA tensors and runs its plain
 version ``cusum_scan_torch`` (a Python loop over the rows, one masked
@@ -110,7 +113,7 @@ def cusum_scan_torch(
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the launcher's C signature on a loaded library."""
-    lib.cusum_scan_launch.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
+    lib.cusum_scan_launch.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 3
                                       + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     lib.cusum_scan_launch.restype = ctypes.c_int
     lib.cusum_scan_error_string.argtypes = [ctypes.c_int]
@@ -145,15 +148,19 @@ def _check(state: CusumState, server, row, resid, valid) -> None:
 
 def launch(lib: ctypes.CDLL, state: CusumState, server, row, resid, valid, *, k: float,
            level_decay: float, stream: int) -> CusumState:
-    """One launch of ``lib``'s scan on contiguous copies of the state, which
-    it returns updated. Raises if the launch fails."""
-    out = CusumState(*(a.clone(memory_format=torch.contiguous_format) for a in state))
+    """One launch of ``lib``'s scan: it reads ``state`` and writes the new
+    state into new tensors, which it returns. Raises if the launch fails."""
+    state = CusumState(*(a.contiguous() for a in state))
+    out = CusumState(*(torch.empty_like(a) for a in state))
     server, row, resid, valid = (x.contiguous() for x in (server, row, resid, valid))
+    m, rows = int(out.level.shape[0]), int(out.pool_level.shape[0])
+    # the keys' counts, where they do not fit in shared memory
+    scratch = torch.empty(2 * (m + rows), dtype=torch.int32, device=server.device)
     # ctypes rounds each double to float32 once, as ``_constants`` does
     err = lib.cusum_scan_launch(
         server.data_ptr(), row.data_ptr(), resid.data_ptr(), valid.data_ptr(),
-        *(a.data_ptr() for a in out), int(server.shape[0]), int(out.level.shape[0]),
-        int(out.pool_level.shape[0]), k, level_decay, 1.0 - level_decay, stream)
+        *(a.data_ptr() for a in state), *(a.data_ptr() for a in out), scratch.data_ptr(),
+        int(server.shape[0]), m, rows, k, level_decay, 1.0 - level_decay, stream)
     if err:
         msg = lib.cusum_scan_error_string(err).decode()
         raise RuntimeError(f"cusum_scan launch failed: {msg} ({err})")
@@ -172,8 +179,8 @@ def cusum_scan(
 ) -> CusumState:
     """Fold rows [0, B) into ``state`` in order; returns the new state (the
     inputs are not written). On CUDA tensors the kernel runs on PyTorch's
-    current stream (``B == 0`` returns copies without a launch); CPU tensors
-    go to the plain version."""
+    current stream (at ``B == 0`` it copies the state); CPU tensors go to
+    the plain version."""
     dev = state.stat.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"cusum_scan runs on cuda or cpu, not {dev}")
@@ -181,8 +188,6 @@ def cusum_scan(
     if dev.type == "cpu":
         return cusum_scan_torch(state, server, row, resid, valid, k=k, level_decay=level_decay)
     B = int(server.shape[0])
-    if B == 0:
-        return CusumState(*(a.clone() for a in state))
     with torch.cuda.device(dev):
         out = launch(_lib(), state, server, row, resid, valid, k=k, level_decay=level_decay,
                      stream=torch.cuda.current_stream().cuda_stream)

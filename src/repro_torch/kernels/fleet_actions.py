@@ -21,9 +21,12 @@ Both carry ``src_of``, the bank-row provenance map (final content of row r
 Every input a step decides on is an integer or a boolean (the float tests
 are made before the launch), so the kernel and its plain version agree
 exactly. ``ctl`` = (take_slow, act_ok) as device int32: with take_slow 0
-(the pre-action screen found nothing that can fire) the kernel returns at
-its first instruction and the outputs are the inputs, as the loops would
-leave them.
+(the pre-action screen found nothing that can fire) the kernel copies its
+inputs to its outputs in one pass, as the loops would leave them. Where
+something can act, one warp walks the acting servers with each pool row's
+member count in shared memory (the source holds the design). The kernel
+writes its outputs out of place, so the wrappers copy nothing before the
+launch.
 
 Each wrapper launches the kernel on CUDA tensors and runs its plain PyTorch
 version (``split_loop_torch``, ``evict_loop_torch``: the loops written out,
@@ -162,9 +165,9 @@ def evict_loop_torch(level_hits, base_ok, stat_val, row_map, read_row, src_of, a
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the launchers' C signatures on a loaded library."""
-    lib.fleet_split_launch.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p]
+    lib.fleet_split_launch.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int, ctypes.c_void_p]
     lib.fleet_split_launch.restype = ctypes.c_int
-    lib.fleet_evict_launch.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int, ctypes.c_void_p]
+    lib.fleet_evict_launch.argtypes = [ctypes.c_void_p] * 24 + [ctypes.c_int, ctypes.c_void_p]
     lib.fleet_evict_launch.restype = ctypes.c_int
     lib.fleet_actions_max_servers.argtypes = []
     lib.fleet_actions_max_servers.restype = ctypes.c_int
@@ -205,34 +208,29 @@ def _raise_on(lib, err: int, entry: str) -> None:
 
 def launch_split(lib: ctypes.CDLL, flags, row_map, read_row, src_of, stat, pool_level, pool_n,
                  ctl, stream: int) -> SplitOut:
-    """One launch of ``lib``'s split entry on contiguous copies of the
-    state, which it returns updated."""
+    """One launch of ``lib``'s split entry: it reads the inputs and writes
+    new output tensors, which it returns."""
     m = row_map.shape[0]
-    out = SplitOut(*(a.clone(memory_format=torch.contiguous_format)
-                     for a in (row_map, read_row, src_of, stat, pool_level, pool_n)),
-                   torch.zeros(m, dtype=torch.bool, device=row_map.device))
-    flags, ctl = flags.contiguous(), ctl.contiguous()
-    err = lib.fleet_split_launch(flags.data_ptr(), *(a.data_ptr() for a in out),
-                                 ctl.data_ptr(), m, stream)
+    ins = tuple(x.contiguous() for x in (flags, row_map, read_row, src_of, stat, pool_level,
+                                         pool_n))
+    out = SplitOut(*(torch.empty_like(a) for a in ins[1:]), torch.empty_like(ins[0]))
+    err = lib.fleet_split_launch(*(a.data_ptr() for a in ins), *(a.data_ptr() for a in out),
+                                 ctl.contiguous().data_ptr(), m, stream)
     _raise_on(lib, err, "split")
     return out
 
 
 def launch_evict(lib: ctypes.CDLL, level_hits, base_ok, stat_val, row_map, read_row, src_of,
                  active, stat, level, n, pool_level, pool_n, ctl, stream: int) -> EvictOut:
-    """One launch of ``lib``'s evict entry on contiguous copies of the
-    state, which it returns updated."""
+    """One launch of ``lib``'s evict entry: it reads the inputs and writes
+    new output tensors, which it returns."""
     m = row_map.shape[0]
-    dev = row_map.device
-    out = EvictOut(*(a.clone(memory_format=torch.contiguous_format)
-                     for a in (row_map, read_row, src_of, active, stat, level, n, pool_level,
-                               pool_n)),
-                   torch.zeros(m, dtype=torch.bool, device=dev),
-                   torch.zeros(m, dtype=torch.float32, device=dev))
-    level_hits, base_ok, stat_val, ctl = (x.contiguous()
-                                          for x in (level_hits, base_ok, stat_val, ctl))
-    err = lib.fleet_evict_launch(level_hits.data_ptr(), base_ok.data_ptr(), stat_val.data_ptr(),
-                                 *(a.data_ptr() for a in out), ctl.data_ptr(), m, stream)
+    ins = tuple(x.contiguous() for x in (level_hits, base_ok, stat_val, row_map, read_row,
+                                         src_of, active, stat, level, n, pool_level, pool_n))
+    out = EvictOut(*(torch.empty_like(a) for a in ins[3:]), torch.empty_like(ins[0]),
+                   torch.empty_like(ins[2]))
+    err = lib.fleet_evict_launch(*(a.data_ptr() for a in ins), *(a.data_ptr() for a in out),
+                                 ctl.contiguous().data_ptr(), m, stream)
     _raise_on(lib, err, "evict")
     return out
 

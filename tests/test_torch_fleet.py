@@ -653,25 +653,32 @@ def test_launchers_get_the_arguments_their_signatures_declare():
     (name, args), = lib.calls
     sig = _c_signature("cusum_scan", name)
     assert lib.cusum_scan_launch.argtypes == sig and len(args) == len(sig)
+    # out of place: the caller's own rows and state in, new tensors out
     assert args[:4] == tuple(x.data_ptr() for x in rows)
-    assert args[4:9] == tuple(a.data_ptr() for a in out)
-    assert args[9:] == (B, m, m, 0.25, 0.9, 1.0 - 0.9, 7)
+    assert args[4:9] == tuple(a.data_ptr() for a in state)
+    assert args[9:14] == tuple(a.data_ptr() for a in out)
+    assert not {a.data_ptr() for a in out} & {a.data_ptr() for a in state}
+    assert args[15:] == (B, m, m, 0.25, 0.9, 1.0 - 0.9, 7)  # args[14]: the keys' scratch
 
     i32 = dict(dtype=torch.int32)
     rm, ident = torch.zeros(m, **i32), torch.arange(m, **i32)
     flags = torch.zeros(m, dtype=torch.bool)
     ctl = torch.ones(2, **i32)
     lib = kfa.bind(_FakeLib())
-    sp = kfa.launch_split(lib, flags, rm, rm, ident, state.stat, state.pool_level,
-                          state.pool_n, ctl, 3)
-    ev = kfa.launch_evict(lib, flags, flags, state.level, sp.row_map, sp.read_row, sp.src_of,
-                          flags, sp.stat, state.level, state.n, sp.pool_level, sp.pool_n, ctl, 3)
+    s_in = (flags, rm, rm, ident, state.stat, state.pool_level, state.pool_n)
+    sp = kfa.launch_split(lib, *s_in, ctl, 3)
+    e_in = (flags, flags, state.level, sp.row_map, sp.read_row, sp.src_of, flags, sp.stat,
+            state.level, state.n, sp.pool_level, sp.pool_n)
+    ev = kfa.launch_evict(lib, *e_in, ctl, 3)
     (n1, a1), (n2, a2) = lib.calls
-    for name, args, out_t, n_in in ((n1, a1, sp, 1), (n2, a2, ev, 3)):
+    for name, args, ins, out_t in ((n1, a1, s_in, sp), (n2, a2, e_in, ev)):
         sig = _c_signature("fleet_actions", name)
         assert getattr(lib, name).argtypes == sig and len(args) == len(sig)
+        n_in = len(ins)
+        assert args[:n_in] == tuple(a.data_ptr() for a in ins)
         assert args[n_in:n_in + len(out_t)] == tuple(a.data_ptr() for a in out_t)
-        assert args[-2:] == (m, 3)
+        assert not {a.data_ptr() for a in out_t} & {a.data_ptr() for a in ins}
+        assert args[-3:] == (ctl.data_ptr(), m, 3)
     with pytest.raises(RuntimeError, match=r"invalid configuration argument \(9\)"):
         kcu.launch(kcu.bind(_FakeLib(ret=9)), state, *rows, k=0.25, level_decay=0.9, stream=0)
     with pytest.raises(RuntimeError, match=r"evict launch failed"):

@@ -16,11 +16,14 @@ launch per server with rows in it (the per-server split is not timed) --
 decode@511), ``rwkv6_scan`` at the serving rows of ``chip_smoke.RWKV_SHAPES``
 (prefill, the prefill under strong decays, decode) and both entries of
 ``mamba_scan`` at the served rows of ``chip_smoke.MAMBA_SHAPES`` (prefill,
-decode). The timer (``device_ms``), the inputs (``kernel_inputs``,
-``candidate_types``, ``scatter_inputs``, ``banked_inputs``,
-``rwkv_inputs``, ``mamba_inputs``, ``contract_inputs``) and the shapes are
-this checkout's ``chip_smoke.py`` ones, so both sides are timed as its
-phases 3, 5, 6, 8, 10 and 12 time them, on the same seeded inputs.
+decode), ``cusum_scan`` at the rack and fleet blocks of
+``chip_smoke.CUSUM_SHAPES`` and ``fleet_actions`` (split then evict) acting
+and quiet at the rows of ``chip_smoke.ACTION_SHAPES``. The timer
+(``device_ms``), the inputs (``kernel_inputs``, ``candidate_types``,
+``scatter_inputs``, ``banked_inputs``, ``rwkv_inputs``, ``mamba_inputs``,
+``contract_inputs``, ``cusum_inputs``, ``actions_inputs``) and the shapes
+are this checkout's ``chip_smoke.py`` ones, so both sides are timed as its
+phases 3, 5, 6, 8, 10, 12 and 14 time them, on the same seeded inputs.
 Prints each run's device ms, then per shape the mean of each side and
 change / parent. Needs one CUDA card; imports nothing of JAX.
 """
@@ -52,7 +55,9 @@ def measure(root: pathlib.Path) -> dict:
     import chip_smoke as cs
     from repro_torch.core import kernel_args
     from repro_torch.kernels import consolidation as kc
+    from repro_torch.kernels import cusum as kcu
     from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import fleet_actions as kfa
     from repro_torch.kernels import mamba_scan as km
     from repro_torch.kernels import rwkv6_scan as ks
     from repro_torch.kernels import telemetry as kt
@@ -107,6 +112,14 @@ def measure(root: pathlib.Path) -> dict:
             cargs = cs.contract_inputs(*margs)
             out[f"mamba_scan contract {label}"] = cs.device_ms(lambda: km.mamba_scan(*cargs))
             del margs, cargs
+    rng = np.random.default_rng(cs.SEED + 14)
+    for label, m, B, n_valid in cs.CUSUM_SHAPES:
+        cargs, ckw = cs.cusum_inputs(m, B, n_valid, dev, rng)
+        out[f"cusum_scan {label} B={B}"] = cs.device_ms(lambda: kcu.cusum_scan(*cargs, **ckw))
+    for m, case in cs.ACTION_SHAPES:
+        s_args, e_args = cs.actions_inputs(m, case, dev, rng)
+        out[f"fleet_actions m={m} {case}"] = cs.device_ms(
+            lambda: (kfa.split_loop(*s_args), kfa.evict_loop(*e_args)))
     return out
 
 
