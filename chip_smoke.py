@@ -14,7 +14,8 @@ flash kernel, and the fleet-health plane with the fused closed loop, whose
 CUSUM scan and action loops are hand-written CUDA (``cusum_scan``,
 ``fleet_actions``), with the observability plane and the float64 oracle's
 tensor twins, and the server axis over a one-rank process group -- in
-sixteen phases (14 runs after 7, 15 and 16 last):
+seventeen phases (14 runs after 7; 15, 16 and 17 last), then the purity
+audit over all of it:
 
   1. environment: torch and CUDA versions, the card's name and power limit;
   2. build: nvcc builds every kernel under ``src/repro_torch/kernels/csrc``;
@@ -225,7 +226,19 @@ sixteen phases (14 runs after 7, 15 and 16 last):
      ``cusum_scan`` and ``fleet_actions`` launch held to its plain version,
      wall per segment; e. ``cusum_update_sharded``,
      ``bank_update_sharded``, ``greedy_sequence_sharded`` and
-     ``resolve_leaders_device`` bitwise equal to the dense entries.
+     ``resolve_leaders_device`` bitwise equal to the dense entries;
+ 17. the purity audit (ROADMAP item 9; run last): ``repro_torch.analysis.
+     run_all`` on the card over every registered hot entry at m = 64 and
+     1024 (T = 230, observation blocks of 512 and 8192 rows, the LM kernels
+     at their serving shapes): the dispatch walk (host reads, data-dependent
+     shapes, float64 on a device tier), each entry again under the sync
+     debug mode "error", ``cuobjdump``'s registers, static shared memory and
+     local memory of all seven built libraries, and the capture guard with
+     real graph captures (a rerun builds and captures nothing). Any
+     unbaselined finding fails the run; a planted ``.item()`` must be caught
+     by the dispatch walk and the sync mode. Then
+     ``examples/torch_closed_loop_adaptive.py`` at smoke size (4 segments)
+     on the card, whose placements must equal its CPU run's.
 
 Then a JSON line with each kernel's numbers, the ``nvidia-smi`` name/power
 line, and a last JSON line ``{"ok": true, "device": {...}}``. Any failed
@@ -4220,6 +4233,93 @@ def phase_serve_jamba(device, smoke: bool = False, requests: int = 8, prompt_len
     return out
 
 
+# -- phase 17: the purity audit -------------------------------------------------
+
+def audit_example(device) -> dict:
+    """``examples/torch_closed_loop_adaptive.py`` at smoke size (4 segments,
+    the drift at 2) on ``device``: its result, printed lines and seconds."""
+    import contextlib
+    import importlib.util
+    import io
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_closed_loop_adaptive", ROOT / "examples" / "torch_closed_loop_adaptive.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = io.StringIO()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = mod.main(["--device", device.type, "--segments", "4", "--drift-at", "2"])
+    return {"res": res, "lines": out.getvalue().splitlines(),
+            "seconds": time.perf_counter() - start}
+
+
+def phase_audit(device) -> dict:
+    """Phase 17 (ROADMAP item 9; run last): ``repro_torch.analysis.run_all``
+    on the card over every registered entry at the production shapes -- the
+    dispatch walk, each entry again under the sync debug mode "error", the
+    resource pass over the seven built libraries, the capture guard with real
+    graph captures -- which must leave no unbaselined finding; a planted
+    ``.item()`` entry the host-sync run must catch; then the adaptive example
+    twin at smoke size on the card, whose decisions must equal its CPU run's."""
+    import torch
+    from repro_torch.analysis import load_baseline, new_findings, run_all
+    from repro_torch.analysis.dispatch_audit import audit_entry
+    from repro_torch.analysis.registry import (CARD_SHAPES, REGISTRY, TIER_DEVICE, BuildCtx,
+                                               HotEntry)
+
+    t_phase = time.perf_counter()
+    findings, stats = run_all(device=device)
+    baseline = load_baseline()
+    fresh = new_findings(findings, baseline)
+    for f in fresh:
+        print(f"[17 audit] NEW {f.render()}", file=sys.stderr)
+    check(not fresh, f"17: {len(fresh)} unbaselined finding(s): "
+                     + "; ".join(f.key() for f in fresh))
+    check(set(stats["dispatch"]) == {e.name for e in REGISTRY},
+          "17: the dispatch walk missed a registered entry")
+    check(all(info.get("host_sync") for e in stats["dispatch"].values()
+              for info in e["shapes"].values()) or any(f.analysis == "sync" for f in findings),
+          "17: an entry skipped its host-sync run")
+    check(len(stats["kernel"]) == 7, f"17: resource pass saw {sorted(stats['kernel'])}")
+    captures = stats["capture"]["warm"].get("engine_torch._TraceLoop._capture", 0)
+    check(stats["capture"]["graphs"] and captures >= 1,
+          "17: the capture guard's warm run captured no graph")
+    x = torch.arange(4.0, device=device)
+    planted = HotEntry("planted.item", TIER_DEVICE, lambda ctx: (lambda x: x.sum().item(), (x,)))
+    caught, _ = audit_entry(planted, BuildCtx(device, CARD_SHAPES[0]))
+    check({f.rule for f in caught} == {"host-callback", "host-sync"},
+          f"17: a planted .item() gave {[f.key() for f in caught]}")
+    kernels = {src: (max(k["registers"] for k in ks), max(k["shared"] for k in ks),
+                     max(k["local"] + k["stack"] for k in ks), len(ks))
+               for src, ks in stats["kernel"].items()}
+    spills = [f"{src}:{k['name']} {k['registers']}/{k['stack'] + k['local']}"
+              for src, ks in sorted(stats["kernel"].items()) for k in ks
+              if k["stack"] + k["local"]]
+    card = audit_example(device)
+    cpu = audit_example(torch.device("cpu"))
+    check(len(card["res"].segments) == 4, "17: the example ran short")
+    for k, (a, b) in enumerate(zip(card["res"].segments, cpu["res"].segments)):
+        check(a.placements == b.placements and a.was_queued == b.was_queued,
+              f"17: the example's segment {k} placed differently on the card and the CPU")
+    check(card["res"].n_obs == cpu["res"].n_obs, "17: the example's estimators consumed "
+                                                 "different observations on the card")
+    seconds = time.perf_counter() - t_phase
+    print(f"[17 audit] {len(stats['dispatch'])} entries at m = "
+          f"{'/'.join(str(s.m) for s in CARD_SHAPES)} (passes {', '.join(stats['passes'])}; "
+          f"{', '.join(f'{k} {v:.1f} s' for k, v in stats['seconds'].items())}): "
+          f"{len(findings)} finding(s), {len(findings) - len(fresh)} baselined "
+          f"({', '.join(sorted({f.key() for f in findings}))}), 0 new; planted .item() caught by "
+          f"host-callback and host-sync; capture warm {stats['capture']['warm']}, every rerun "
+          f"builds nothing; kernels (max registers / static smem B / local + stack B over n "
+          f"kernels): " + ", ".join(f"{src} {r}/{sm}/{lo} over {n}" for src, (r, sm, lo, n)
+                                     in sorted(kernels.items()))
+          + f"; spilling (registers / local + stack B): {', '.join(spills) or 'none'}"
+          + f"; example twin on the card {card['seconds']:.1f} s ({card['lines'][-1].strip()}), "
+          f"decisions equal to its CPU run; phase {seconds:.1f} s")
+    return {"stats": stats, "findings": findings, "seconds": seconds, "kernels": kernels}
+
+
 def free_card() -> None:
     """Return the earlier phases' device memory before a phase draws a
     large model."""
@@ -4271,6 +4371,8 @@ def main() -> int:
     obs = phase_observability(device, health)
     free_card()
     axis = phase_server_axis(device, health)
+    free_card()
+    phase_audit(device)
 
     q = LOOP_Q  # the event loop's one call per micro-event, on every grid type
     print(json.dumps({"kernels": [{

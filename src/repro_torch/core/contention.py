@@ -1,33 +1,102 @@
-"""The pairwise-profiling pipeline of the additive degradation model (C3+C4).
+"""Contention models: TDP prediction (Eqns 1-2) and the additive
+mutual-degradation model (Eqn 3) with its pairwise-profiling pipeline (C3+C4).
 
 The paper's methodology, reproduced here:
+
+  * §IV.A predicts the throughput-degradation point (TDP) with Eqn (2):
+      CacheSize = sum_i RS_i + sum_{i in CS} FS_i,  CS = {i | FS_i <= CacheSize}
 
   * §IV.B profiles D_{i,j} -- the degradation workload i causes on j -- by
     running every *pair* of grid workload types: (10x23)^2 = 52_900 runs per
     server. The additive model D_j = sum_{i != j} D_{i,j} (Eqn 3) then
     predicts N-way co-run degradation from pairs only.
 
-Profiling here runs against the simulator (our testbed stand-in), fully
-vectorized in numpy (float64); the engine's ground-truth rate tables come
-from the same per-type tables.
+Profiling here runs against the simulator (our testbed stand-in): pair by
+pair (``profile_pairwise``, any callable measuring a pair) or fully
+vectorized in numpy (float64, ``profile_pairwise_fast``); the engine's
+ground-truth rate tables come from the same per-type tables.
 """
 from __future__ import annotations
 
 import functools
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 
 from .server import ServerSpec
 from .simulator import (_BASELINE, _capacities, _demands, _sensitivity, competing_cache_bytes,
-                        throughput_after_cache)
+                        simulate_corun, throughput_after_cache)
 from .throughput import solo_throughput
 from .workload import Workload, grid_types, type_index
+
+
+# --- TDP prediction (Eqns 1-2) -----------------------------------------------
+
+def tdp_lhs_naive(workloads: Sequence[Workload]) -> float:
+    """Eqn (1): sum_i (RS_i + FS_i) -- valid only when all FS <= CacheSize."""
+    return float(sum(w.rs + w.fs for w in workloads))
 
 
 def tdp_lhs(server: ServerSpec, workloads: Sequence[Workload]) -> float:
     """Eqn (2) LHS: competing data, excluding FS of workloads larger than LLC."""
     return competing_cache_bytes(server, workloads)
+
+
+def predict_tdp_hit(server: ServerSpec, workloads: Sequence[Workload], alpha: float = 1.0) -> bool:
+    """Predict whether this co-run set is past its TDP (Eqn 2 vs alpha*CacheSize)."""
+    return tdp_lhs(server, workloads) > alpha * server.llc_bytes
+
+
+def predict_tdp_n(server: ServerSpec, rs: float, fs: float, alpha: float = 1.0) -> float:
+    """For N identical (RS, FS) workloads, the critical N where TDP occurs.
+
+    From Eqn (1): N * (RS + FS) = alpha * CacheSize  (the paper's worked
+    example: N=4, RS=256KB, FS=1280KB -> 4*(1536KB) = 6MB on M1).
+    """
+    per = rs + (fs if fs <= server.llc_bytes else 0.0)
+    return alpha * server.llc_bytes / per
+
+
+# --- Pairwise-degradation profiling (§IV.B, §VIII) -----------------------------
+
+PairMeasure = Callable[[Workload, Workload], float]
+
+
+def measure_pair_simulated(server: ServerSpec) -> PairMeasure:
+    """D_{i,j} measured on the simulator: degradation of j when co-run with i.
+
+    NOTE: the pair co-run includes the cache outcome of *the pair only*; the
+    additive model then extrapolates to N-way sets. This mirrors the paper's
+    physical profiling exactly (they, too, can only observe pair effects).
+    """
+
+    def measure(w_i: Workload, w_j: Workload) -> float:
+        res = simulate_corun(server, [w_i, w_j])
+        return res.degradations[1]
+
+    return measure
+
+
+def profile_pairwise(
+    server: ServerSpec,
+    types: Sequence[Workload] | None = None,
+    measure: PairMeasure | None = None,
+) -> np.ndarray:
+    """The paper's 52_900-run profiling pass -> D matrix, D[i, j] = D_{i,j}.
+
+    D[i, j] is the degradation that a workload of type i causes on a
+    co-running workload of type j (both snapped to the profiling grid).
+    """
+    if types is None:
+        types = grid_types("read")
+    if measure is None:
+        measure = measure_pair_simulated(server)
+    n = len(types)
+    D = np.zeros((n, n))
+    for i, wi in enumerate(types):
+        for j, wj in enumerate(types):
+            D[i, j] = measure(wi, wj)
+    return D
 
 
 def type_tables(

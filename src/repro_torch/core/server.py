@@ -111,6 +111,20 @@ TPU_V5E_HOST = ServerSpec(
     llc_tolerance=1.0,  # HBM does not over-subscribe: OOM is a cliff
 )
 
+# One v5e pod-slice of 256 chips treated as a single consolidation bin
+# (the JAX package's core/cluster.py packs whole jobs onto pod slices).
+TPU_V5E_POD256 = ServerSpec(
+    name="tpu-v5e-pod256",
+    llc_bytes=256 * 16 * GB,
+    mem_bytes=32 * 512 * GB,
+    file_cache_bytes=32 * 256 * GB,
+    disk_cache_bytes=128 * GB,
+    cores=32 * 224,
+    ghz=2.0,
+    shared_bw=256 * 819 * GB,
+    llc_tolerance=1.0,
+)
+
 # An 8-GPU H100 SXM host (NVIDIA DGX H100 data sheet: 8 x 80 GB HBM3 at
 # 3.35 TB/s each, 2 TB of system memory, two 56-core Xeon 8480C at 2.0 GHz),
 # mapped as the TPU host is: HBM capacity is the budget, aggregate HBM

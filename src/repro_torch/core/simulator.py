@@ -26,6 +26,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
+import numpy as np
+
 from .server import ServerSpec
 from .throughput import amortized, level_of, level_params, solo_throughput
 from .workload import Workload
@@ -177,3 +179,41 @@ def simulate_corun(server: ServerSpec, workloads: Sequence[Workload]) -> CoRunRe
         solo.append(s)
         deg.append(1.0 - t / s)
     return CoRunResult(tuple(thr), tuple(solo), tuple(deg), overflowed)
+
+
+def corun_throughput_grid(
+    server: ServerSpec, rs: float, fs_grid, n_grid, op: str = "read"
+) -> np.ndarray:
+    """Throughput surface vs (N, FS) for N identical co-run workloads.
+
+    This regenerates the paper's Figures 3(a)/4(a): fix RS (64KB / 256KB),
+    sweep FS along one axis and the number of concurrent workloads N along
+    the other; the sharp cliff is the TDP.
+    """
+    out = np.zeros((len(n_grid), len(fs_grid)))
+    for ni, n in enumerate(n_grid):
+        for fi, fs in enumerate(fs_grid):
+            ws = [Workload(fs=float(fs), rs=float(rs), op=op)] * int(n)
+            out[ni, fi] = simulate_corun(server, ws).throughputs[0]
+    return out
+
+
+def makespan_consolidated(server: ServerSpec, workloads: Sequence[Workload]) -> float:
+    """Makespan when the set is consolidated on one server (§V, Fig 5).
+
+    Each workload's completion time stretches from AR_i to AR_i/(1-D_i)
+    (= AR_i + O_i with D_i = O_i/(AR_i+O_i)). The makespan is the max.
+    This is the quantity the 50%-degradation criterion (Eqn 4) protects:
+    D_i < 0.5  <=>  O_i < AR_i  <=>  consolidation beats sequential.
+    """
+    res = simulate_corun(server, workloads)
+    t = 0.0
+    for w, d, s in zip(workloads, res.degradations, res.solo):
+        ar = w.data_total / s
+        t = max(t, ar / max(1.0 - d, 1e-9))
+    return t
+
+
+def makespan_sequential(server: ServerSpec, workloads: Sequence[Workload]) -> float:
+    """Makespan when the workloads run one after another (no consolidation)."""
+    return sum(w.data_total / solo_throughput(server, w) for w in workloads)

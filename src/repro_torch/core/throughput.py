@@ -18,6 +18,8 @@ at RS=512KB only 2x).
 """
 from __future__ import annotations
 
+import numpy as np
+
 from .server import ServerSpec
 from .workload import Workload
 
@@ -51,3 +53,30 @@ def solo_throughput(server: ServerSpec, w: Workload) -> float:
     lvl = level_of(server, w.fs, w.op)
     bw, ov = level_params(server, lvl, w.op)
     return amortized(bw, ov, w.rs)
+
+
+def solo_throughput_grid(server: ServerSpec, rs_grid, fs_grid, op: str) -> np.ndarray:
+    """Vectorized solo throughput over a (RS x FS) grid -> array [len(rs), len(fs)].
+
+    This is the surface plotted in the paper's Figures 1 (M1) and 2 (M2).
+    """
+    rs = np.asarray(rs_grid, dtype=float)[:, None]
+    fs = np.asarray(fs_grid, dtype=float)[None, :]
+
+    lvl = np.where(fs <= server.llc_bytes, 1, 2)
+    if op == "write":
+        lvl = np.where(fs > server.cache_spill_bytes, 3, lvl)
+
+    out = np.zeros((rs.shape[0], fs.shape[1]))
+    for level in (1, 2, 3):
+        mask = lvl == level
+        if not mask.any():
+            continue
+        bw, ov = level_params(server, level, op)
+        out = np.where(mask, amortized(bw, ov, rs), out)
+    return out
+
+
+def solo_runtime(server: ServerSpec, w: Workload) -> float:
+    """AR_i of §V: time to move ``data_total`` bytes when running alone."""
+    return w.data_total / solo_throughput(server, w)

@@ -14,6 +14,19 @@ US = 1e-6
 MS = 1e-3
 
 
+def parse_size(text: str) -> float:
+    """Parse sizes like '32KB', '64MB', '1GB', '512' (bytes) into bytes.
+
+    Used to ingest the paper's Table III workload tuples verbatim.
+    """
+    s = text.strip().upper().replace(" ", "")
+    for suffix, mult in (("KB", KB), ("MB", MB), ("GB", GB), ("K", KB), ("M", MB), ("G", GB), ("B", 1.0)):
+        if s.endswith(suffix):
+            return float(s[: -len(suffix)]) * mult
+    return float(s)
+
+
+
 def fmt_size(n: float) -> str:
     for mult, suffix in ((GB, "GB"), (MB, "MB"), (KB, "KB")):
         if n >= mult:

@@ -15,10 +15,12 @@ We reproduce that grid verbatim.
 from __future__ import annotations
 
 import dataclasses
+import re
+from typing import Iterable, Sequence
 
 import numpy as np
 
-from .units import KB, MB, fmt_size
+from .units import KB, MB, fmt_size, parse_size
 
 # --- The paper's profiling grid (§IV.B / §VIII) -----------------------------
 # Ten request sizes: 1KB - 512KB (powers of two).
@@ -88,3 +90,44 @@ def snap_to_grid(w: Workload) -> Workload:
     idx = type_index(w)
     ri, fi = divmod(idx, len(FS_GRID))
     return dataclasses.replace(w, rs=RS_GRID[ri], fs=FS_GRID[fi])
+
+
+# --- Parsing the paper's Table III tuples ------------------------------------
+_TUPLE_RE = re.compile(r"\(\s*([^,()]+)\s*,\s*([^,()]+)\s*\)")
+
+
+def parse_workloads(text: str, op: str = "read") -> list[Workload]:
+    """Parse '(32KB, 64KB), (4KB, 16KB), ...' as (RS, FS) pairs -> Workloads.
+
+    The paper writes tuples as (RS, FS) -- request size first (Table III).
+    """
+    out = []
+    for m in _TUPLE_RE.finditer(text):
+        rs, fs = parse_size(m.group(1)), parse_size(m.group(2))
+        out.append(Workload(fs=fs, rs=rs, op=op))
+    if not out:
+        raise ValueError(f"no (RS, FS) tuples found in {text!r}")
+    return out
+
+
+def characterize(request_trace: Sequence[tuple[str, float]], file_bytes: float) -> Workload:
+    """Characterize an observed I/O trace into a (FS, RS) workload (C1).
+
+    ``request_trace`` is a sequence of (op, nbytes) file operations. The
+    request size is the byte-weighted typical operation size (geometric mean
+    weighted by bytes, robust to a few metadata-sized ops); the op is the
+    majority op by bytes.
+    """
+    if not request_trace:
+        raise ValueError("empty trace")
+    sizes = np.array([n for _, n in request_trace], dtype=float)
+    by_op = {op: 0.0 for op in OPS}
+    for op, n in request_trace:
+        by_op[op] = by_op.get(op, 0.0) + n
+    op = max(by_op, key=lambda k: by_op[k])
+    rs = float(np.exp(np.average(np.log(sizes), weights=sizes)))
+    return Workload(fs=float(file_bytes), rs=rs, op=op)
+
+
+def total_bytes(workloads: Iterable[Workload]) -> float:
+    return float(sum(w.data_total for w in workloads))
