@@ -10,12 +10,15 @@ hand-written CUDA flash attention, with RWKV6, whose WKV recurrence runs
 through the hand-written CUDA scan, and with the Jamba hybrid, whose Mamba
 layers run their selective scan through the hand-written CUDA
 ``mamba_scan`` and whose attention layers take a sliding window in the
-flash kernel, and the fleet-health plane with the fused closed loop, whose
+flash kernel, with a dense LM on an int8 KV cache, the MoE LM, the Whisper
+encoder-decoder and the InternVL vlm, all attending through the flash
+kernel (non-causal for Whisper's encoder and cross-attention), and the
+fleet-health plane with the fused closed loop, whose
 CUSUM scan and action loops are hand-written CUDA (``cusum_scan``,
 ``fleet_actions``), with the observability plane and the float64 oracle's
 tensor twins, and the server axis over a one-rank process group -- in
-seventeen phases (14 runs after 7; 15, 16 and 17 last), then the purity
-audit over all of it:
+twenty-one phases (14 runs after 7; 18-21 after 13; 15, 16 and 17 last),
+then the purity audit over all of it:
 
   1. environment: torch and CUDA versions, the card's name and power limit;
   2. build: nvcc builds every kernel under ``src/repro_torch/kernels/csrc``;
@@ -238,9 +241,42 @@ audit over all of it:
      unbaselined finding fails the run; a planted ``.item()`` must be caught
      by the dispatch walk and the sync mode. Then
      ``examples/torch_closed_loop_adaptive.py`` at smoke size (4 segments)
-     on the card, whose placements must equal its CPU run's.
+     on the card, whose placements must equal its CPU run's;
+ 18. serving on an int8 KV cache (ROADMAP item 10e; run after 13):
+     ``tinyllama-1.1b`` at full width with ``kv_cache_dtype='int8'``, the
+     same admission and 8 x (512 + 32) tokens as phase 9 (``serve_arch``:
+     exactly 22 x 32 flash launches on the tensor-core entries, finite
+     logits, the teacher-forced plain-route replay within 2e-2 of the
+     logits' scale and the same argmax wherever the top-2 gap is wider,
+     prefill and decode ms, peak memory, kernels per decode step and the
+     kernel's share under torch.profiler); the cache's bytes beside the
+     bf16 cache's; the int8 route's attention (the visible rows' codes and
+     scales dequantized to a fresh bf16 buffer, then the kernel) at the
+     prefill and decode@542, held to the plain version, its device ms
+     beside the kernel's alone, the plain route's, SDPA's on the
+     dequantized rows and a bound that reads the codes and scales once;
+ 19. the MoE LM (item 10d): ``moonshot-v1-16b-a3b`` at its published
+     widths and depth (48 layers, 64 experts, top 6) with bf16 weights
+     (28.06 B parameters, 56.1 GB, held to the count reckoned from the
+     widths) through ``serve_arch`` (48 x 32 flash launches); then the
+     kimi and moonshot SMOKE models at f32 compute on the card against the
+     CPU (``smoke_card_matches_cpu``: teacher-forced logits within 1e-3,
+     tokens equal; kimi at seeds 0, 1 and 2, each up to a near-tie, where
+     the same run with float32 caches on both devices must give equal
+     tokens); kimi's published dh of 112 is not one the kernel takes;
+ 20. the encoder-decoder (item 10d): ``whisper-medium`` at full width (24 +
+     24 layers over 1500 frame embeddings), 8 x (416 + 32) tokens through
+     ``serve_arch``: 24 encoder + 24 x 32 self + 24 x 32 cross flash
+     launches; the kernel's non-causal uses held to the plain version at
+     these shapes with device ms beside SDPA and the bound (the encoder's
+     self-attention, Sq = Skv = 1500; cross-attention at the prefill, Sq
+     416, and at decode on the split entry); the SMOKE card-vs-CPU check;
+ 21. the vlm (item 10d): ``internvl2-2b`` at full width (24 layers, dh
+     128), 256 patch embeddings before each 512-token prompt, 32 generated,
+     through ``serve_arch`` (24 x 32 flash launches), the cache sized for
+     the patches; the SMOKE card-vs-CPU check.
 
-Then a JSON line with each kernel's numbers, the ``nvidia-smi`` name/power
+Each of 18-21 prints its wall seconds. Then a JSON line with each kernel's numbers, the ``nvidia-smi`` name/power
 line, and a last JSON line ``{"ok": true, "device": {...}}``. Any failed
 check raises, so the script exits nonzero; without a CUDA device, or
 without the repository beside it, it exits nonzero before printing a result.
@@ -2990,7 +3026,6 @@ def phase_flash(device) -> dict:
     plain version and SDPA, and the bound. Returns the rows by (label,
     dtype)."""
     import torch
-    from repro_torch.kernels import flash_attention as kf
 
     gen = torch.Generator(device).manual_seed(SEED + 3)
     cases = [(shape, dt, dt) for shape in FLASH_SHAPES for dt in ("bfloat16", "float32")]
@@ -3002,46 +3037,63 @@ def phase_flash(device) -> dict:
         q = torch.randn(B, Sq, H, dh, generator=gen, device=device).to(getattr(torch, qdt))
         k, v = (torch.randn(B, Skv, Hkv, dh, generator=gen, device=device)
                 .to(getattr(torch, kvdt)) for _ in range(2))
-        kw = dict(causal=causal, q_offset=off, window=win)
-        kf.reset_launches()
-        got = kf.flash_attention(q, k, v, **kw)
-        torch.cuda.synchronize()
-        entries = {key[0] for key in kf.LAUNCHES}
-        want_entry = ("simt" if qdt == "float32" else "mma_split" if Sq == 1 else "mma")
-        check(entries == {want_entry}, f"flash {label} {qdt}/{kvdt}: ran entries {entries}, "
-              f"want {want_entry}")
-        if Sq == 1:  # the split entry's fixed-order combine: bitwise equal run to run
-            again = kf.flash_attention(q, k, v, **kw)
-            check(torch.equal(got, again), f"flash {label} {qdt}/{kvdt}: two runs differ")
-        want = kf.flash_attention_torch(q, k, v, **kw)
-        tol = FLASH_TOL[qdt]
-        diff = (got.double() - want.double()).abs()
-        err = float(diff.max())
-        check(bool(torch.isfinite(got).all()), f"flash {label} {qdt}: non-finite output")
-        check(bool((diff <= tol + tol * want.double().abs()).all()),
-              f"flash {label} {qdt}/{kvdt}: kernel vs plain max abs err {err:.3g} > {tol}")
-        row = dict(max_abs_err=err, tol=tol, entry=want_entry,
-                   ms=device_ms(lambda: kf.flash_attention(q, k, v, **kw)),
-                   plain_ms=device_ms(lambda: kf.flash_attention_torch(q, k, v, **kw)))
-        if qdt == kvdt:
-            lib = sdpa_form(q, k, v, causal, off, win)
-            row["library_err"] = float((lib.double() - want.double()).abs().max())
-            row["library_ms"] = device_ms(lambda: sdpa_form(q, k, v, causal, off, win))
-        else:
-            row["library_err"] = row["library_ms"] = None  # SDPA takes one dtype
-        row["bound_ms"], row["bound_by"] = flash_bound_ms(
-            B, Sq, Skv, H, Hkv, dh, causal, off, q.element_size(), k.element_size(), win)
-        row["shape"] = (f"B={B} Sq={Sq} Skv={Skv} H={H} Hkv={Hkv} dh={dh} "
-                        f"{'causal' if causal else 'non-causal'} q_offset={off} window={win} "
-                        f"{qdt}/{kvdt}")
+        row = flash_row("8 flash", label, q, k, v, causal=causal, q_offset=off, window=win)
         rows[(label, qdt if qdt == kvdt else f"{qdt}/{kvdt}")] = row
-        lib_text = ("SDPA n/a" if row["library_ms"] is None else
-                    f"SDPA {row['library_ms']:.5f} (err {row['library_err']:.3g})")
-        print(f"[8 flash] {label} {qdt}/{kvdt}: entry {want_entry}, err {err:.3g} (tol {tol}), "
-              f"{'bitwise equal on a rerun, ' if Sq == 1 else ''}device ms kernel "
-              f"{row['ms']:.5f} plain {row['plain_ms']:.5f} {lib_text} bound "
-              f"{row['bound_ms']:.5f} by {row['bound_by']}")
     return rows
+
+
+def flash_row(tag: str, label: str, q, k, v, *, causal: bool, q_offset: int = 0,
+              window: int = 0) -> dict:
+    """``flash_attention`` against ``flash_attention_torch`` on one call's
+    inputs: the entry (CUDA cores for an f32 q, the tensor-core prefill or
+    split entry for bf16), the split entry's bitwise rerun, the error within
+    FLASH_TOL of q's dtype, finite outputs; device times of the kernel, the
+    plain version and SDPA (one dtype only), the bound. Returns the row."""
+    import torch
+    from repro_torch.kernels import flash_attention as kf
+
+    B, Sq, H, dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    qdt, kvdt = str(q.dtype).split(".")[-1], str(k.dtype).split(".")[-1]
+    kw = dict(causal=causal, q_offset=q_offset, window=window)
+    kf.reset_launches()
+    got = kf.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    entries = {key[0] for key in kf.LAUNCHES}
+    want_entry = ("simt" if qdt == "float32" else "mma_split" if Sq == 1 else "mma")
+    check(entries == {want_entry}, f"flash {label} {qdt}/{kvdt}: ran entries {entries}, "
+          f"want {want_entry}")
+    if Sq == 1:  # the split entry's fixed-order combine: bitwise equal run to run
+        again = kf.flash_attention(q, k, v, **kw)
+        check(torch.equal(got, again), f"flash {label} {qdt}/{kvdt}: two runs differ")
+    want = kf.flash_attention_torch(q, k, v, **kw)
+    tol = FLASH_TOL[qdt]
+    diff = (got.double() - want.double()).abs()
+    err = float(diff.max())
+    check(bool(torch.isfinite(got).all()), f"flash {label} {qdt}: non-finite output")
+    check(bool((diff <= tol + tol * want.double().abs()).all()),
+          f"flash {label} {qdt}/{kvdt}: kernel vs plain max abs err {err:.3g} > {tol}")
+    row = dict(max_abs_err=err, tol=tol, entry=want_entry,
+               ms=device_ms(lambda: kf.flash_attention(q, k, v, **kw)),
+               plain_ms=device_ms(lambda: kf.flash_attention_torch(q, k, v, **kw)))
+    if qdt == kvdt:
+        lib = sdpa_form(q, k, v, causal, q_offset, window)
+        row["library_err"] = float((lib.double() - want.double()).abs().max())
+        row["library_ms"] = device_ms(lambda: sdpa_form(q, k, v, causal, q_offset, window))
+    else:
+        row["library_err"] = row["library_ms"] = None  # SDPA takes one dtype
+    row["bound_ms"], row["bound_by"] = flash_bound_ms(
+        B, Sq, Skv, H, Hkv, dh, causal, q_offset, q.element_size(), k.element_size(), window)
+    row["shape"] = (f"B={B} Sq={Sq} Skv={Skv} H={H} Hkv={Hkv} dh={dh} "
+                    f"{'causal' if causal else 'non-causal'} q_offset={q_offset} "
+                    f"window={window} {qdt}/{kvdt}")
+    lib_text = ("SDPA n/a" if row["library_ms"] is None else
+                f"SDPA {row['library_ms']:.5f} (err {row['library_err']:.3g})")
+    print(f"[{tag}] {label} {qdt}/{kvdt}: entry {want_entry}, err {err:.3g} (tol {tol}), "
+          f"{'bitwise equal on a rerun, ' if Sq == 1 else ''}device ms kernel "
+          f"{row['ms']:.5f} plain {row['plain_ms']:.5f} {lib_text} bound "
+          f"{row['bound_ms']:.5f} by {row['bound_by']}")
+    return row
 
 
 def bf16_ulps(got, want):
@@ -3163,21 +3215,26 @@ def jax_scale_witness(cfg, prompts, device) -> dict:
     return out
 
 
-def replay_gaps(model, lm, prompts, run, tol: float) -> list[tuple[float, int, int]]:
+def replay_gaps(model, lm, prompts, run, tol: float,
+                extras: dict | None = None) -> list[tuple[float, int, int]]:
     """Teacher-forced replay of the forward calls of ``run`` (the kernel
-    route's tokens) through ``lm``, set to its other route. Per
-    call: (max |diff| of the last-position logits over the kernel route's
-    max |.|, the rows whose argmax differs, those of them whose top-2 gap
-    in the kernel route is wider than ``tol`` of the scale)."""
+    route's tokens, the prefill's ``extras`` beside its prompts) through
+    ``lm``, set to its other route. Per call: (max |diff| of the
+    last-position logits over the kernel route's max |.|, the rows whose
+    argmax differs, those of them whose top-2 gap in the kernel route is
+    wider than ``tol`` of the scale)."""
     requests, n_gen = run.tokens.shape
-    cache = model.init_cache(requests, prompts.shape[1] + n_gen, device=prompts.device)
+    batch = dict(extras or {}, tokens=prompts)
+    cache = model.init_cache(requests, model.prefix_len(batch) + prompts.shape[1] + n_gen,
+                             device=prompts.device)
+    vocab = model.cfg.vocab  # the padded vocab's columns hold -1e30, no scale
     out = []
     for t in range(n_gen):
         if t == 0:
-            logits, cache = model.prefill(lm, {"tokens": prompts}, cache)
+            logits, cache = model.prefill(lm, batch, cache)
         else:
             logits, cache = model.decode_step(lm, cache, run.tokens[:, t - 1:t])
-        plain, kern = logits[:, -1, :].float(), run.logits[t].float()
+        plain, kern = logits[:, -1, :vocab].float(), run.logits[t][:, :vocab].float()
         out.append(logit_gap(plain, kern, tol))
     return out
 
@@ -3224,9 +3281,11 @@ def entry_counts(km, kernels: dict):
     return counts
 
 
-def profile_serving(model, lm, prompts, run, kernels: dict, tag: str) -> dict:
+def profile_serving(model, lm, prompts, run, kernels: dict, tag: str,
+                    extras: dict | None = None) -> dict:
     """Prints each kernel's share of device time under torch.profiler, for
-    one prefill and then 8 decode steps of ``run``'s tokens; ``kernels``
+    one prefill (of ``prompts`` and ``extras``) and then 8 decode steps of
+    ``run``'s tokens; ``kernels``
     maps a kernel module to a function that gives its device kernels'
     launches by name, from its ``LAUNCHES`` (which must match what the trace
     saw). Returns the device kernels per decode step and the busy shares."""
@@ -3243,10 +3302,12 @@ def profile_serving(model, lm, prompts, run, kernels: dict, tag: str) -> dict:
     reset()
     names = tuple(counted())
     busy_p, named_p, wall_p, n_p, want = device_busy_counted(
-        lambda: serve.generate(model, lm, prompts, 1), names, counted, reset)
+        lambda: serve.generate(model, lm, prompts, 1, extras=extras), names, counted, reset)
     share_p = kernel_shares(busy_p, named_p, wall_p, want, f"{tag} prefill")
-    cache = model.init_cache(requests, prompts.shape[1] + n_gen, device=prompts.device)
-    _, cache = model.prefill(lm, {"tokens": prompts}, cache)
+    batch = dict(extras or {}, tokens=prompts)
+    cache = model.init_cache(requests, model.prefix_len(batch) + prompts.shape[1] + n_gen,
+                             device=prompts.device)
+    _, cache = model.prefill(lm, batch, cache)
 
     def decode8():
         c = dict(cache)
@@ -3262,121 +3323,164 @@ def profile_serving(model, lm, prompts, run, kernels: dict, tag: str) -> dict:
                 decode_busy=busy_d / wall_d if wall_d else 0.0)
 
 
-def smoke_card_matches_cpu(arch: str, device, tag: str, adjust=None,
-                           prompt_len: int = 16) -> None:
-    """The SMOKE model of ``arch`` at float32 compute, weights and prompts
-    drawn on the CPU (then passed to ``adjust(lm, generator)`` if given):
-    8 greedy tokens for 2 requests of ``prompt_len`` must be the same on the
-    card as on the CPU."""
+#: a SMOKE model at f32 compute, card against CPU through the bf16 caches:
+#: teacher-forced last-position logits within this of their scale
+SMOKE_F32_TOL = 1e-3
+
+
+def float32_cache(model, batch: int, rows: int, device) -> dict:
+    """``model``'s cache with its bf16 arrays held in float32: the attention
+    layer writes and reads whatever float dtype its cache holds, as the JAX
+    layer does. A witness only; the models' own caches are bf16."""
+    import torch
+
+    return {k: v.float() if torch.is_tensor(v) and v.dtype == torch.bfloat16 else v
+            for k, v in model.init_cache(batch, rows, device=device).items()}
+
+
+def teacher_forced(model, lm, batch: dict, cache: dict, tokens, cpu_logits, vocab: int):
+    """The card's last-position logits along the CPU's ``tokens`` [B, n]
+    from ``cache``, against the CPU's ``cpu_logits`` (one [B, Vp] per step):
+    (per step the largest |card - CPU| of each request, per step the CPU's
+    top-2 gap of each request, the largest distance over the CPU logits'
+    scale, the card's cache after the last step)."""
+    dist, gaps, worst = [], [], 0.0
+    for t in range(tokens.shape[1]):
+        if t == 0:
+            logits, cache = model.prefill(lm, batch, cache)
+        else:
+            logits, cache = model.decode_step(lm, cache,
+                                              tokens[:, t - 1:t].to(batch["tokens"].device))
+        card, cpu = logits[:, -1, :vocab].float().cpu(), cpu_logits[t][:, :vocab].float()
+        top2 = cpu.topk(2, dim=-1).values
+        dist.append((card - cpu).abs().amax(-1))
+        gaps.append(top2[:, 0] - top2[:, 1])
+        worst = max(worst, float((card - cpu).abs().max()) / float(cpu.abs().max()))
+    return dist, gaps, worst, cache
+
+
+def bf16_entries_apart(card_cache: dict, cpu_cache: dict) -> tuple[int, int, int]:
+    """(entries that differ, entries, the largest difference in bf16 ulps)
+    over the bf16 arrays of two caches of the same model."""
+    import torch
+
+    apart = total = ulps = 0
+    for k, a in cpu_cache.items():
+        if not (torch.is_tensor(a) and a.dtype == torch.bfloat16):
+            continue
+        d = (card_cache[k].cpu().view(torch.int16).int() - a.view(torch.int16).int()).abs()
+        apart, total = apart + int((d != 0).sum()), total + d.numel()
+        ulps = max(ulps, int(d.max()))
+    return apart, total, ulps
+
+
+def smoke_card_matches_cpu(arch: str, device, tag: str, adjust=None, prompt_len: int = 16,
+                           near_ties: bool = False, seed: int = SEED) -> None:
+    """The SMOKE model of ``arch`` at float32 compute, weights, prompts and
+    any patch or frame embeddings drawn on the CPU from ``seed`` (then the
+    weights passed to ``adjust(lm, generator)`` if given): 8 greedy tokens
+    for 2 requests of ``prompt_len`` must be the same on the card as on the
+    CPU, and, teacher-forced along the CPU's tokens, the card's logits must
+    lie within SMOKE_F32_TOL of their scale of the CPU's at every step. The
+    bf16 cache entries that the two devices rounded to different neighbours
+    are counted. With ``near_ties`` a request's tokens may part at a step
+    where the CPU's top-2 gap is narrower than the two devices' logit
+    distance in that row, and only there, and only if the witness holds:
+    the same run with float32 caches on both devices (``float32_cache``)
+    gives the card the CPU's tokens, strictly, at a smaller teacher-forced
+    distance; so the parting comes from the bf16 cache's roundings."""
     import dataclasses as dc
 
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.distributed.serve_step import greedy_generate, greedy_steps
     from repro_torch.launch import serve
 
     smoke = dc.replace(get_config(arch, smoke=True), compute_dtype=torch.float32)
-    s_model, s_lm, s_prompts = serve.prepare(smoke, requests=2, prompt_len=prompt_len,
-                                             seed=SEED, device="cpu")
+    s_model, s_lm, s_prompts, s_extras = serve.prepare(smoke, requests=2, prompt_len=prompt_len,
+                                                       seed=seed, device="cpu")
     if adjust is not None:
-        adjust(s_lm, torch.Generator().manual_seed(SEED))
-    want = serve.generate(s_model, s_lm, s_prompts, 8).tokens
-    got = serve.generate(s_model, s_lm.to(device), s_prompts.to(device), 8).tokens
-    check(torch.equal(got.cpu(), want), f"{arch} SMOKE f32: card tokens {got.tolist()} != CPU "
-          f"{want.tolist()}")
-    print(f"[{tag}] SMOKE {arch} at f32 compute, 2 x ({prompt_len} + 8): card tokens == CPU tokens "
-          f"{want[0].tolist()}")
+        adjust(s_lm, torch.Generator().manual_seed(seed))
+    n = 8
+    want = serve.generate(s_model, s_lm, s_prompts, n, extras=s_extras, keep_logits=True)
+    cpu_batch = dict(s_extras, tokens=s_prompts)
+    rows = s_model.prefix_len(cpu_batch) + prompt_len + n
+    _, cpu_cache = greedy_generate(s_model, s_lm, cpu_batch,
+                                   s_model.init_cache(2, rows, device="cpu"), n)
+    if near_ties:  # the witness's CPU side, with float32 caches
+        steps = list(greedy_steps(s_model, s_lm, cpu_batch,
+                                  float32_cache(s_model, 2, rows, "cpu"), n))
+        want32 = torch.stack([tok for tok, _, _ in steps], dim=1)
+        logits32 = [lg[:, -1] for _, lg, _ in steps]
+    card_lm = s_lm.to(device)  # in place: the CPU runs come first
+    extras = {k: x.to(device) for k, x in s_extras.items()}
+    got = serve.generate(s_model, card_lm, s_prompts.to(device), n, extras=extras).tokens.cpu()
+    V, batch = smoke.vocab, dict(extras, tokens=s_prompts.to(device))
+    dist, gaps, worst, cache = teacher_forced(s_model, card_lm, batch,
+                                              s_model.init_cache(2, rows, device=device),
+                                              want.tokens, want.logits, V)
+    check(worst <= SMOKE_F32_TOL, f"{arch} SMOKE f32: teacher-forced card logits {worst:.3g} of "
+          f"their scale from the CPU's (tol {SMOKE_F32_TOL})")
+    apart, total, ulps = bf16_entries_apart(cache, cpu_cache)
+    parted = []
+    for r in range(2):
+        off = (got[r] != want.tokens[r]).nonzero()
+        if len(off):
+            t = int(off[0])
+            check(near_ties and float(gaps[t][r]) < float(dist[t][r]),
+                  f"{arch} SMOKE f32: request {r}'s card tokens {got[r].tolist()} leave the CPU's "
+                  f"{want.tokens[r].tolist()} at step {t}, where the CPU's top-2 gap "
+                  f"{float(gaps[t][r]):.3g} is wider than the devices' logit distance "
+                  f"{float(dist[t][r]):.3g}")
+            parted.append(f"request {r} from step {t} (a near-tie: the CPU's top-2 gap "
+                          f"{float(gaps[t][r]):.3g} < the devices' distance "
+                          f"{float(dist[t][r]):.3g})")
+    print(f"[{tag}] SMOKE {arch} seed {seed} at f32 compute, 2 x ({prompt_len} + 8): card tokens "
+          f"{'== CPU tokens' if not parted else 'part from the CPU tokens at ' + '; '.join(parted)}"
+          f" {want.tokens[0].tolist()}; teacher-forced logits within {worst:.3g} of their scale "
+          f"(tol {SMOKE_F32_TOL}); bf16 cache entries apart {apart} of {total} (at most {ulps} "
+          f"ulp)")
+    if not parted:
+        return
+    # the witness: float32 caches on both devices
+    got32, _ = greedy_generate(s_model, card_lm, batch, float32_cache(s_model, 2, rows, device), n)
+    _, _, worst32, _ = teacher_forced(s_model, card_lm, batch,
+                                      float32_cache(s_model, 2, rows, device), want32, logits32, V)
+    check(torch.equal(got32.cpu(), want32),
+          f"{arch} SMOKE f32 with float32 caches: card tokens {got32.cpu().tolist()}, CPU "
+          f"{want32.tolist()}")
+    check(worst32 < worst, f"{arch} SMOKE f32: teacher-forced distance {worst32:.3g} with float32 "
+          f"caches, not below {worst:.3g} with bf16 ones")
+    print(f"[{tag}] SMOKE {arch} seed {seed}, witness with float32 caches on both devices: card "
+          f"tokens == CPU tokens {want32[0].tolist()}; teacher-forced logits within "
+          f"{worst32:.3g} of their scale (bf16 caches: {worst:.3g})")
 
 
 def phase_serve(device, smoke: bool = False, requests: int = 8, prompt_len: int = 512,
                 n_gen: int = 32) -> dict:
-    """The serving path at full width: admission of 8 streams on H100_HOST
-    through the CUDA scorer, then ``tinyllama-1.1b`` (22 layers, d_model
-    2048, weights drawn on the card from SEED) serving 8 requests of 512
-    prompt tokens and 32 generated tokens by the kernel route. The flash
-    launches must be 22 x 32; a teacher-forced replay on the plain route
-    must give the same logits (2e-2 of their scale) and the same argmax
-    where the top-2 gap is wider than that; ``jax_scale_witness`` runs
-    the prefill at the JAX init scale; a SMOKE run at f32 compute must give
-    the card the CPU's tokens. Returns the path's numbers.
-    ``smoke`` and the sizes shrink it for a rehearsal on the CPU."""
-    import gc
-
-    import torch
+    """The serving path at full width: ``tinyllama-1.1b`` (22 layers, d_model
+    2048, weights drawn on the card from SEED) through ``serve_arch``:
+    admission of 8 streams on H100_HOST through the CUDA scorer, 8 requests
+    of 512 prompt tokens and 32 generated tokens by the kernel route, flash
+    launches exactly 22 x 32, the teacher-forced plain-route replay within
+    REPLAY_TOL; then ``jax_scale_witness`` runs the prefill at the JAX init
+    scale, and a SMOKE run at f32 compute must give the card the CPU's
+    tokens. Returns the path's numbers. ``smoke`` and the sizes shrink it
+    for a rehearsal on the CPU."""
     from repro_torch.configs import get_config
-    from repro_torch.core import H100_HOST
-    from repro_torch.kernels import consolidation as kc
-    from repro_torch.kernels import flash_attention as kf
-    from repro_torch.launch import serve
-
-    tol = 2e-2
-    on_card = device.type == "cuda"
-    kc.reset_launches()
-    placements = serve.admission_check("tinyllama-1.1b", requests, host=H100_HOST, device=device)
-    check(all(p is not None for p in placements), f"admission queued a stream: {placements}")
-    check(sum(kc.LAUNCHES.values()) > 0 or not on_card,
-          "admission never launched consolidation_scores")
-    print(f"[9 serve] admission of {requests} streams on 2 x {H100_HOST.name}: {placements}, "
-          f"consolidation_scores launches {sum(kc.LAUNCHES.values())}")
 
     cfg = get_config("tinyllama-1.1b", smoke=smoke)
-    model, lm, prompts = serve.prepare(cfg, requests=requests, prompt_len=prompt_len, seed=SEED,
-                                       device=device)
-    n_params = sum(p.numel() for p in lm.parameters())
-    serve.generate(model, lm, prompts, 2)  # warm-up: cuBLAS handles, allocator
-    if on_card:
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-    kf.reset_launches()
-    run = serve.generate(model, lm, prompts, n_gen, keep_logits=True)
-    launches = dict(kf.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated() if on_card else 0
-    n_launch = sum(launches.values())
-    check(n_launch == cfg.n_layers * n_gen or not on_card,
-          f"serving launched flash_attention {n_launch} times, want {cfg.n_layers} x {n_gen}")
-    check(all(key[0] in ("mma", "mma_split") for key in launches),
-          f"serving's flash launches left the tensor-core entries: {sorted(launches)}")
-    check(tuple(run.tokens.shape) == (requests, n_gen), f"tokens {tuple(run.tokens.shape)}")
-    check(bool(((run.tokens >= 0) & (run.tokens < cfg.vocab)).all()), "token out of the vocab")
-    decode_ms = [1e3 * t for t in run.decode_s]
-    total = run.prefill_s + sum(run.decode_s)
-    print(f"[9 serve] {cfg.name} {n_params / 1e9:.3f} B params, {requests} requests x prompt "
-          f"{prompt_len} + {n_gen} tokens: prefill {1e3 * run.prefill_s:.3f} ms, decode "
-          f"{statistics.mean(decode_ms):.3f} ms/step (median {statistics.median(decode_ms):.3f}, "
-          f"min {min(decode_ms):.3f}, max {max(decode_ms):.3f}), {requests * n_gen / total:.1f} "
-          f"tokens/s over {total:.3f} s, peak device memory {peak / 2**30:.3f} GiB; "
-          f"flash_attention launches {n_launch} over {len(launches)} shapes, by entry "
-          f"{by_entry(launches)}")
-
-    # the plain route, teacher-forced on the kernel route's tokens
-    lm.mode = "torch"
-    gaps = replay_gaps(model, lm, prompts, run, tol)
-    lm.mode = None
-    for t, (rel, _, wide_flips) in enumerate(gaps):
-        check(rel <= tol, f"step {t}: plain and kernel routes' logits differ by {rel:.3g} of "
-              f"their scale")
-        check(wide_flips == 0, f"step {t}: argmax differs where the top-2 gap exceeds {tol} "
-              f"of the scale")
-    worst_rel, flips = max(g[0] for g in gaps), sum(g[1] for g in gaps)
-    check(sum(kf.LAUNCHES.values()) == n_launch, "the plain route launched the kernel")
-    print(f"[9 serve] plain route teacher-forced over {n_gen} steps: logits within {worst_rel:.3g} "
-          f"of their scale (tol {tol}); argmax differs in {flips} of {requests * n_gen} "
-          f"places, none where the top-2 gap exceeds the tolerance")
-
-    # the kernel's share of device time, prefill alone and 8 decode steps
-    if not on_card:
-        return dict(launches=n_launch, prefill_ms=1e3 * run.prefill_s,
-                    decode_ms=statistics.mean(decode_ms), worst_rel=worst_rel)
-    profile_serving(model, lm, prompts, run, {kf: entry_counts(kf, FLASH_KERNELS)}, "9 serve")
-
-    del lm
-    gc.collect()
-    witness = jax_scale_witness(cfg, prompts, device)
-
+    out = serve_arch(device, cfg, "9 serve", requests=requests, prompt_len=prompt_len,
+                     n_gen=n_gen, want_launches=cfg.n_layers * n_gen)
+    prompts = out["prompts"]
+    drop_models(out)
+    if device.type != "cuda":
+        return out
+    free_card()
+    out["witness"] = jax_scale_witness(cfg, prompts, device)
     # a SMOKE model at float32 compute: the card's tokens are the CPU's
     smoke_card_matches_cpu("tinyllama-1.1b", device, "9 serve")
-    return dict(launches=n_launch, prefill_ms=1e3 * run.prefill_s,
-                decode_ms=statistics.mean(decode_ms), worst_rel=worst_rel, witness=witness)
+    return out
 
 
 #: rwkv6_scan vs its plain version and the float64 recurrence (tests/test_kernels.py's
@@ -3624,8 +3728,8 @@ def f32_decode_check(cfg, device, requests: int, prompt_len: int) -> float:
 
     tol = 1e-4
     f32 = dc.replace(cfg, compute_dtype=torch.float32)
-    model, lm, prompts = serve.prepare(f32, requests=requests, prompt_len=prompt_len, seed=SEED,
-                                       device=device)
+    model, lm, prompts, _ = serve.prepare(f32, requests=requests, prompt_len=prompt_len, seed=SEED,
+                                          device=device)
     perturb_decay(lm, torch.Generator(device).manual_seed(SEED + 5))
     gaps = twin_decode_gaps(model, lm, prompts, tol)
     for t, (rel, _, wide_flips) in enumerate(gaps):
@@ -3678,8 +3782,8 @@ def phase_serve_rwkv(device, smoke: bool = False, requests: int = 8, prompt_len:
           f"{placements}, consolidation_scores launches {sum(kc.LAUNCHES.values())}")
 
     cfg = get_config("rwkv6-7b", smoke=smoke)
-    model, lm, prompts = serve.prepare(cfg, requests=requests, prompt_len=prompt_len, seed=SEED,
-                                       device=device)
+    model, lm, prompts, _ = serve.prepare(cfg, requests=requests, prompt_len=prompt_len, seed=SEED,
+                                          device=device)
     perturb_decay(lm, torch.Generator(device).manual_seed(SEED + 5))
     n_params = sum(p.numel() for p in lm.parameters())
     serve.generate(model, lm, prompts, 2)  # warm-up: cuBLAS handles, allocator, the build
@@ -4056,8 +4160,8 @@ def jamba_f32_decode_check(device, requests: int, prompt_len: int) -> float:
 
     tol = 1e-4
     f32 = dc.replace(jamba_served(), n_layers=8, param_dtype=torch.float32, compute_dtype=torch.float32)
-    model, lm, prompts = serve.prepare(f32, requests=requests, prompt_len=prompt_len, seed=SEED,
-                                       device=device)
+    model, lm, prompts, _ = serve.prepare(f32, requests=requests, prompt_len=prompt_len, seed=SEED,
+                                          device=device)
     gaps = twin_decode_gaps(model, lm, prompts, tol)
     for t, (rel, _, wide_flips) in enumerate(gaps):
         check(rel <= tol, f"jamba f32 decode step {t} from one state: plain and kernel routes' "
@@ -4115,8 +4219,8 @@ def phase_serve_jamba(device, smoke: bool = False, requests: int = 8, prompt_len
 
     cfg = jamba_served(smoke)
     t0 = time.perf_counter()
-    model, lm, prompts = serve.prepare(cfg, requests=requests, prompt_len=prompt_len, seed=SEED,
-                                       device=device)
+    model, lm, prompts, _ = serve.prepare(cfg, requests=requests, prompt_len=prompt_len, seed=SEED,
+                                          device=device)
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in lm.parameters())
     weight_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
@@ -4235,6 +4339,315 @@ def phase_serve_jamba(device, smoke: bool = False, requests: int = 8, prompt_len
 
 # -- phase 17: the purity audit -------------------------------------------------
 
+#: the teacher-forced replay's limit on the logits' gap, in units of their scale
+REPLAY_TOL = 2e-2
+
+
+def serve_arch(device, cfg, tag: str, *, requests: int, prompt_len: int, n_gen: int,
+               want_launches: int) -> dict:
+    """One serving phase's common path: admission of ``requests`` streams on
+    H100_HOST through the CUDA scorer, then ``cfg`` (weights, prompts and any
+    patch or frame embeddings drawn on the card from SEED) serving
+    ``requests`` x (``prompt_len`` + ``n_gen``) tokens by the kernel route,
+    which must launch flash_attention exactly ``want_launches`` times, all on
+    the tensor-core entries, and give finite logits and in-vocab tokens; the
+    teacher-forced replay on the plain route must give logits within
+    REPLAY_TOL of their scale and the same argmax wherever the top-2 gap is
+    wider; the kernel's share of device time under torch.profiler. Returns
+    the numbers and, under "model", "lm", "prompts", "extras" and "run",
+    what a phase checks further (the caller drops them)."""
+    import gc
+
+    import torch
+    from repro_torch.core import H100_HOST
+    from repro_torch.kernels import consolidation as kc
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.launch import serve
+
+    on_card = device.type == "cuda"
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+    kc.reset_launches()
+    placements = serve.admission_check(cfg.name, requests, host=H100_HOST, device=device)
+    check(all(p is not None for p in placements), f"admission queued a stream: {placements}")
+    check(sum(kc.LAUNCHES.values()) > 0 or not on_card,
+          "admission never launched consolidation_scores")
+    print(f"[{tag}] admission of {requests} streams on 2 x {H100_HOST.name}: {placements}, "
+          f"consolidation_scores launches {sum(kc.LAUNCHES.values())}")
+
+    t0 = time.perf_counter()
+    model, lm, prompts, extras = serve.prepare(cfg, requests=requests, prompt_len=prompt_len,
+                                               seed=SEED, device=device)
+    if on_card:
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in lm.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    serve.generate(model, lm, prompts, 2, extras=extras)  # warm-up: cuBLAS, the allocator
+    if on_card:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kf.reset_launches()
+    run = serve.generate(model, lm, prompts, n_gen, extras=extras, keep_logits=True)
+    launches = dict(kf.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    n_launch = sum(launches.values())
+    check(n_launch == want_launches or not on_card,
+          f"{cfg.name}: serving launched flash_attention {n_launch} times, want {want_launches}")
+    check(all(key[0] in ("mma", "mma_split") for key in launches),
+          f"{cfg.name}: flash launches left the tensor-core entries: {sorted(launches)}")
+    check(tuple(run.tokens.shape) == (requests, n_gen), f"tokens {tuple(run.tokens.shape)}")
+    check(bool(((run.tokens >= 0) & (run.tokens < cfg.vocab)).all()), "token out of the vocab")
+    check(all(bool(torch.isfinite(x.float()).all()) for x in run.logits), "non-finite logits")
+    decode_ms = [1e3 * t for t in run.decode_s]
+    total = run.prefill_s + sum(run.decode_s)
+    prefix = ", ".join(f"{k} {tuple(x.shape)}" for k, x in extras.items())
+    print(f"[{tag}] {cfg.name} {n_params / 1e9:.3f} B params ({weight_bytes / 1e9:.2f} GB, "
+          f"drawn in {init_s:.2f} s), {requests} requests x prompt {prompt_len} + {n_gen} tokens"
+          f"{' beside ' + prefix if prefix else ''}: prefill {1e3 * run.prefill_s:.3f} ms, decode "
+          f"{statistics.mean(decode_ms):.3f} ms/step (median {statistics.median(decode_ms):.3f}, "
+          f"min {min(decode_ms):.3f}, max {max(decode_ms):.3f}), {requests * n_gen / total:.1f} "
+          f"tokens/s over {total:.3f} s, peak device memory {peak / 2**30:.3f} GiB; "
+          f"flash_attention launches {n_launch} over {len(launches)} shapes, by entry "
+          f"{by_entry(launches)}")
+
+    lm.mode = "torch"
+    gaps = replay_gaps(model, lm, prompts, run, REPLAY_TOL, extras)
+    lm.mode = None
+    for t, (rel, _, wide_flips) in enumerate(gaps):
+        check(rel <= REPLAY_TOL, f"{cfg.name} step {t}: plain and kernel routes' logits differ "
+              f"by {rel:.3g} of their scale")
+        check(wide_flips == 0, f"{cfg.name} step {t}: argmax differs where the top-2 gap "
+              f"exceeds {REPLAY_TOL} of the scale")
+    check(sum(kf.LAUNCHES.values()) == n_launch, "the plain route launched the kernel")
+    worst_rel, flips = max(g[0] for g in gaps), sum(g[1] for g in gaps)
+    print(f"[{tag}] plain route teacher-forced over {n_gen} steps: logits within "
+          f"{worst_rel:.3g} of their scale (tol {REPLAY_TOL}; prefill {gaps[0][0]:.3g}); argmax "
+          f"differs in {flips} of {requests * n_gen} places, none where the top-2 gap exceeds "
+          f"the tolerance")
+    out = dict(launches=n_launch, by_entry=by_entry(launches), n_params=n_params,
+               weight_gb=weight_bytes / 1e9, init_s=init_s, prefill_ms=1e3 * run.prefill_s,
+               decode_ms=statistics.mean(decode_ms), tokens_per_s=requests * n_gen / total,
+               peak_gib=peak / 2**30, worst_rel=worst_rel, prefill_rel=gaps[0][0], flips=flips,
+               model=model, lm=lm, prompts=prompts, extras=extras, run=run)
+    if on_card:
+        out.update(profile_serving(model, lm, prompts, run, {kf: entry_counts(kf, FLASH_KERNELS)},
+                                   tag, extras))
+    return out
+
+
+def drop_models(out: dict) -> dict:
+    """A serving phase's numbers without its model and tensors."""
+    for key in ("model", "lm", "prompts", "extras", "run"):
+        out.pop(key, None)
+    return out
+
+
+def int8_route_row(tag: str, label: str, q, codes, scales, *, q_offset: int) -> dict:
+    """The int8 route of one attention call (``layers.attention_apply`` on an
+    int8 cache): the visible rows' codes [B, T, Hkv, dh] and scales
+    [B, T, Hkv] dequantized to bf16, then the kernel (causal, at
+    ``q_offset``). Held to the plain version on the dequantized rows like
+    ``flash_row``; device ms of the kernel alone, of the route (dequantize
+    both + kernel), of the plain route and of SDPA on the dequantized rows,
+    beside the route's bound: q and out, the codes and scales read once
+    (what a kernel that dequantizes in its tile loads would move)."""
+    import torch
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.models.layers import dequantize_kv
+
+    B, Sq, H, dh = q.shape
+    T, Hkv = codes[0].shape[1], codes[0].shape[2]
+
+    def deq():
+        return (dequantize_kv(codes[0], scales[0], torch.bfloat16),
+                dequantize_kv(codes[1], scales[1], torch.bfloat16))
+
+    rk, rv = deq()
+    check(rk.is_contiguous() and rk.data_ptr() != codes[0].data_ptr(),
+          f"{label}: the kernel's k is not a fresh dequantized buffer")
+    row = flash_row(tag, label, q, rk, rv, causal=True, q_offset=q_offset)
+    row["kernel_ms"] = row["ms"]
+    row["ms"] = device_ms(lambda: kf.flash_attention(q, *deq(), causal=True, q_offset=q_offset))
+    row["plain_ms"] = device_ms(
+        lambda: kf.flash_attention_torch(q, *deq(), causal=True, q_offset=q_offset))
+    row["library_ms"] = device_ms(lambda: sdpa_form(q, *deq(), True, q_offset))
+    row["bound_ms"], row["bound_by"] = flash_bound_ms(
+        B, Sq, T, H, Hkv, dh, True, q_offset, 2, 1 + 2 / dh)
+    row["shape"] = (f"B={B} Sq={Sq} visible T={T} H={H} Hkv={Hkv} dh={dh} causal "
+                    f"q_offset={q_offset}, int8 codes + bf16 scales dequantized to bf16")
+    print(f"[{tag}] {label} int8 route: device ms dequantize + kernel {row['ms']:.5f} (kernel "
+          f"{row['kernel_ms']:.5f}), plain {row['plain_ms']:.5f}, SDPA on the dequantized rows "
+          f"{row['library_ms']:.5f}, bound {row['bound_ms']:.5f} by {row['bound_by']} (codes "
+          f"and scales read once)")
+    return row
+
+
+def phase_serve_int8(device, smoke: bool = False, requests: int = 8, prompt_len: int = 512,
+                     n_gen: int = 32) -> dict:
+    """Phase 18, the int8 KV cache: ``tinyllama-1.1b`` at full width with
+    ``kv_cache_dtype='int8'`` through ``serve_arch`` (22 x 32 flash
+    launches; the teacher-forced replay within REPLAY_TOL), the cache's
+    bytes beside the bf16 cache's, and the int8 route's attention at the
+    served prefill and decode@542 (``int8_route_row``). Returns the
+    numbers; ``smoke`` and the sizes shrink it for a rehearsal on the CPU."""
+    import dataclasses as dc
+    import math
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import quantize_kv
+
+    tag = "18 serve int8"
+    cfg = dc.replace(get_config("tinyllama-1.1b", smoke=smoke), kv_cache_dtype="int8")
+    out = serve_arch(device, cfg, tag, requests=requests, prompt_len=prompt_len, n_gen=n_gen,
+                     want_launches=cfg.n_layers * n_gen)
+    model = out["model"]
+
+    def cache_bytes(c) -> int:
+        from repro_torch.models.api import build_model
+
+        return sum(math.prod(i.shape) * i.dtype.itemsize
+                   for i in build_model(c).cache_infos(requests, prompt_len + n_gen).values())
+
+    out["cache_mb"] = cache_bytes(cfg) / 1e6
+    out["bf16_cache_mb"] = cache_bytes(dc.replace(cfg, kv_cache_dtype="bf16")) / 1e6
+    check(set(model.init_cache(1, 1, device=device)) == {"k", "v", "k_scale", "v_scale", "len"},
+          "the int8 cache lacks its scales")
+    print(f"[{tag}] KV cache {out['cache_mb']:.3f} MB (int8 codes + bf16 scales) against "
+          f"{out['bf16_cache_mb']:.3f} MB in bf16, x{out['cache_mb'] / out['bf16_cache_mb']:.4f}")
+    drop_models(out)
+    if device.type != "cuda":
+        return out
+    gen = torch.Generator(device).manual_seed(SEED + 7)
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    rows = {}
+    for label, Sq, T, off in (("prefill", prompt_len, prompt_len, 0),
+                              ("decode@542", 1, prompt_len + n_gen - 1, prompt_len + n_gen - 2)):
+        q = torch.randn(requests, Sq, H, dh, generator=gen, device=device).bfloat16()
+        kv = [quantize_kv(torch.randn(requests, T, Hkv, dh, generator=gen, device=device)
+                          .bfloat16()) for _ in range(2)]
+        rows[label] = int8_route_row(tag, label, q, [c for c, _ in kv], [s for _, s in kv],
+                                     q_offset=off)
+    out["rows"] = rows
+    return out
+
+
+def moe_params(cfg) -> int:
+    """The MoE transformer's parameters, reckoned from its widths: per layer
+    attention (4 D H dh), router (D E), experts (E (2 D F + F D)) and two
+    norms (2 D); the embedding and the untied head (2 Vp D) and the final
+    norm (D)."""
+    from repro_torch.models.layers import padded_vocab
+
+    D, E, F = cfg.d_model, cfg.moe_experts, cfg.moe_dff
+    layer = 4 * D * cfg.n_heads * cfg.d_head + D * E + E * 3 * D * F + 2 * D
+    return cfg.n_layers * layer + 2 * padded_vocab(cfg.vocab) * D + D
+
+
+def phase_serve_moe(device, smoke: bool = False, requests: int = 8, prompt_len: int = 512,
+                    n_gen: int = 32) -> dict:
+    """Phase 19, the MoE LM: ``moonshot-v1-16b-a3b`` at its published widths
+    and depth (48 layers, 64 experts, top 6) with bf16 weights (56 GB, drawn
+    on the card), its parameter count held to ``moe_params``, through
+    ``serve_arch`` (48 x 32 flash launches; the teacher-forced replay within
+    REPLAY_TOL); then the kimi and moonshot SMOKE models at f32 compute,
+    whose tokens on the card must equal the CPU's (kimi's at three seeds,
+    each up to a near-tie that float32 caches on both devices remove; its
+    published dh of 112 is not one the kernel takes). Returns the
+    numbers."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.configs import get_config
+
+    tag = "19 serve moe"
+    cfg = dc.replace(get_config("moonshot-v1-16b-a3b", smoke=smoke), param_dtype=torch.bfloat16)
+    out = serve_arch(device, cfg, tag, requests=requests, prompt_len=prompt_len, n_gen=n_gen,
+                     want_launches=cfg.n_layers * n_gen)
+    from repro_torch.models.layers import padded_vocab
+
+    D, Vp = cfg.d_model, padded_vocab(cfg.vocab)
+    check(out["n_params"] == moe_params(cfg),
+          f"moonshot: {out['n_params']} parameters, reckoned {moe_params(cfg)}")
+    print(f"[{tag}] {out['n_params']} parameters = {cfg.n_layers} layers x "
+          f"{(out['n_params'] - 2 * Vp * D - D) // cfg.n_layers} + 2 x {Vp} x {D} + {D}, as "
+          f"reckoned from the widths; {out['weight_gb']:.2f} GB of weights")
+    drop_models(out)
+    if device.type == "cuda":
+        free_card()
+        # kimi's SMOKE at seed 0 meets a near-tie (a top-2 gap of 1.0e-5 on
+        # the CPU) before its eighth token; seeds 1 and 2 are further draws
+        for seed in (SEED, SEED + 1, SEED + 2):
+            smoke_card_matches_cpu("kimi-k2-1t-a32b", device, tag, near_ties=True, seed=seed)
+        smoke_card_matches_cpu("moonshot-v1-16b-a3b", device, tag)
+    return out
+
+
+def phase_serve_whisper(device, smoke: bool = False, requests: int = 8, prompt_len: int = 416,
+                        n_gen: int = 32) -> dict:
+    """Phase 20, the encoder-decoder: ``whisper-medium`` at full width (24
+    encoder and 24 decoder layers over 1500 frame embeddings) serving 8
+    requests of 416 prompt tokens and 32 generated (within Whisper's 448)
+    through ``serve_arch``: 24 encoder + 24 x 32 self + 24 x 32 cross flash
+    launches, the teacher-forced replay within REPLAY_TOL. The kernel's two
+    new uses are held to the plain version at these shapes (``flash_row``):
+    the encoder's non-causal self-attention (Sq = Skv = 1500, not a multiple
+    of the kv tile), the cross-attention at the prefill (Sq 416, Skv 1500)
+    and at decode (Sq 1, the split entry, causal off); a SMOKE run at f32
+    compute must give the card the CPU's tokens. Returns the numbers."""
+    import torch
+    from repro_torch.configs import get_config
+
+    tag = "20 serve whisper"
+    cfg = get_config("whisper-medium", smoke=smoke)
+    out = serve_arch(device, cfg, tag, requests=requests, prompt_len=prompt_len, n_gen=n_gen,
+                     want_launches=cfg.enc_layers + 2 * cfg.n_layers * n_gen)
+    drop_models(out)
+    if device.type != "cuda":
+        return out
+    gen = torch.Generator(device).manual_seed(SEED + 8)
+    B, H, Hkv, dh, T = requests, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.enc_seq
+    rows = {}
+    for label, Sq in (("encoder", T), ("cross prefill", prompt_len), ("cross decode", 1)):
+        q = torch.randn(B, Sq, H, dh, generator=gen, device=device).bfloat16()
+        k, v = (torch.randn(B, T, Hkv, dh, generator=gen, device=device).bfloat16()
+                for _ in range(2))
+        rows[label] = flash_row(tag, label, q, k, v, causal=False)
+    out["rows"] = rows
+    smoke_card_matches_cpu("whisper-medium", device, tag)
+    return out
+
+
+def phase_serve_vlm(device, smoke: bool = False, requests: int = 8, prompt_len: int = 512,
+                    n_gen: int = 32) -> dict:
+    """Phase 21, the vlm: ``internvl2-2b`` at full width (24 layers, dh 128)
+    serving 8 requests of 256 patch embeddings and 512 prompt tokens and 32
+    generated through ``serve_arch`` (24 x 32 flash launches; the
+    teacher-forced replay within REPLAY_TOL), its cache sized for the
+    patches (768 + 32 rows and the pad, where the JAX serve script's 672 would not
+    hold the prefill); a SMOKE run at f32 compute must give the card the
+    CPU's tokens. Returns the numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import CACHE_PAD
+
+    tag = "21 serve vlm"
+    cfg = get_config("internvl2-2b", smoke=smoke)
+    out = serve_arch(device, cfg, tag, requests=requests, prompt_len=prompt_len, n_gen=n_gen,
+                     want_launches=cfg.n_layers * n_gen)
+    rows, prefill = cfg.vis_tokens + prompt_len + n_gen + CACHE_PAD, cfg.vis_tokens + prompt_len
+    jax_rows = prompt_len + n_gen + CACHE_PAD
+    print(f"[{tag}] cache of {rows} rows: {cfg.vis_tokens} patches + {prompt_len} prompt + "
+          f"{n_gen} generated + {CACHE_PAD} pad; the JAX serve script's {jax_rows} rows "
+          f"{'would not' if jax_rows < prefill else 'would'} hold the prefill's {prefill}")
+    drop_models(out)
+    if device.type == "cuda":
+        smoke_card_matches_cpu("internvl2-2b", device, tag)
+    return out
+
+
 def audit_example(device) -> dict:
     """``examples/torch_closed_loop_adaptive.py`` at smoke size (4 segments,
     the drift at 2) on ``device``: its result, printed lines and seconds."""
@@ -4320,6 +4733,15 @@ def phase_audit(device) -> dict:
     return {"stats": stats, "findings": findings, "seconds": seconds, "kernels": kernels}
 
 
+def timed_phase(tag: str, phase, device) -> dict:
+    """Run ``phase(device)``, print its wall seconds and keep them in its result."""
+    t0 = time.perf_counter()
+    out = phase(device)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[{tag}] phase took {out['seconds']:.1f} s")
+    return out
+
+
 def free_card() -> None:
     """Return the earlier phases' device memory before a phase draws a
     large model."""
@@ -4366,6 +4788,14 @@ def main() -> int:
     scan = phase_mamba_scan(device)
     served_jamba = phase_serve_jamba(device)
     free_card()
+    served_int8 = timed_phase("18 serve int8", phase_serve_int8, device)
+    free_card()
+    served_moe = timed_phase("19 serve moe", phase_serve_moe, device)
+    free_card()
+    served_whisper = timed_phase("20 serve whisper", phase_serve_whisper, device)
+    free_card()
+    served_vlm = timed_phase("21 serve vlm", phase_serve_vlm, device)
+    free_card()
     # last, so that its profiled and captured runs leave nothing to the
     # serving phases' profiles
     obs = phase_observability(device, health)
@@ -4375,6 +4805,15 @@ def main() -> int:
     phase_audit(device)
 
     q = LOOP_Q  # the event loop's one call per micro-event, on every grid type
+    flash_launches = {"9 serve": served["launches"], "13 serve jamba": served_jamba["launches_flash"],
+                 "18 serve int8": served_int8["launches"], "19 serve moe": served_moe["launches"],
+                 "20 serve whisper": served_whisper["launches"],
+                 "21 serve vlm": served_vlm["launches"]}
+    flash_uses = {"int8_prefill": served_int8["rows"]["prefill"],
+                "int8_decode": served_int8["rows"]["decode@542"],
+                "whisper_encoder": served_whisper["rows"]["encoder"],
+                "cross_prefill": served_whisper["rows"]["cross prefill"],
+                "cross_decode": served_whisper["rows"]["cross decode"]}
     print(json.dumps({"kernels": [{
         "name": "consolidation_scores", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/consolidation_scores.cu",
@@ -4445,12 +4884,16 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:118",
-        "launches": served["launches"] + served_jamba["launches_flash"],
-        "max_abs_err": max(r["max_abs_err"] for r in flash.values()),
+        "launches": sum(flash_launches.values()),
+        "launches_by_phase": flash_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in [*flash.values(), *flash_uses.values()]),
         **{key: flash[("prefill", "bfloat16")][key]
            for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
         "decode": {key: flash[("decode@511", "bfloat16")][key]
                    for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+        **{name: {key: r[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms", "shape", "max_abs_err")}
+           for name, r in flash_uses.items()},
     }, {
         "name": "rwkv6_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",

@@ -2,7 +2,7 @@
 
 ``configs/<id>.py`` exports ``CONFIG`` (the published configuration) and
 ``SMOKE`` (a reduced same-family configuration for CPU tests), copied from
-the JAX package for the dense family, rwkv6 and jamba; ``registry.get_config``
+the JAX package for all ten archs; ``registry.get_config``
 maps ``--arch`` ids to them.
 """
 from .base import SHAPES, MeshConfig, ModelConfig

@@ -7,10 +7,11 @@ port's versions on ``device``, so both implementations can score the
 identical tables. ``estimator_from_numpy`` does the same for a
 ``StreamingEstimator``'s state, so both compute the same next update.
 ``lm_params_from_numpy`` carries a JAX LM's parameter tree across (any
-ported family), and ``kv_cache_from_numpy`` / ``rwkv_cache_from_numpy`` /
-``hybrid_cache_from_numpy`` a JAX KV cache, RWKV state cache or hybrid
-cache, so both models run on the same weights and can continue from the
-same state.
+family), and ``cache_from_numpy`` any family's JAX cache (the int8 KV
+cache with its scales, the encoder-decoder's with its cross K/V
+included), checked key by key, shape by shape and dtype by dtype against
+the port's declaration. So both models run on the same weights and can
+continue from the same state.
 Arrays keep their dtype (bf16 arrives as numpy's ``bfloat16`` extension
 type and leaves as ``torch.bfloat16``); nothing here imports JAX.
 """
@@ -90,20 +91,25 @@ def tensor_from_numpy(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def _tree_from_numpy(infos, tree, device, path=""):
-    """The numpy tree as tensors, checked key by key and shape by shape
-    against the declaration ``infos``."""
+def _tree_from_numpy(infos, tree, device, path="", what="parameter", exact_dtype=False):
+    """The numpy tree as tensors in the declared dtypes, checked key by key
+    and shape by shape against the declaration ``infos`` (and dtype by
+    dtype with ``exact_dtype``)."""
     if isinstance(infos, ParamInfo):
         a = np.asarray(tree)
         if tuple(a.shape) != tuple(infos.shape):
-            raise ValueError(f"parameter {path}: shape {tuple(a.shape)}, want {infos.shape}")
-        return tensor_from_numpy(a, device).to(infos.dtype)
+            raise ValueError(f"{what} {path}: shape {tuple(a.shape)}, want {infos.shape}")
+        t = tensor_from_numpy(a, device)
+        if exact_dtype and t.dtype != infos.dtype:
+            raise TypeError(f"{what} {path}: dtype {t.dtype}, want {infos.dtype}")
+        return t.to(infos.dtype)
     if not isinstance(tree, Mapping):
-        raise KeyError(f"parameter {path or '/'}: want a mapping of {sorted(infos)}")
+        raise KeyError(f"{what} {path or '/'}: want a mapping of {sorted(infos)}")
     missing, extra = sorted(set(infos) - set(tree)), sorted(set(tree) - set(infos))
     if missing or extra:
-        raise KeyError(f"parameters under {path or '/'}: missing {missing}, extra {extra}")
-    return {k: _tree_from_numpy(infos[k], tree[k], device, f"{path}/{k}") for k in infos}
+        raise KeyError(f"{what}s under {path or '/'}: missing {missing}, extra {extra}")
+    return {k: _tree_from_numpy(infos[k], tree[k], device, f"{path}/{k}", what, exact_dtype)
+            for k in infos}
 
 
 def lm_params_from_numpy(cfg, params: Mapping, *,
@@ -119,37 +125,19 @@ def lm_params_from_numpy(cfg, params: Mapping, *,
     return model.build(_tree_from_numpy(model.param_infos(), params, device))
 
 
-def kv_cache_from_numpy(cache: Mapping, *, device: str | torch.device | None = None) -> dict:
-    """A JAX KV cache ({'k', 'v': [L, B, T, Hkv, dh] bf16, 'len'}) as the
-    port's, with ``len`` a host int."""
+def cache_from_numpy(cfg, cache: Mapping, *, batch: int, max_len: int,
+                     device: str | torch.device | None = None) -> dict:
+    """The port's cache of ``cfg``'s family holding a JAX cache: ``cache``
+    maps the JAX cache's names (``Model.cache_infos(batch, max_len)``, so
+    ``max_len + CACHE_PAD`` rows) to numpy arrays, ``len`` included, which
+    becomes a host int. An int8 KV cache brings ``k_scale`` and
+    ``v_scale``, the encoder-decoder's ``xk`` and ``xv``. Raises
+    ``KeyError`` on a missing or extra key, ``ValueError`` on a wrong shape
+    and ``TypeError`` on a wrong dtype."""
     device = resolve_device(device)
-    missing = [k for k in ("k", "v", "len") if k not in cache]
-    if missing:
-        raise KeyError(f"KV cache missing {missing}")
-    return {"k": tensor_from_numpy(cache["k"], device), "v": tensor_from_numpy(cache["v"], device),
-            "len": int(np.asarray(cache["len"]))}
-
-
-def rwkv_cache_from_numpy(cache: Mapping, *, device: str | torch.device | None = None) -> dict:
-    """A JAX RWKV cache ({'wkv': [L, B, H, dh, dh] float32, 'shift_t',
-    'shift_c': [L, B, D] bf16, 'len'}) as the port's, with ``len`` a host
-    int."""
-    device = resolve_device(device)
-    missing = [k for k in ("wkv", "shift_t", "shift_c", "len") if k not in cache]
-    if missing:
-        raise KeyError(f"RWKV cache missing {missing}")
-    out = {k: tensor_from_numpy(cache[k], device) for k in ("wkv", "shift_t", "shift_c")}
-    return dict(out, len=int(np.asarray(cache["len"])))
-
-
-def hybrid_cache_from_numpy(cache: Mapping, *,
-                            device: str | torch.device | None = None) -> dict:
-    """A JAX hybrid cache ({'k', 'v': [P, n_attn, B, T, Hkv, dh] bf16, 'h':
-    [P, n_mamba, B, E, N] float32, 'conv': [P, n_mamba, B, K - 1, E] bf16,
-    'len'}) as the port's, with ``len`` a host int."""
-    device = resolve_device(device)
-    missing = [k for k in ("k", "v", "h", "conv", "len") if k not in cache]
-    if missing:
-        raise KeyError(f"hybrid cache missing {missing}")
-    out = {k: tensor_from_numpy(cache[k], device) for k in ("k", "v", "h", "conv")}
+    if "len" not in cache:
+        raise KeyError("cache missing ['len']")
+    infos = build_model(cfg).cache_infos(batch, max_len)
+    state = {k: v for k, v in cache.items() if k != "len"}
+    out = _tree_from_numpy(infos, state, device, what="cache array", exact_dtype=True)
     return dict(out, len=int(np.asarray(cache["len"])))

@@ -1,6 +1,6 @@
-"""Serving steps: prefill and decode against the model's cache (a dense LM's
-KV cache or RWKV6's recurrent state), with sampling (counterpart of
-``repro/distributed/serve_step.py``).
+"""Serving steps: prefill and decode against the model's cache (a KV cache,
+an encoder-decoder's self and cross K/V, or a recurrent state), with
+sampling (counterpart of ``repro/distributed/serve_step.py``).
 
 Greedy decoding takes the argmax of the float32 cast of the last
 position's logits (the first index among equal maxima, as ``jnp.argmax``).
@@ -42,7 +42,8 @@ def greedy_steps(model: Model, lm, batch: dict, cache: dict, steps: int
                  ) -> Iterator[tuple[torch.Tensor, torch.Tensor, dict]]:
     """The greedy loop: yield (tokens [B], logits [B, 1, Vp], cache) after
     the prefill and after each of ``steps - 1`` decode steps, each step fed
-    the token before it. The work of a step runs when it is asked for."""
+    the token before it. ``batch`` (tokens and any patch or frame
+    embeddings) goes to the prefill only; decode steps take tokens. The work of a step runs when it is asked for."""
     logits, cache = model.prefill(lm, batch, cache)
     for t in range(steps):
         if t:

@@ -3,14 +3,22 @@
 
 Request streams are admitted onto the serving hosts by the paper's engine
 (``admission_check``), then one batch of requests runs batched prefill and
-greedy decode on one device: a dense LM against its KV cache, attention
-through the hand-written CUDA flash kernel on the card; RWKV6 against its
-recurrent state, the WKV through the hand-written CUDA scan; or the Jamba
-hybrid against its KV cache and Mamba states, with windowed attention
-through the flash kernel and Mamba's selective scan through the
-hand-written CUDA ``mamba_scan``:
+greedy decode on one device: a dense or MoE LM against its KV cache (bf16,
+or int8 with ``kv_cache_dtype='int8'``), attention through the
+hand-written CUDA flash kernel on the card; the vlm, whose 256 patch
+embeddings go before the prompt; the Whisper encoder-decoder, whose
+encoder reads 1500 frame embeddings and whose decoder cross-attends to
+them; RWKV6 against its recurrent state, the WKV through the hand-written
+CUDA scan; or the Jamba hybrid against its KV cache and Mamba states, with
+windowed attention through the flash kernel and Mamba's selective scan
+through the hand-written CUDA ``mamba_scan``. The patch and frame
+embeddings are drawn at random (the frontends are stubs, as in JAX):
 
   python -m repro_torch.launch.serve --arch tinyllama-1.1b --requests 8 \\
+      --prompt-len 512 --gen 32
+  python -m repro_torch.launch.serve --arch whisper-medium --requests 8 \\
+      --prompt-len 416 --gen 32
+  python -m repro_torch.launch.serve --arch internvl2-2b --requests 8 \\
       --prompt-len 512 --gen 32
   python -m repro_torch.launch.serve --arch rwkv6-7b --requests 8 \\
       --prompt-len 512 --gen 32
@@ -18,6 +26,13 @@ hand-written CUDA ``mamba_scan``:
       --requests 2 --prompt-len 16 --gen 8
   python -m repro_torch.launch.serve --arch jamba-v0.1-52b --device cpu --smoke \\
       --requests 2 --prompt-len 16 --gen 8
+
+``moonshot-v1-16b-a3b`` (28.1 B parameters) fits one 80 GB card only with
+bf16 weights (56 GB): ``chip_smoke.py`` serves it with
+``param_dtype=bfloat16``, and the int8 KV cache with
+``kv_cache_dtype='int8'`` (``dataclasses.replace`` of the config).
+``kimi-k2-1t-a32b`` runs as ``--smoke`` only: its 1T parameters fit no
+card, and its head dim of 112 is not one the flash kernel takes.
 
 The full ``jamba-v0.1-52b`` (32 layers, 51.57 B parameters) does not fit
 one 80 GB card even in bf16 (103 GB); ``chip_smoke.py`` serves it cut to
@@ -41,7 +56,6 @@ from ..core.units import KB, MB
 from ..device import resolve_device
 from ..distributed.serve_step import greedy_steps
 from ..models.api import LM, Model, build_model
-
 
 def admission_check(arch: str, n_streams: int, *, host: ServerSpec = H100_HOST,
                     device: str | torch.device | None = None, metrics: bool = False):
@@ -76,16 +90,22 @@ def admission_check(arch: str, n_streams: int, *, host: ServerSpec = H100_HOST,
 
 
 def prepare(cfg: ModelConfig, *, requests: int, prompt_len: int, seed: int = 0,
-            device: str | torch.device | None = None) -> tuple[Model, LM, torch.Tensor]:
-    """(model, lm, prompts [requests, prompt_len]): the LM of ``cfg``'s family
-    (dense, ssm or hybrid), weights and prompts drawn from one generator
+            device: str | torch.device | None = None
+            ) -> tuple[Model, LM, torch.Tensor, dict[str, torch.Tensor]]:
+    """(model, lm, prompts [requests, prompt_len], extras): the LM of
+    ``cfg``'s family, its weights, the prompts and then the prefill's other
+    inputs (``extras``: the vlm's ``vis_embeds`` [requests, 256, D], the
+    encdec's ``audio_embeds`` [requests, 1500, D], standard normal in the
+    compute dtype; empty for the other families) drawn from one generator
     seeded with ``seed`` on ``device``."""
     device = resolve_device(device)
     model = build_model(cfg)
     gen = torch.Generator(device).manual_seed(seed)
     lm = model.init(gen, device=device)
     prompts = torch.randint(0, cfg.vocab, (requests, prompt_len), generator=gen, device=device)
-    return model, lm, prompts
+    extras = {name: torch.randn(shape, generator=gen, device=device).to(cfg.compute_dtype)
+              for name, shape in model.prefill_extras(requests).items()}
+    return model, lm, prompts, extras
 
 
 @dataclasses.dataclass
@@ -106,16 +126,23 @@ def _sync(device: torch.device) -> None:
 
 
 def generate(model: Model, lm: LM, prompts: torch.Tensor, gen: int, *,
+             extras: dict[str, torch.Tensor] | None = None,
              keep_logits: bool = False) -> ServeRun:
-    """Prefill ``prompts`` into a fresh cache, then ``gen - 1`` greedy decode
-    steps (``serve_step.greedy_steps``): ``gen`` tokens per request."""
+    """Prefill ``prompts`` (with ``extras``, the prefill's other inputs) into
+    a fresh cache, then ``gen - 1`` greedy decode steps
+    (``serve_step.greedy_steps``): ``gen`` tokens per request. The cache
+    holds every row the requests write, a vlm's patch embeddings included,
+    plus ``CACHE_PAD`` (the JAX serve script sizes it for the prompt and the
+    generated tokens only, which a prefix of more than ``CACHE_PAD`` rows
+    overruns)."""
     B, S = prompts.shape
     device = prompts.device
-    cache = model.init_cache(B, S + gen, device=device)
+    batch = dict(extras or {}, tokens=prompts)
+    cache = model.init_cache(B, model.prefix_len(batch) + S + gen, device=device)
     toks, times, kept = [], [], [] if keep_logits else None
     _sync(device)
     t0 = time.perf_counter()
-    for tok, logits, _ in greedy_steps(model, lm, {"tokens": prompts}, cache, gen):
+    for tok, logits, _ in greedy_steps(model, lm, batch, cache, gen):
         _sync(device)
         times.append(time.perf_counter() - t0)
         toks.append(tok)
@@ -150,9 +177,10 @@ def main(argv=None) -> torch.Tensor:
         print(percentile_table(frame, ("waiting_time", "slowdown")))
 
     cfg = get_config(args.arch, smoke=args.smoke)
-    model, lm, prompts = prepare(cfg, requests=args.requests, prompt_len=args.prompt_len,
-                                 seed=args.seed, device=device)
-    run = generate(model, lm, prompts, args.gen)
+    model, lm, prompts, extras = prepare(cfg, requests=args.requests,
+                                         prompt_len=args.prompt_len, seed=args.seed,
+                                         device=device)
+    run = generate(model, lm, prompts, args.gen, extras=extras)
     total = run.prefill_s + sum(run.decode_s)
     print(f"generated {tuple(run.tokens.shape)} tokens in {total:.3f} s "
           f"({args.requests * args.gen / total:.1f} tok/s; prefill {1e3 * run.prefill_s:.2f} ms, "

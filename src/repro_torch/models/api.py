@@ -1,12 +1,17 @@
-"""Uniform model API (counterpart of ``repro/models/api.py``) over the
-dense family (``transformer``), the ssm family (``rwkv``) and the hybrid
-family (``hybrid``).
+"""Uniform model API (counterpart of ``repro/models/api.py``) over every
+family of the JAX package: dense, moe and vlm (``transformer``), ssm
+(``rwkv``), hybrid (``hybrid``) and encdec (``encdec``).
 
 ``build_model(cfg)`` returns a :class:`Model` whose steps take the LM
 module where the JAX ``Model`` takes its parameter tree:
 
   prefill(lm, batch, cache)       fill the cache from a prompt batch
   decode_step(lm, cache, tokens)  append one token per sequence
+
+A batch holds ``tokens`` [B, S] and, for the vlm, ``vis_embeds`` [B, P, D]
+(patch embeddings put before the tokens), for the encdec ``audio_embeds``
+[B, enc_seq, D] (the encoder's frame embeddings); ``prefill_extras`` gives
+their shapes.
 
 ``init`` draws the weights (``lm_infos`` with the float32 master dtype)
 from a ``torch.Generator`` on the target device, and ``init_cache`` makes
@@ -20,18 +25,23 @@ import dataclasses
 import torch
 
 from ..configs.base import ModelConfig
-from ..configs.registry import not_ported
 from ..device import resolve_device
-from . import hybrid, rwkv, transformer
+from . import encdec, hybrid, rwkv, transformer
 from .params import ParamInfo, map_infos, materialize
 
 #: extra cache rows beyond the nominal context (decode writes at len)
 CACHE_PAD = 128
 
-#: each ported family's module (``lm_infos``, ``cache_infos``) and LM class
-FAMILIES = {"dense": (transformer, transformer.TransformerLM), "ssm": (rwkv, rwkv.RWKVLM),
-            "hybrid": (hybrid, hybrid.HybridLM)}
-LM = transformer.TransformerLM | rwkv.RWKVLM | hybrid.HybridLM
+#: each family's module (``lm_infos``, ``cache_infos``) and LM class
+FAMILIES = {"dense": (transformer, transformer.TransformerLM),
+            "moe": (transformer, transformer.TransformerLM),
+            "vlm": (transformer, transformer.TransformerLM),
+            "ssm": (rwkv, rwkv.RWKVLM),
+            "hybrid": (hybrid, hybrid.HybridLM),
+            "encdec": (encdec, encdec.EncDecLM)}
+#: the families whose LM takes patch embeddings before the tokens
+PREFIX_FAMILIES = ("dense", "moe", "vlm")
+LM = transformer.TransformerLM | rwkv.RWKVLM | hybrid.HybridLM | encdec.EncDecLM
 
 
 def _apply_param_dtype(infos, cfg):
@@ -86,17 +96,42 @@ class Model:
         cache = {k: torch.zeros(i.shape, dtype=i.dtype, device=device) for k, i in infos.items()}
         return dict(cache, len=0)
 
+    def prefill_extras(self, batch: int) -> dict[str, tuple[int, ...]]:
+        """The shapes of the inputs a prefill batch of ``batch`` sequences
+        takes besides its tokens (JAX's ``input_specs`` for a prefill)."""
+        cfg = self.cfg
+        if cfg.family == "vlm":
+            return {"vis_embeds": (batch, cfg.vis_tokens, cfg.d_model)}
+        if cfg.family == "encdec":
+            return {"audio_embeds": (batch, cfg.enc_seq, cfg.d_model)}
+        return {}
+
+    def prefix_len(self, batch: dict) -> int:
+        """Cache rows a prefill of ``batch`` writes before its tokens."""
+        if self.cfg.family in PREFIX_FAMILIES and "vis_embeds" in batch:
+            return batch["vis_embeds"].shape[1]
+        return 0
+
     # --- steps -------------------------------------------------------------
     def prefill(self, lm: LM, batch: dict, cache: dict):
-        """(last-position logits [B, 1, Vp], cache) after the prompt."""
-        return lm(batch["tokens"], cache=cache, last_only=True)
+        """(last-position logits [B, 1, Vp], cache) after the prompt and,
+        in ``batch``, the vlm's patch embeddings or the encdec's frames."""
+        tokens = batch["tokens"]
+        if self.cfg.family == "encdec":
+            return lm.prefill(tokens, batch["audio_embeds"], cache)
+        if self.cfg.family in PREFIX_FAMILIES:
+            return lm(tokens, prefix_embeds=batch.get("vis_embeds"), cache=cache,
+                      last_only=True)
+        return lm(tokens, cache=cache, last_only=True)
 
     def decode_step(self, lm: LM, cache: dict, tokens: torch.Tensor):
         """(logits [B, 1, Vp], cache) after appending tokens [B, 1]."""
+        if self.cfg.family == "encdec":
+            return lm.decode(tokens, cache=cache, last_only=True)
         return lm(tokens, cache=cache, last_only=True)
 
 
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(not_ported(cfg.family))
+        raise ValueError(f"unknown family {cfg.family!r}")
     return Model(cfg)

@@ -18,7 +18,8 @@ the ``flash_attention`` kernel and Mamba's scan through ``mamba_scan`` on
 the card, their plain versions on the CPU.
 
 The cache is the JAX one: ``k`` and ``v`` [P, n_attn, B, max_len, Hkv, dh]
-in bf16, Mamba's ``h`` [P, n_mamba, B, E, N] in float32 and ``conv``
+in bf16 (``kv_cache_dtype`` is not read: JAX's hybrid keeps a bf16 cache
+with ``'int8'`` too), Mamba's ``h`` [P, n_mamba, B, E, N] in float32 and ``conv``
 [P, n_mamba, B, d_conv - 1, E] in bf16, and ``len``, here a host ``int``.
 ``forward`` writes the new rows and states into the cache in place.
 """
@@ -77,8 +78,6 @@ def cache_infos(cfg, batch: int, max_len: int) -> dict:
     n_p = cfg.n_layers // PERIOD
     n_attn = sum(is_attn(cfg, i) for i in range(PERIOD))
     n_mamba = PERIOD - n_attn
-    if cfg.kv_cache_dtype != "bf16":
-        raise NotImplementedError(f"a {cfg.kv_cache_dtype} KV cache: {L.INT8_KV_ITEM}")
     d_inner, _, d_state = mamba.dims(cfg)
     kv = ParamInfo((n_p, n_attn, batch, max_len, cfg.n_kv_heads, cfg.d_head),
                    ("layer", None, "batch", None, "kv_heads", None), "zeros",

@@ -1,6 +1,7 @@
 """Layers of the LMs (counterpart of ``repro/models/layers.py``): norms,
-RoPE, GQA attention with a KV cache and an optional sliding window, the
-dense MLP, and the top-k routed MoE FFN.
+RoPE, GQA attention with a KV cache (bf16, or int8 codes with per-row
+scales) and an optional sliding window, cross-attention on an encoder's
+K/V, the dense MLP, and the top-k routed MoE FFN.
 
 Each layer is a plain function on tensors (``*_apply``, taking a mapping
 from the JAX parameter names to tensors, cast to the compute dtype inside
@@ -11,12 +12,15 @@ parameters with the JAX layouts (``wq`` [D, H, dh], ``wi`` [D, 2, F], ...).
 
 Attention runs through ``kernels.ops.gqa_flash_attention``: the
 hand-written CUDA kernel for CUDA tensors, its plain PyTorch version for
-CPU tensors (or wherever ``mode='torch'`` is asked for).
-``chunked_attention``, the JAX models' own attention, is kept as a plain
-function for the tests; it is not on the path. MoE is the JAX package's
-single-device path (sort-based dispatch into per-expert capacity buffers);
-its expert-parallel ``shard_map`` path is not ported. The int8 KV cache
-raises ``NotImplementedError``.
+CPU tensors (or wherever ``mode='torch'`` is asked for). That covers the
+causal self-attention of the decoders, the encoder's bidirectional
+self-attention (``causal=False, rope_on=False``) and cross-attention.
+An int8 cache is dequantized, as the JAX layer does it, into a fresh
+compute-dtype buffer of the rows the queries see, which the kernel then
+reads. ``chunked_attention``, the JAX models' own attention, is kept as a
+plain function for the tests; it is not on the path. MoE is the JAX
+package's single-device path (sort-based dispatch into per-expert capacity
+buffers); its expert-parallel ``shard_map`` path is not ported.
 """
 from __future__ import annotations
 
@@ -28,12 +32,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
-from ..kernels.flash_attention import NEG_INF
+from ..kernels.flash_attention import NEG_INF, first_visible_row
 from .params import ParamInfo
-
-#: what brings the parts of the JAX layers that the port does not have yet
-INT8_KV_ITEM = "ROADMAP Queue 1 item 10e (the int8 KV cache)"
-MOE_ITEM = "ROADMAP Queue 1 item 10d (MoE, encdec and vlm)"
 
 
 class Weights(nn.Module):
@@ -139,6 +139,22 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return apply_rope(x, *rope_tables(positions, x.shape[-1], theta))
 
 
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization per (token, head): x [B, S, H, dh] ->
+    (int8 codes [B, S, H, dh], bf16 scales [B, S, H]). The codes divide by
+    the float32 scale, rounded half to even; the scale is stored in bf16."""
+    xf = x.float()
+    scale = (xf.abs().amax(dim=-1) / 127.0).clamp_min(1e-8)
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def dequantize_kv(codes: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """codes [B, T, H, dh] int8 and scales [B, T, H] as a new tensor in
+    ``dtype``: codes.to(dtype) * scale.to(dtype), one rounding, as JAX."""
+    return codes.to(dtype) * scale.to(dtype)[..., None]
+
+
 # --- GQA attention ------------------------------------------------------------------
 
 def attention_infos(cfg) -> dict:
@@ -163,7 +179,7 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def qkv(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg, rope_cs):
     """Project to q [B, S, H, dh] and k, v [B, S, Hkv, dh] in the compute
-    dtype, with RoPE from ``rope_cs`` = (cos, sin)."""
+    dtype, with RoPE from ``rope_cs`` = (cos, sin) (none if it is None)."""
     dt = cfg.compute_dtype
     q = _project(x, p["wq"].to(dt))
     k = _project(x, p["wk"].to(dt))
@@ -172,6 +188,8 @@ def qkv(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg, rope_cs):
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
+    if rope_cs is None:
+        return q, k, v
     return apply_rope(q, *rope_cs), apply_rope(k, *rope_cs), v
 
 
@@ -219,45 +237,67 @@ def attention_apply(
     cfg,
     *,
     positions: torch.Tensor,  # [S] absolute positions of x
-    cache: dict | None = None,  # {'k': [B, T, Hkv, dh] bf16, 'v': ..., 'len': int}
+    cache: dict | None = None,  # {'k': [B, T, Hkv, dh], 'v': ..., 'len': int}
+    causal: bool = True,
+    rope_on: bool = True,
     window: int = 0,
     mode: str | None = None,
     rope_cs: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, dict | None]:
-    """Causal self-attention with RoPE and an optional KV cache:
-    (out [B, S, D], new_cache).
+    """Self-attention with RoPE and an optional KV cache: (out [B, S, D],
+    new_cache). ``causal=False, rope_on=False`` is the encoder's
+    bidirectional attention.
 
     With a cache, k and v are written in place into its rows
-    [len, len + S) (the returned cache shares the tensors) and attention
-    reads the cache's first len + S rows where they lie, with q_offset =
-    len. ``window`` > 0 is a sliding window: a query sees only the last
-    ``window`` keys up to its position. The kernel masks the rows below it
-    and starts reading at the first tile a query sees, which equals the JAX
-    layer's read of the cache's last window + S rows. ``mode`` picks the
-    kernel route ('cuda') or the plain one ('torch'); ``None`` takes 'cuda'
-    for CUDA tensors and 'torch' for CPU tensors. ``rope_cs`` reuses RoPE
-    tables of ``positions``.
+    [len, len + S) (the returned cache shares the tensors) and the queries,
+    at q_offset = len, read its first len + S rows. A bf16 cache (the
+    models' own) or a float32 one (JAX's layer writes whatever dtype the
+    cache holds) is read where it lies. An int8 cache ({'k', 'v': int8 codes, 'k_scale',
+    'v_scale': [B, T, Hkv] bf16}) takes the new rows quantized by
+    ``quantize_kv``; the rows the queries see are dequantized into a new
+    compute-dtype buffer, which the kernel reads. ``window`` > 0 is a
+    sliding window: a query sees only the last ``window`` keys up to its
+    position. The kernel masks the rows below it and starts reading at the
+    first tile a query sees, which equals the JAX layer's read of the
+    cache's last window + S rows. ``mode`` picks the kernel route ('cuda')
+    or the plain one ('torch'); ``None`` takes 'cuda' for CUDA tensors and
+    'torch' for CPU tensors. ``rope_cs`` reuses RoPE tables of
+    ``positions``.
     """
-    if rope_cs is None:
+    dt = cfg.compute_dtype
+    if not rope_on:
+        rope_cs = None
+    elif rope_cs is None:
         rope_cs = rope_tables(positions, cfg.d_head, cfg.rope_theta)
     q, k, v = qkv(p, x, cfg, rope_cs)
     if mode is None:
         mode = "cuda" if x.is_cuda else "torch"
     B, S = x.shape[:2]
     if cache is None:
-        out = ops.gqa_flash_attention(q.contiguous(), k, v, causal=True, window=window,
+        out = ops.gqa_flash_attention(q.contiguous(), k, v, causal=causal, window=window,
                                       mode=mode)
         new_cache = None
     else:
         ck, cv, idx = cache["k"], cache["v"], int(cache["len"])
-        if ck.dtype != torch.bfloat16:
-            raise NotImplementedError(f"a {ck.dtype} KV cache: {INT8_KV_ITEM}")
-        ck[:, idx:idx + S] = k
-        cv[:, idx:idx + S] = v
-        out = ops.gqa_flash_attention(q.contiguous(), ck[:, :idx + S], cv[:, :idx + S],
-                                      causal=True, q_offset=idx, window=window, mode=mode)
-        new_cache = {"k": ck, "v": cv, "len": idx + S}
-    wo = p["wo"].to(cfg.compute_dtype)
+        end = idx + S
+        new_cache = {"k": ck, "v": cv, "len": end}
+        if ck.dtype == torch.int8:
+            (ck[:, idx:end], cache["k_scale"][:, idx:end]) = quantize_kv(k)
+            (cv[:, idx:end], cache["v_scale"][:, idx:end]) = quantize_kv(v)
+            lo = first_visible_row(idx, window)  # rows below it no query sees
+            rk = dequantize_kv(ck[:, lo:end], cache["k_scale"][:, lo:end], dt)
+            rv = dequantize_kv(cv[:, lo:end], cache["v_scale"][:, lo:end], dt)
+            q_offset = idx - lo
+            new_cache.update(k_scale=cache["k_scale"], v_scale=cache["v_scale"])
+        elif ck.dtype in (torch.bfloat16, torch.float32):
+            ck[:, idx:end] = k
+            cv[:, idx:end] = v
+            rk, rv, q_offset = ck[:, :end], cv[:, :end], idx
+        else:
+            raise TypeError(f"a KV cache is bf16, float32 or int8, got {ck.dtype}")
+        out = ops.gqa_flash_attention(q.contiguous(), rk, rv, causal=causal, q_offset=q_offset,
+                                      window=window, mode=mode)
+    wo = p["wo"].to(dt)
     y = out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
     return y, new_cache
 
@@ -267,9 +307,56 @@ class Attention(Weights):
         super().__init__(params, cfg.compute_dtype)
         self.cfg = cfg
 
-    def forward(self, x, *, positions, cache=None, mode=None, rope_cs=None):
+    def forward(self, x, *, positions, cache=None, causal=True, rope_on=True, mode=None,
+                rope_cs=None):
         return attention_apply(self.c, x, self.cfg, positions=positions, cache=cache,
-                               window=self.cfg.sliding_window, mode=mode, rope_cs=rope_cs)
+                               causal=causal, rope_on=rope_on, window=self.cfg.sliding_window,
+                               mode=mode, rope_cs=rope_cs)
+
+
+def encoder_kv(p: Mapping[str, torch.Tensor], enc_out: torch.Tensor,
+               cfg) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K, V [B, T_enc, Hkv, dh] in the compute dtype from the
+    encoder output [B, T_enc, D] (computed once, at the prefill)."""
+    dt = cfg.compute_dtype
+    k = _project(enc_out, p["wk"].to(dt))
+    v = _project(enc_out, p["wv"].to(dt))
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    return k, v
+
+
+def cross_attention_apply(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg,
+                          enc_kv: tuple[torch.Tensor, torch.Tensor], *,
+                          mode: str | None = None) -> torch.Tensor:
+    """Cross-attention of x [B, S, D] (no RoPE) on the encoder's K, V
+    [B, T_enc, Hkv, dh]: every query sees every encoder row. The K, V may
+    be the bf16 cache's rows under a float32 q (the kernel reads them as
+    they are; JAX casts them to float32, which changes no value)."""
+    dt = cfg.compute_dtype
+    q = _project(x, p["wq"].to(dt))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+    if mode is None:
+        mode = "cuda" if x.is_cuda else "torch"
+    k, v = enc_kv
+    out = ops.gqa_flash_attention(q.contiguous(), k, v, causal=False, mode=mode)
+    wo = p["wo"].to(dt)
+    B, S = x.shape[:2]
+    return out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+class CrossAttention(Weights):
+    def __init__(self, cfg, params: Mapping[str, torch.Tensor]):
+        super().__init__(params, cfg.compute_dtype)
+        self.cfg = cfg
+
+    def kv(self, enc_out: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        return encoder_kv(self.c, enc_out, self.cfg)
+
+    def forward(self, x, enc_kv, *, mode=None):
+        return cross_attention_apply(self.c, x, self.cfg, enc_kv, mode=mode)
 
 
 # --- dense MLP ------------------------------------------------------------------------
@@ -346,6 +433,14 @@ def _dispatch_tokens(tokens: torch.Tensor, expert_idx: torch.Tensor, gate_w: tor
       buf   [..., E, C, D]  tokens gathered per expert (capacity-truncated)
       meta  (src [..., E, C] token index or -1, w [..., E, C] float32 gate weight)
     """
+    buf, meta, _ = _dispatch(tokens, expert_idx, gate_w, E, C)
+    return buf, meta
+
+
+def _dispatch(tokens, expert_idx, gate_w, E: int, C: int):
+    """``_dispatch_tokens``, and the slot of each (token, k) choice:
+    [G, N * K] indices into the flattened [E * C] slots, E * C where the
+    choice was dropped."""
     *lead, N, K = expert_idx.shape
     D = tokens.shape[-1]
     G = math.prod(lead)
@@ -367,7 +462,8 @@ def _dispatch_tokens(tokens: torch.Tensor, expert_idx: torch.Tensor, gate_w: tor
     rows = tokens.reshape(G, N, D).gather(1, src.clamp_min(0)[..., None].expand(G, E * C, D))
     buf = torch.where(src[..., None] >= 0, rows, 0.0)
     return (buf.reshape(*lead, E, C, D),
-            (src.reshape(*lead, E, C), w.reshape(*lead, E, C)))
+            (src.reshape(*lead, E, C), w.reshape(*lead, E, C)),
+            torch.empty_like(slot).scatter_(1, order, slot))
 
 
 def _experts(p: Mapping[str, torch.Tensor], buf: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
@@ -392,8 +488,13 @@ def moe_apply(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg, *,
 
     The router runs in float32 on the float32 cast of x (JAX's einsum
     promotes x); gate weights are renormalised over the top k. The combine
-    adds at most top-k contributions per token onto zeros in the compute
-    dtype, so its order does not change the result.
+    adds each token's kept contributions onto zeros in the order of their
+    experts' ids, each sum rounded to the compute dtype: the order of the
+    capacity slots, in which the JAX package's scatter-add visits them. It
+    gathers the contributions, so it is the same on every device and run;
+    an ``index_add_`` would add in the order of the card's atomics, and on
+    the CPU accumulates bf16 in float32 (both differ from JAX once top k
+    exceeds 2).
     """
     B, S, D = x.shape
     E, K = cfg.moe_experts, cfg.moe_topk
@@ -410,15 +511,19 @@ def moe_apply(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg, *,
             gate_w.reshape(1, B * S, K)
     else:
         raise ValueError(f"group must be seq|batch, got {group!r}")
-    buf, (src, w) = _dispatch_tokens(tok, eidx, gw, E, C)  # [G, E, C, D]
+    buf, _, slot = _dispatch(tok, eidx, gw, E, C)  # [G, E, C, D]
     out = _experts(p, buf.to(dt), dt)
     G = out.shape[0]
-    flat = (out * w[..., None].to(dt)).reshape(G, E * C, D)
-    srcf = src.reshape(G, E * C)
-    flat = torch.where(srcf[..., None] >= 0, flat, 0.0)
-    rows = srcf.clamp_min(0) + n_tok * torch.arange(G, device=x.device)[:, None]
-    y = torch.zeros((G * n_tok, D), dtype=dt, device=x.device)
-    y.index_add_(0, rows.reshape(-1), flat.reshape(G * E * C, D))
+    # each token's slots in ascending order, which is its experts' order
+    # (the dropped, E * C, last), and their gate weights, 0 where dropped
+    slot, by_slot = slot.view(G, n_tok, K).sort(dim=-1)
+    w = torch.where(slot < E * C, gw.reshape(G, n_tok, K).gather(-1, by_slot), 0.0).to(dt)
+    parts = out.reshape(G, E * C, D).gather(
+        1, slot.clamp_max(E * C - 1).view(G, n_tok * K, 1).expand(G, n_tok * K, D))
+    parts = parts.view(G, n_tok, K, D) * w[..., None]
+    y = parts[:, :, 0]
+    for j in range(1, K):
+        y = y + parts[:, :, j]
     return y.reshape(B, S, D)
 
 

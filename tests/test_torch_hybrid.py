@@ -36,7 +36,7 @@ from repro.models import layers as JL
 from repro.models import mamba as JM
 from repro.models import materialize as jax_materialize
 from repro_torch.configs import get_config
-from repro_torch.convert import hybrid_cache_from_numpy, lm_params_from_numpy
+from repro_torch.convert import cache_from_numpy, lm_params_from_numpy, tensor_from_numpy
 from repro_torch.kernels import flash_attention as kf
 from repro_torch.kernels import mamba_scan as km
 from repro_torch.launch import serve
@@ -129,10 +129,9 @@ def test_windowed_attention_decode_matches_jax_slicing(S):
     want, wc = JL.attention_apply(jp, jnp.asarray(x), jcfg, positions=jnp.asarray(pos),
                                   cache={"k": jnp.asarray(kv[0]), "v": jnp.asarray(kv[1]),
                                          "len": jnp.int32(L)}, window=WINDOW)
-    tc = hybrid_cache_from_numpy({"k": kv[0], "v": kv[1], "h": np.zeros(1), "conv": np.zeros(1),
-                                  "len": L}, device="cpu")
+    tc = {"k": tensor_from_numpy(kv[0], "cpu"), "v": tensor_from_numpy(kv[1], "cpu"), "len": L}
     got, gc = TL.attention_apply(tp, torch.from_numpy(x), tcfg, positions=torch.from_numpy(pos),
-                                 cache={"k": tc["k"], "v": tc["v"], "len": L}, window=WINDOW)
+                                 cache=tc, window=WINDOW)
     assert _gap(got, want) <= F32_TOL and gc["len"] == L + S
     for name in ("k", "v"):
         np.testing.assert_array_equal(gc[name].view(torch.int16).numpy(),
@@ -146,7 +145,7 @@ def f32_runs():
     """JAX and the port at float32 compute on the same weights (the port's
     init, seed 0) and tokens, a window of 8: the full forward over 19
     tokens; the prefill of 16 from a zero cache; then three decode steps,
-    each from JAX's cache carried across (``hybrid_cache_from_numpy``)."""
+    each from JAX's cache carried across (``cache_from_numpy``)."""
     jcfg, tcfg = _configs("float32", sliding_window=WINDOW)
     params = _port_params(tcfg, 0)
     jm = jax_build(jcfg)
@@ -164,7 +163,8 @@ def f32_runs():
     decode = jax.jit(jm.decode_step)
     out["decode"] = []
     for t in range(S, S + n):
-        carried = hybrid_cache_from_numpy(jax.tree_util.tree_map(np.asarray, jc), device="cpu")
+        carried = cache_from_numpy(tcfg, jax.tree_util.tree_map(np.asarray, jc), batch=B,
+                                   max_len=S + n, device="cpu")
         before = carried["conv"].clone()
         tl, tc = tm.decode_step(lm, carried, torch.from_numpy(toks[:, t:t + 1]))
         jl, jc = decode(jp, jc, jnp.asarray(toks[:, t:t + 1]))
@@ -468,8 +468,8 @@ def test_convert_and_cache_layout():
         lm_params_from_numpy(tcfg, dict(params, periods=dict(
             params["periods"], sub0=dict(params["periods"]["sub0"], mamba=sub))), device="cpu")
     with pytest.raises(KeyError, match="conv"):
-        hybrid_cache_from_numpy({"k": np.zeros(1), "v": np.zeros(1), "h": np.zeros(1),
-                                 "len": 0}, device="cpu")
+        cache_from_numpy(tcfg, {"k": np.zeros(1), "v": np.zeros(1), "h": np.zeros(1),
+                                "len": 0}, batch=3, max_len=10, device="cpu")
     jcache = jax_materialize(jm.cache_infos(3, 10), jax.random.PRNGKey(0))
     cache = build_model(tcfg).init_cache(3, 10, device="cpu")
     assert cache["len"] == 0 and set(cache) == {"k", "v", "h", "conv", "len"}

@@ -22,10 +22,11 @@ from repro.models import layers as JL
 from repro.models import materialize as jax_materialize
 from repro.models import transformer as JT
 from repro_torch.configs import get_config
-from repro_torch.convert import kv_cache_from_numpy, lm_params_from_numpy, tensor_from_numpy
+from repro_torch.convert import lm_params_from_numpy, tensor_from_numpy
 from repro_torch.distributed.serve_step import greedy_generate
 from repro_torch.launch import serve
 from repro_torch.models import build_model, materialize
+from repro_torch.models import encdec as TE
 from repro_torch.models import layers as TL
 from repro_torch.models import hybrid as TH
 from repro_torch.models import rwkv as TR
@@ -111,8 +112,8 @@ def test_attention_apply_matches_jax(arch, cached, compute):
         kv[:, :, idx + S:] = 1e4
         jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in kv)
         jcache = {"k": jk, "v": jv, "len": jnp.int32(idx)}
-        tcache = kv_cache_from_numpy({"k": np.asarray(jk), "v": np.asarray(jv), "len": idx},
-                                     device="cpu")
+        tcache = {"k": tensor_from_numpy(np.asarray(jk), "cpu"),
+                  "v": tensor_from_numpy(np.asarray(jv), "cpu"), "len": idx}
     want, jnew = JL.attention_apply(jp, jx, jcfg, positions=jnp.asarray(pos), cache=jcache)
     got, tnew = TL.attention_apply(tp, tx, tcfg, positions=torch.from_numpy(pos), cache=tcache)
     assert got.dtype == tcfg.compute_dtype and tuple(got.shape) == (B, S, jcfg.d_model)
@@ -325,10 +326,10 @@ def test_param_declarations_and_init_rules_match_jax():
 
 
 def test_other_families_and_options_raise():
-    """The dense family, rwkv6 (family ssm) and jamba (family hybrid) are
-    ported, and the dense LM takes a sliding window; the other families'
-    ids and families, MoE on the dense LM and the int8 cache raise, naming
-    the ROADMAP item that brings them."""
+    """Every family is ported: the dense family, rwkv6 (family ssm), jamba
+    (family hybrid), the MoE archs, whisper (encdec) and internvl (vlm)
+    build, MoE layers on the dense LM and the int8 cache too; the dense LM
+    takes a sliding window. An unknown arch id or family raises."""
     _, tcfg = _configs("tinyllama-1.1b")
     rwkv = get_config("rwkv6-7b")
     assert rwkv.family == "ssm" and (rwkv.n_layers, rwkv.d_model) == (32, 4096)
@@ -343,24 +344,27 @@ def test_other_families_and_options_raise():
     assert isinstance(hybrid_lm, TH.HybridLM)
     logits, _ = hybrid_lm(torch.zeros(1, 4, dtype=torch.long))
     assert tuple(logits.shape) == (1, 4, 256) and bool(torch.isfinite(logits.float()).all())
-    for arch, item in (("kimi-k2-1t-a32b", "10d"), ("whisper-medium", "10d"),
-                       ("internvl2-2b", "10d")):
-        with pytest.raises(KeyError, match=f"ROADMAP Queue 1 item {item}"):
-            get_config(arch)
+    for arch, family in (("moonshot-v1-16b-a3b", "moe"), ("kimi-k2-1t-a32b", "moe"),
+                         ("whisper-medium", "encdec"), ("internvl2-2b", "vlm")):
+        assert get_config(arch).family == family
+        lm = build_model(get_config(arch, smoke=True)).init(device="cpu")
+        assert isinstance(lm, TE.EncDecLM if family == "encdec" else TT.TransformerLM)
     with pytest.raises(KeyError, match="unknown"):
         get_config("gpt-5")
-    for family, item in (("moe", "10d"), ("encdec", "10d"), ("vlm", "10d")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            build_model(dataclasses.replace(tcfg, family=family))
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(dataclasses.replace(tcfg, family="diffusion"))
     assert isinstance(build_model(dataclasses.replace(tcfg, family="hybrid", n_layers=8,
                                                       moe_experts=0)).init(device="cpu"),
                       TH.HybridLM)
-    with pytest.raises(NotImplementedError, match="item 10d"):
-        build_model(dataclasses.replace(tcfg, moe_experts=4)).param_infos()
-    for cfg in (tcfg, smoke):
-        with pytest.raises(NotImplementedError, match="item 10e"):
-            build_model(dataclasses.replace(cfg, kv_cache_dtype="int8")).init_cache(
-                1, 4, device="cpu")
+    moe_lm = build_model(dataclasses.replace(tcfg, moe_experts=4, moe_topk=2,
+                                             moe_dff=32)).init(device="cpu")
+    assert all(hasattr(layer, "moe") and not hasattr(layer, "mlp") for layer in moe_lm.layers)
+    int8 = build_model(dataclasses.replace(tcfg, kv_cache_dtype="int8")).init_cache(
+        1, 4, device="cpu")
+    assert int8["k"].dtype == torch.int8 and int8["k_scale"].dtype == torch.bfloat16
+    hybrid_int8 = build_model(dataclasses.replace(smoke, kv_cache_dtype="int8")).init_cache(
+        1, 4, device="cpu")
+    assert hybrid_int8["k"].dtype == torch.bfloat16  # JAX's hybrid keeps a bf16 cache
     # the windowed dense LM runs: its first 8 positions see what the full
     # attention sees, the later ones do not
     windowed = dataclasses.replace(tcfg, sliding_window=8)

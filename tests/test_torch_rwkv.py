@@ -25,7 +25,7 @@ from repro.models import build_model as jax_build
 from repro.models import materialize as jax_materialize
 from repro.models import rwkv as JR
 from repro_torch.configs import get_config
-from repro_torch.convert import lm_params_from_numpy, rwkv_cache_from_numpy
+from repro_torch.convert import cache_from_numpy, lm_params_from_numpy, tensor_from_numpy
 from repro_torch.distributed.serve_step import greedy_generate
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
@@ -98,8 +98,8 @@ def _state(jcfg, B, rng):
     st, sc = (np.asarray(jnp.asarray(rng.normal(size=(B, jcfg.d_model)), jnp.bfloat16))
               for _ in range(2))
     return ({"wkv": jnp.asarray(wkv), "shift_t": jnp.asarray(st), "shift_c": jnp.asarray(sc)},
-            rwkv_cache_from_numpy({"wkv": wkv, "shift_t": st, "shift_c": sc, "len": 0},
-                                  device="cpu"))
+            {"wkv": tensor_from_numpy(wkv, "cpu"), "shift_t": tensor_from_numpy(st, "cpu"),
+             "shift_c": tensor_from_numpy(sc, "cpu"), "len": 0})
 
 
 @pytest.mark.parametrize("stateful", [False, True])
@@ -188,7 +188,7 @@ def test_lm_float32_logits_and_cache_match_jax():
 
 
 def test_decode_from_a_jax_prefill_state_matches_jax():
-    """The JAX prefill's cache carried across (``rwkv_cache_from_numpy``):
+    """The JAX prefill's cache carried across (``cache_from_numpy``):
     three port decode steps from it give JAX's logits and states."""
     jcfg, tcfg = _configs()
     jm, params, params_np = _jax_params(jcfg, 2)
@@ -196,7 +196,8 @@ def test_decode_from_a_jax_prefill_state_matches_jax():
     toks = np.random.default_rng(2).integers(0, jcfg.vocab, (B, S + n)).astype(np.int32)
     cache = jax_materialize(jm.cache_infos(B, S + n), jax.random.PRNGKey(2))
     _, jc = jax.jit(jm.prefill)(params, {"tokens": jnp.asarray(toks[:, :S])}, cache)
-    tc = rwkv_cache_from_numpy(jax.tree_util.tree_map(np.asarray, jc), device="cpu")
+    tc = cache_from_numpy(tcfg, jax.tree_util.tree_map(np.asarray, jc), batch=B, max_len=S + n,
+                          device="cpu")
     assert tc["len"] == S and tc["shift_t"].dtype == torch.bfloat16
     tm, lm = build_model(tcfg), lm_params_from_numpy(tcfg, params_np, device="cpu")
     decode = jax.jit(jm.decode_step)
@@ -320,8 +321,8 @@ def test_convert_checks_keys_and_shapes():
     with pytest.raises(ValueError, match="time/bonus"):
         lm_params_from_numpy(tcfg, dict(p, layers=dict(p["layers"], time=wrong)), device="cpu")
     with pytest.raises(KeyError, match="shift_c"):
-        rwkv_cache_from_numpy({"wkv": np.zeros(1), "shift_t": np.zeros(1), "len": 0},
-                              device="cpu")
+        cache_from_numpy(tcfg, {"wkv": np.zeros(1), "shift_t": np.zeros(1), "len": 0},
+                         batch=3, max_len=10, device="cpu")
     cache = build_model(tcfg).init_cache(3, 10, device="cpu")
     assert cache["len"] == 0 and set(cache) == {"wkv", "shift_t", "shift_c", "len"}
     assert tuple(cache["wkv"].shape) == (2, 3, 4, 16, 16) and cache["wkv"].dtype == torch.float32

@@ -16,8 +16,7 @@ from repro.core import Workload as JaxWorkload
 from repro.core.units import KB, MB
 from repro.launch.serve import admission_check as jax_admission_check
 from repro_torch.configs import get_config
-from repro_torch.convert import (hybrid_cache_from_numpy, kv_cache_from_numpy,
-                                 lm_params_from_numpy, rwkv_cache_from_numpy)
+from repro_torch.convert import cache_from_numpy, lm_params_from_numpy
 from repro_torch.core import H100_HOST, TPU_V5E_HOST
 from repro_torch.distributed.serve_step import greedy_generate, make_serve_steps
 from repro_torch.kernels import flash_attention as kf
@@ -37,7 +36,7 @@ def test_main_on_cpu_is_deterministic_and_greedy():
     torch.testing.assert_close(serve.main(ARGS + ["--device", "cpu"]), gen, rtol=0, atol=0)
     # the same weights and prompts through the library's greedy loop
     cfg = get_config("tinyllama-1.1b", smoke=True)
-    model, lm, prompts = serve.prepare(cfg, requests=2, prompt_len=16, device="cpu")
+    model, lm, prompts, _ = serve.prepare(cfg, requests=2, prompt_len=16, device="cpu")
     toks, cache = greedy_generate(model, lm, {"tokens": prompts},
                                   model.init_cache(2, 24, device="cpu"), 8)
     assert torch.equal(toks, gen) and cache["len"] == 23
@@ -58,7 +57,7 @@ def test_main_serves_rwkv_on_cpu():
     assert bool(((gen >= 0) & (gen < 256)).all())
     assert torch.equal(serve.main(RWKV_ARGS), gen)
     cfg = get_config("rwkv6-7b", smoke=True)
-    model, lm, prompts = serve.prepare(cfg, requests=2, prompt_len=16, device="cpu")
+    model, lm, prompts, _ = serve.prepare(cfg, requests=2, prompt_len=16, device="cpu")
     toks, cache = greedy_generate(model, lm, {"tokens": prompts},
                                   model.init_cache(2, 24, device="cpu"), 8)
     assert torch.equal(toks, gen) and cache["len"] == 23
@@ -84,7 +83,7 @@ def test_main_serves_jamba_on_cpu():
     assert bool(((gen >= 0) & (gen < 256)).all())
     assert torch.equal(serve.main(JAMBA_ARGS), gen)
     cfg = get_config("jamba-v0.1-52b", smoke=True)
-    model, lm, prompts = serve.prepare(cfg, requests=2, prompt_len=16, device="cpu")
+    model, lm, prompts, _ = serve.prepare(cfg, requests=2, prompt_len=16, device="cpu")
     toks, cache = greedy_generate(model, lm, {"tokens": prompts},
                                   model.init_cache(2, 24, device="cpu"), 8)
     assert torch.equal(toks, gen) and cache["len"] == 23
@@ -99,7 +98,7 @@ def test_main_serves_jamba_on_cpu():
 
 def test_generate_keeps_logits_and_times():
     cfg = get_config("llama3.2-3b", smoke=True)
-    model, lm, prompts = serve.prepare(cfg, requests=3, prompt_len=5, seed=2, device="cpu")
+    model, lm, prompts, _ = serve.prepare(cfg, requests=3, prompt_len=5, seed=2, device="cpu")
     run = serve.generate(model, lm, prompts, 4, keep_logits=True)
     assert tuple(run.tokens.shape) == (3, 4) and len(run.decode_s) == 3 and run.prefill_s > 0
     assert len(run.logits) == 4 and tuple(run.logits[0].shape) == (3, 256)
@@ -166,7 +165,7 @@ def test_hosts():
 
 def test_sampling_draws_from_the_generator():
     cfg = get_config("tinyllama-1.1b", smoke=True)
-    model, lm, prompts = serve.prepare(cfg, requests=2, prompt_len=4, device="cpu")
+    model, lm, prompts, _ = serve.prepare(cfg, requests=2, prompt_len=4, device="cpu")
     _, decode_step = make_serve_steps(model)
     draws = []
     for _ in range(2):
@@ -192,13 +191,16 @@ def test_serving_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         lambda: serve.prepare(cfg, requests=1, prompt_len=4),
         lambda: serve.main(ARGS),
         lambda: lm_params_from_numpy(cfg, {}),
-        lambda: kv_cache_from_numpy({"k": np.zeros(1), "v": np.zeros(1), "len": 0}),
-        lambda: rwkv_cache_from_numpy({"wkv": np.zeros(1), "shift_t": np.zeros(1),
-                                       "shift_c": np.zeros(1), "len": 0}),
+        lambda: cache_from_numpy(cfg, {"k": np.zeros(1), "v": np.zeros(1), "len": 0},
+                                 batch=1, max_len=4),
+        lambda: cache_from_numpy(get_config("rwkv6-7b", smoke=True),
+                                 {"wkv": np.zeros(1), "shift_t": np.zeros(1),
+                                  "shift_c": np.zeros(1), "len": 0}, batch=1, max_len=4),
         lambda: build_model(get_config("rwkv6-7b", smoke=True)).init_cache(1, 4),
         lambda: serve.main(RWKV_ARGS[:-2]),
-        lambda: hybrid_cache_from_numpy({"k": np.zeros(1), "v": np.zeros(1), "h": np.zeros(1),
-                                         "conv": np.zeros(1), "len": 0}),
+        lambda: cache_from_numpy(get_config("jamba-v0.1-52b", smoke=True),
+                                 {"k": np.zeros(1), "v": np.zeros(1), "h": np.zeros(1),
+                                  "conv": np.zeros(1), "len": 0}, batch=1, max_len=4),
         lambda: build_model(get_config("jamba-v0.1-52b", smoke=True)).init(),
         lambda: serve.main(JAMBA_ARGS[:-2]),
     ]

@@ -33,8 +33,8 @@ def main() -> int:
     from repro_torch.launch import serve
 
     windows = int(sys.argv[1]) if len(sys.argv) > 1 else 40
-    model, lm, prompts = serve.prepare(cs.jamba_served(), requests=8, prompt_len=512,
-                                       seed=cs.SEED, device=torch.device("cuda"))
+    model, lm, prompts, _ = serve.prepare(cs.jamba_served(), requests=8, prompt_len=512,
+                                          seed=cs.SEED, device=torch.device("cuda"))
     serve.generate(model, lm, prompts, 2)  # warm-up: the builds, cuBLAS, the allocator
     rows = []
     for i in range(windows):
