@@ -702,11 +702,6 @@ def device_busy(fn, names=SCORE_KERNELS) -> tuple[float, dict, float, int]:
     return seconds(kernels), named, wall, len(kernels)
 
 
-#: profiled windows of one ``device_busy_counted`` call at most: the first,
-#: then a rerun if its trace missed a launch the wrappers counted
-PROFILE_WINDOWS = 2
-
-
 def device_busy_counted(fn, names, counted, reset) -> tuple[float, dict, float, int, dict]:
     """``device_busy`` of ``fn`` with the wrappers' launch counts taken
     afresh (``reset`` zeroes them, ``counted`` reads them by kernel name),
@@ -715,33 +710,24 @@ def device_busy_counted(fn, names, counted, reset) -> tuple[float, dict, float, 
     one; and in some runs every window of the rwkv6-7b decode and of the
     jamba prefill and decode lost exactly one scan launch, where the same
     jamba window profiled in a process of its own lost none
-    (``tools/profiler_loss.py``). So a window whose trace missed a counted
-    launch runs once more (more reruns cost minutes in the runs where every
-    window loses one); ``kernel_shares`` then reads the last window."""
-    import gc
-
-    import torch
-
-    for i in range(PROFILE_WINDOWS):
-        if i:
-            gc.collect()
-            torch.cuda.synchronize()
-            time.sleep(0.2)
-        reset()
-        busy, named, wall, n = device_busy(fn, names)
-        want = counted()
-        lost = {name: (named[name][1], k) for name, k in want.items() if named[name][1] != k}
-        if not lost:
-            break
-        print(f"chip_smoke: profiled window {i + 1} of {PROFILE_WINDOWS}: the trace saw "
-              f"(launches, counted) {lost} in {n} device kernels", file=sys.stderr)
+    (``tools/profiler_loss.py``). A window is not rerun: in a whole run on
+    an H100 the rerun of a window that had lost records lost them again in
+    6 of 7 windows, at up to ~40 s a window; ``kernel_shares`` reports such
+    a window's shares as not measured."""
+    reset()
+    busy, named, wall, n = device_busy(fn, names)
+    want = counted()
+    lost = {name: (named[name][1], k) for name, k in want.items() if named[name][1] != k}
+    if lost:
+        print(f"chip_smoke: the profiled window's trace saw (launches, counted) {lost} in {n} "
+              f"device kernels", file=sys.stderr)
     return busy, named, wall, n, want
 
 
 def kernel_shares(busy: float, named: dict, wall: float, counted: dict, label: str) -> str:
     """The profiled shares as text. Fails if the trace saw a kernel more
-    often than its wrapper counted launches. Where it saw one less often in
-    each of ``device_busy_counted``'s windows, the trace lost records: the
+    often than its wrapper counted launches. Where it saw one less often,
+    the trace lost records: the
     shares are then not measured (the wrappers' counts, which the phases
     check, stand), and the busy share is a lower bound."""
     if busy <= 0:
@@ -752,8 +738,8 @@ def kernel_shares(busy: float, named: dict, wall: float, counted: dict, label: s
     short = {name: (n, counted[name]) for name, (_, n) in named.items() if n < counted[name]}
     if short:
         return (f"device busy at least {100 * busy / wall:.2f} % of the wall; kernel shares not "
-                f"measured: in each of {PROFILE_WINDOWS} profiled windows the trace lost "
-                f"records, the last saw (launches, counted) {short}")
+                f"measured: the profiled window's trace lost records, it saw (launches, "
+                f"counted) {short}")
     parts = [f"device busy {100 * busy / wall:.2f} % of the wall"]
     for name, (sec, n) in named.items():
         if n == 0:
@@ -1568,16 +1554,31 @@ def kernel_tape(tape: list):
 
 def check_tape(tape: list, label: str) -> dict:
     """Each recorded launch against its plain version on the same inputs:
-    bitwise for cusum_scan, equal outputs for fleet_actions. Returns the
-    launches checked and the largest difference seen, by entry."""
+    bitwise for cusum_scan, equal outputs for fleet_actions. The fleet_actions
+    plain loops make ~25 small ops per server, each a launch on the card
+    (about a minute for the pair at m 14504), so they run on CPU copies of
+    the inputs: they only compare, count and move values, which gives the
+    same outputs on either device. Returns the launches checked and the
+    largest difference seen, by entry."""
     import torch
     from repro_torch.kernels import cusum as kcu
     from repro_torch.kernels import fleet_actions as kfa
+
+    def on_cpu(a):
+        if isinstance(a, torch.Tensor):
+            return a.cpu()
+        if isinstance(a, dict):
+            return {k: on_cpu(v) for k, v in a.items()}
+        if isinstance(a, tuple):  # the args, or a named tuple of tensors
+            return type(a)(*map(on_cpu, a)) if hasattr(a, "_fields") else tuple(map(on_cpu, a))
+        return a
 
     plain = {"cusum": kcu.cusum_scan_torch, "split": kfa.split_loop_torch,
              "evict": kfa.evict_loop_torch}
     checked, err = collections.Counter(), collections.Counter()
     for i, (entry, args, kwargs, got) in enumerate(tape):
+        if entry != "cusum":
+            args, kwargs, got = map(on_cpu, (args, kwargs, got))
         want = plain[entry](*args, **kwargs)
         for name, a, b in zip(type(got)._fields, got, want):
             gap = float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
@@ -4648,6 +4649,406 @@ def phase_serve_vlm(device, smoke: bool = False, requests: int = 8, prompt_len: 
     return out
 
 
+#: phase 22's cut for the checks that compare runs (card against CPU,
+#: microbatches, resume): the published widths at this depth
+TRAIN_CHECK_LAYERS = 2
+#: the attention gradient at the training shape, bf16: the Function's dq,
+#: dk, dv (a bf16 chunked backward: scores and weights rounded to bf16, as
+#: JAX's) against autograd through the kernel's plain version (float32
+#: scores), each as a share of the plain gradient's largest |.|: a few bf16
+#: ulps (2 ** -8 = 0.0039), FLASH_TOL's bf16 limit for the forward
+TRAIN_GRAD_TOL = 2e-2
+#: ... and both against a float64 witness on one batch row and kv head
+TRAIN_GRAD64_TOL = 2e-2
+#: card against CPU and microbatches, float32 compute: the loss (relative),
+#: the grad norm (relative), m after one step (= 0.1 x the clipped
+#: gradient; of each leaf's largest |.|)
+TRAIN_F32_TOL = {"loss": 1e-5, "grad_norm": 1e-5, "m": 2e-5}
+# Masters after one float32 step, two runs apart, in units of lr: Adam's
+# first update moves an entry by ~lr g / (|g| + eps), so entries with |g|
+# near eps and the runs' rounding noise near |g| differ most; on an H100
+# the card against the CPU read 0.082 lr, two microbatches against one 0.0705.
+TRAIN_MASTER_LR = 0.5
+
+
+def train_pipe(cfg, batch: int, seq: int, state=None):
+    """The training pipeline of ``launch.train`` (its store), from ``state``
+    (a cursor) or the start."""
+    from repro_torch.data import TokenPipeline, synthetic_store
+
+    pipe = TokenPipeline(synthetic_store(n_files=2, file_mb=64, block_mb=8), vocab=cfg.vocab,
+                         batch=batch, seq_len=seq)
+    if state is not None:
+        pipe.load_state_dict(state)
+    return pipe
+
+
+def on_device(b: dict, device) -> dict:
+    import torch
+
+    return {k: torch.as_tensor(v).to(device) for k, v in b.items()}
+
+
+def master_gap(got, want, lr: float) -> tuple[float, int, int]:
+    """(largest |got - want| over every master, in units of lr; entries
+    further apart than 1e-2 lr; entries compared). After Adam's first step
+    d = g / (|g| + eps) per entry, an entry whose gradient lies within the
+    two runs' rounding noise of 0 may move up to 2 lr apart; one whose |g|
+    is near eps and the noise near |g| moves a fraction of lr."""
+    from repro_torch.tree import leaves
+
+    worst, far, n = 0.0, 0, 0
+    for a, b in zip(leaves(got), leaves(want)):
+        d = (a.double() - b.to(a.device).double()).abs()
+        worst = max(worst, float(d.max()) / lr)
+        far += int((d > 1e-2 * lr).sum())
+        n += d.numel()
+    return worst, far, n
+
+
+def leaf_gap(got, want) -> float:
+    """Largest |got - want| of each leaf over its largest |want|, worst leaf
+    (on ``got``'s device)."""
+    from repro_torch.tree import leaves
+
+    return max(float((a.double() - b.to(a.device).double()).abs().max())
+               / max(float(b.double().abs().max()), 1e-30)
+               for a, b in zip(leaves(got), leaves(want)))
+
+
+def check_f32_step(tag: str, label: str, got, want, lr: float, n_far: float = 1e-5) -> dict:
+    """Two float32 train steps from the same state (``got``/``want``: the
+    (params, opt_state, metrics) each returned) within TRAIN_F32_TOL: loss,
+    grad norm, m (the gradient, clipped, times 0.1), v; the masters within
+    TRAIN_MASTER_LR lr and at most ``n_far`` of them further than 1e-2 lr
+    apart."""
+    (p1, o1, m1), (p0, o0, m0) = got, want
+    gaps = {k: abs(float(m1[k]) - float(m0[k])) / abs(float(m0[k])) for k in ("loss", "grad_norm")}
+    gaps["m"] = leaf_gap(o1["m"], o0["m"])
+    gaps["v"] = leaf_gap(o1["v"], o0["v"])
+    worst, far, n = master_gap(p1, p0, lr)
+    for k, tol in TRAIN_F32_TOL.items():
+        check(gaps[k] <= tol, f"{tag} {label}: {k} {gaps[k]:.3g} apart (tol {tol})")
+    check(gaps["v"] <= 2 * TRAIN_F32_TOL["m"], f"{tag} {label}: v {gaps['v']:.3g} apart")
+    check(worst <= TRAIN_MASTER_LR and far <= n_far * n,
+          f"{tag} {label}: masters up to {worst:.3g} lr apart, {far} of {n} beyond 1e-2 lr")
+    print(f"[{tag}] {label}: loss {float(m1['loss']):.6f} vs {float(m0['loss']):.6f} "
+          f"(rel {gaps['loss']:.3g}), grad norm rel {gaps['grad_norm']:.3g}, m {gaps['m']:.3g} "
+          f"and v {gaps['v']:.3g} of their scale, masters up to {worst:.3g} lr apart with "
+          f"{far} of {n} entries beyond 1e-2 lr (tol {TRAIN_F32_TOL}, masters "
+          f"{TRAIN_MASTER_LR} lr)")
+    return dict(gaps, master_lr=worst, master_far=far)
+
+
+def attention_f64(q, k, v, causal: bool = True):
+    """Model-layout GQA attention in float64, differentiable: the witness."""
+    import math
+
+    import torch
+
+    B, S, H, dh = q.shape
+    Hkv = k.shape[2]
+    qf = q.reshape(B, S, Hkv, H // Hkv, dh)
+    s = torch.einsum("bqhgd,bthd->bhgqt", qf, k) / math.sqrt(dh)
+    if causal:
+        keep = torch.ones(S, k.shape[1], dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    return torch.einsum("bhgqt,bthd->bqhgd", torch.softmax(s, -1), v).reshape(B, S, H, dh)
+
+
+def train_attention_grad(tag: str, cfg, B: int, S: int, device) -> dict:
+    """One layer's attention at the training shape (bf16, causal) with a
+    gradient: the Function (kernel forward, chunked plain backward) against
+    autograd through the kernel's plain version on the same inputs and
+    output gradient (out within FLASH_TOL, dq, dk, dv within
+    TRAIN_GRAD_TOL of the plain gradient's scale), both against a float64
+    witness on batch row 0 and kv head 0 (its query group); the kernel's
+    forward row at this shape (``flash_row``: ms, plain, SDPA, bound) and
+    the forward + backward ms of the Function, the plain version and SDPA.
+    Returns the numbers and the forward row."""
+    import torch
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.models.layers import FlashAttention
+
+    H, Hkv, dh, chunk = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.attn_chunk
+    gen = torch.Generator(device).manual_seed(SEED + 22)
+    q = torch.randn(B, S, H, dh, generator=gen, device=device).bfloat16()
+    k, v = (torch.randn(B, S, Hkv, dh, generator=gen, device=device).bfloat16() for _ in range(2))
+    dout = torch.randn(B, S, H, dh, generator=gen, device=device).bfloat16()
+
+    def fn_route():
+        x = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = FlashAttention.apply(*x, True, 0, chunk)
+        return out.detach(), torch.autograd.grad(out, x, dout)
+
+    def plain_route():
+        x = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = kf.flash_attention_torch(*x, causal=True)
+        return out.detach(), torch.autograd.grad(out, x, dout)
+
+    kf.reset_launches()
+    out, grads = fn_route()
+    check(sum(kf.LAUNCHES.values()) == (device.type == "cuda"),
+          f"{tag}: the Function launched the kernel {sum(kf.LAUNCHES.values())} times")
+    pout, pgrads = plain_route()
+    x64 = [t[:1, :, :H // Hkv if t.shape[2] == H else 1].double().requires_grad_()
+           for t in (q, k, v)]
+    w64 = torch.autograd.grad(attention_f64(*x64), x64, dout[:1, :, :H // Hkv].double())
+    sl = lambda t: t[:1, :, :H // Hkv if t.shape[2] == H else 1].double()  # noqa: E731
+    res = {"out": float((out.double() - pout.double()).abs().max())}
+    check(bool(torch.isfinite(out).all()) and all(bool(torch.isfinite(g).all()) for g in grads),
+          f"{tag}: non-finite attention output or gradient")
+    check(res["out"] <= FLASH_TOL["bfloat16"] * (1 + float(pout.double().abs().max())),
+          f"{tag}: forward {res['out']:.3g} from the plain version")
+    for name, g, pg, w in zip(("dq", "dk", "dv"), grads, pgrads, w64):
+        scale = float(pg.double().abs().max())
+        res[name] = float((g.double() - pg.double()).abs().max()) / scale
+        w_scale = float(w.abs().max())
+        res[f"{name}_f64"] = float((sl(g) - w).abs().max()) / w_scale
+        res[f"{name}_plain_f64"] = float((sl(pg) - w).abs().max()) / w_scale
+        check(res[name] <= TRAIN_GRAD_TOL, f"{tag}: {name} {res[name]:.3g} of its scale from "
+              f"autograd through the plain version (tol {TRAIN_GRAD_TOL})")
+        check(res[f"{name}_f64"] <= TRAIN_GRAD64_TOL,
+              f"{tag}: {name} {res[f'{name}_f64']:.3g} of its scale from float64 "
+              f"(tol {TRAIN_GRAD64_TOL})")
+    print(f"[{tag}] attention gradient at B={B} S={S} H={H} Hkv={Hkv} dh={dh} bf16 causal: "
+          f"out {res['out']:.3g} from the plain version; dq {res['dq']:.3g}, dk {res['dk']:.3g}, "
+          f"dv {res['dv']:.3g} of their scale from autograd through the plain version (tol "
+          f"{TRAIN_GRAD_TOL}); against float64 on one batch row and kv head: Function "
+          f"{res['dq_f64']:.3g}/{res['dk_f64']:.3g}/{res['dv_f64']:.3g}, plain "
+          f"{res['dq_plain_f64']:.3g}/{res['dk_plain_f64']:.3g}/{res['dv_plain_f64']:.3g} "
+          f"(tol {TRAIN_GRAD64_TOL})")
+    if device.type != "cuda":
+        return res
+    res["row"] = flash_row(tag, "training forward", q, k, v, causal=True)
+
+    def sdpa_route():
+        x = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = sdpa_form(*x, True, 0)
+        return torch.autograd.grad(out, x, dout)
+
+    res["fwd_bwd_ms"] = call_ms(fn_route, reps=10)
+    res["plain_fwd_bwd_ms"] = call_ms(plain_route, reps=10)
+    res["sdpa_fwd_bwd_ms"] = call_ms(sdpa_route, reps=10)
+    print(f"[{tag}] forward + backward ms: Function (kernel forward, chunked plain backward) "
+          f"{res['fwd_bwd_ms']:.4f}, plain version {res['plain_fwd_bwd_ms']:.4f}, SDPA "
+          f"{res['sdpa_fwd_bwd_ms']:.4f} (CUDA events around each call, median of 10)")
+    return res
+
+
+def train_full(tag: str, cfg, smoke: bool, steps: int, batch: int, seq: int, lr: float,
+               device) -> dict:
+    """``launch.train`` at ``cfg``'s width and depth on ``device``: ``steps``
+    steps of batch x seq from seed 0 (AdamW, peak lr 3e-4, warmup 1), with
+    the flash launches counted from zero around the run (card: exactly 2 x
+    n_layers per step, the forward and the remat recompute, on the
+    tensor-core prefill entry at the training shape); finite losses and grad
+    norms, the last loss below the first; step ms (median of the steps after
+    the first), tokens/s, peak memory; then one step under torch.profiler
+    (flash's share of device time) and the optimizer update timed alone.
+    Returns the numbers."""
+    import gc
+    import math
+
+    import torch
+    from repro_torch.configs import RunConfig
+    from repro_torch.distributed.train_step import make_train_step
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.optim import OptConfig, make_optimizer
+    from repro_torch.tree import leaves
+
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kf.reset_launches()
+    t0 = time.perf_counter()
+    run = train.train(["--arch", cfg.name, *(["--smoke"] if smoke else []),
+                       "--steps", str(steps), "--batch", str(batch), "--seq", str(seq),
+                       "--lr", str(lr), "--seed", str(SEED), "--log-every", "1",
+                       "--device", device.type])
+    wall = time.perf_counter() - t0
+    launches = dict(kf.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    n_launch = sum(launches.values())
+    want = 2 * cfg.n_layers * steps
+    if on_card:
+        check(n_launch == want, f"{tag}: training launched flash_attention {n_launch} times, "
+              f"want {want} (forward and remat recompute of {cfg.n_layers} layers x {steps})")
+        check(set(launches) == {("mma", batch, seq, seq, cfg.n_heads, cfg.n_kv_heads,
+                                 cfg.d_head)}, f"{tag}: flash launches {launches}")
+    losses, norms = run.losses, [m["grad_norm"] for m in run.metrics]
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses + norms),
+          f"{tag}: losses {losses}, grad norms {norms}")
+    check(losses[-1] < losses[0], f"{tag}: the loss did not fall: {losses}")
+    step_ms = 1e3 * statistics.median(run.step_s[1:])
+    n_params = sum(p.numel() for p in leaves(run.params))
+    out = dict(launches=n_launch, losses=losses, grad_norms=norms, step_ms=step_ms,
+               first_step_ms=1e3 * run.step_s[0], tokens_per_s=batch * seq / (step_ms / 1e3),
+               peak_gib=peak / 2**30, wall_s=wall, n_params=n_params)
+    print(f"[{tag}] {cfg.name} {n_params / 1e9:.4f} B params, {steps} steps of {batch} x {seq} "
+          f"tokens: losses {[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(x, 3) for x in norms]}; step {step_ms:.2f} ms (median of steps 2-{steps}; "
+          f"first {out['first_step_ms']:.1f}), {out['tokens_per_s']:.0f} tokens/s, peak device "
+          f"memory {out['peak_gib']:.3f} GiB, run {wall:.1f} s; flash_attention launches "
+          f"{n_launch} (want {want})")
+    if not on_card:
+        return out
+    model = build_model(cfg)
+    run_cfg = RunConfig(model=cfg, shape="train_4k", learning_rate=lr, total_steps=steps,
+                        warmup_steps=1)
+    _, step_fn = make_train_step(model, run_cfg)
+    params, opt = run.params, run.opt_state
+    del run
+    b = on_device(next(train_pipe(cfg, batch, seq)), device)
+    busy, named, pwall, n, counted = device_busy_counted(
+        lambda: step_fn(params, opt, b, steps), tuple(entry_counts(kf, FLASH_KERNELS)()),
+        entry_counts(kf, FLASH_KERNELS), kf.reset_launches)
+    out["profile"] = kernel_shares(busy, named, pwall, counted, tag)
+    sec = named["flash_attention_mma_kernel"][0]
+    out["flash_share"] = sec / busy if busy > 0 else None
+    out["device_busy"] = busy / pwall if pwall > 0 else None
+    print(f"[{tag}] profiled step: {n} device kernels, {busy:.4f} s of {pwall:.4f} s wall; "
+          f"{out['profile']}")
+    gc.collect()
+    ocfg = OptConfig(weight_decay=run_cfg.weight_decay, grad_clip=run_cfg.grad_clip)
+    _, opt_update = make_optimizer(cfg.optimizer, ocfg)
+    lr_t = torch.tensor(lr, device=device)
+    with torch.no_grad():
+        out["opt_ms"] = call_ms(lambda: opt_update(params, params, opt, lr_t, ocfg), reps=5)
+    print(f"[{tag}] the AdamW update alone over {n_params / 1e9:.4f} B float32 masters: "
+          f"{out['opt_ms']:.2f} ms (CUDA events, median of 5), {100 * out['opt_ms'] / step_ms:.1f} "
+          f"% of a step")
+    return out
+
+
+def train_checks(tag: str, cfg, device) -> dict:
+    """At ``cfg`` cut to TRAIN_CHECK_LAYERS: (card only) one float32 step
+    on the card against the same step on the CPU from the same carried
+    masters and batch (B 2, S 128; ``check_f32_step``); two microbatches
+    against one at float32 on ``device`` (B 4, S 128); and resume: 6 bf16
+    steps (B 4, S 512) with a checkpoint (weights, optimizer state, data
+    cursor) after the third, restored into fresh tensors, which must equal
+    the state saved (masters, m, v, step) bit for bit and whose steps 4-6
+    must give the uninterrupted run's losses bit for bit (the step is
+    deterministic). Returns the numbers."""
+    import dataclasses as dc
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import RunConfig
+    from repro_torch.distributed.train_step import make_train_step
+    from repro_torch.models import build_model, materialize
+    from repro_torch.optim import OptConfig, make_optimizer
+    from repro_torch.tree import leaves_with_path, tree_map
+
+    from repro_torch.device import resolve_device
+
+    resolve_device(device)  # float32 products in full float32 on the card: TF32 off
+    check(not torch.backends.cuda.matmul.allow_tf32, f"{tag}: TF32 is on")
+    out = {}
+    cut = dc.replace(cfg, n_layers=min(cfg.n_layers, TRAIN_CHECK_LAYERS))
+    f32 = dc.replace(cut, compute_dtype=torch.float32)
+    lr = 3e-4
+    opt_init = make_optimizer(cfg.optimizer, OptConfig())[0]
+
+    def stepper(c, microbatches=1):
+        return make_train_step(build_model(c), RunConfig(
+            model=c, shape="train_4k", learning_rate=lr, total_steps=6, warmup_steps=1,
+            microbatches=microbatches))[1]
+
+    cpu = torch.device("cpu")
+    masters = materialize(build_model(f32).param_infos(), torch.Generator(cpu).manual_seed(SEED))
+    step = stepper(f32)
+    if device.type == "cuda":
+        b = on_device(next(train_pipe(f32, 2, 128)), cpu)
+        t0 = time.perf_counter()
+        on_cpu = step(masters, opt_init(masters), b, 1)
+        cpu_s = time.perf_counter() - t0
+        masters = tree_map(lambda t: t.to(device), masters)
+        on_card = step(masters, opt_init(masters), on_device(b, device), 1)
+        out["card_vs_cpu"] = check_f32_step(
+            tag, f"float32 step, card against CPU (depth {cut.n_layers}, B 2, S 128; the CPU "
+                 f"step {cpu_s:.1f} s)", on_card, on_cpu, lr)
+        del on_cpu, on_card
+    b4 = on_device(next(train_pipe(f32, 4, 128)), device)
+    one = step(masters, opt_init(masters), b4, 1)
+    two = stepper(f32, microbatches=2)(masters, opt_init(masters), b4, 1)
+    out["microbatches"] = check_f32_step(
+        tag, f"float32, 2 microbatches against 1 (depth {cut.n_layers}, B 4, S 128)", two, one, lr)
+    del masters, one, two
+
+    step = stepper(cut)
+    params = materialize(build_model(cut).param_infos(), torch.Generator(device).manual_seed(SEED))
+    opt, pipe = opt_init(params), train_pipe(cut, 4, 512)
+    losses, batches = [], []
+    with tempfile.TemporaryDirectory() as root:
+        ckpt = Checkpointer(root)
+        for i in range(6):
+            batches.append(on_device(next(pipe), device))
+            params, opt, m = step(params, opt, batches[-1], i)
+            losses.append(float(m["loss"]))
+            if i == 2:
+                ckpt.save(3, {"params": params, "opt": opt, "data": pipe.state_dict()})
+                saved = tree_map(torch.clone, {"params": params, "opt": opt})
+        ckpt.wait()
+        like = tree_map(torch.zeros_like, {"params": params, "opt": opt})
+        like["data"] = {"epoch": 0, "step": 0}
+        t0 = time.perf_counter()
+        back = ckpt.restore(3, like, device=device)
+        restore_s = time.perf_counter() - t0
+    restored = dict(leaves_with_path({"params": back["params"], "opt": back["opt"]}))
+    for path, t in leaves_with_path(saved):
+        check(t.dtype == restored[path].dtype and torch.equal(t, restored[path]),
+              f"{tag}: restored {'/'.join(map(str, path))} differs from the state saved")
+    del saved
+    pipe = train_pipe(cut, 4, 512, state=back["data"])
+    params, opt, resumed = back["params"], back["opt"], []
+    for i in range(3, 6):
+        b = on_device(next(pipe), device)
+        check(torch.equal(b["tokens"], batches[i]["tokens"]),
+              f"{tag}: the restored data cursor gives another batch {i + 1}")
+        params, opt, m = step(params, opt, b, i)
+        resumed.append(float(m["loss"]))
+    check(resumed == losses[3:], f"{tag}: resumed losses {resumed} against {losses[3:]}")
+    out["resume"] = dict(losses=losses, resumed=resumed, restore_s=restore_s)
+    print(f"[{tag}] resume (depth {cut.n_layers}, bf16, B 4, S 512): checkpoint after step 3, "
+          f"restored into fresh tensors in {restore_s:.2f} s, masters, m, v and step equal to "
+          f"the state saved; steps 4-6 losses {resumed} equal the uninterrupted {losses[3:]} "
+          f"bit for bit")
+    return out
+
+
+def phase_train(device, smoke: bool = False, steps: int = 6, batch: int = 8,
+                seq: int = 1024, lr: float = 3e-4) -> dict:
+    """Phase 22, training (ROADMAP item 10f): ``tinyllama-1.1b`` at its
+    published width and depth through ``launch.train`` (``train_full``),
+    the attention gradient at the training shape (``train_attention_grad``)
+    and the checks at a cut depth (``train_checks``). Returns the numbers;
+    ``smoke`` and the sizes shrink it for a rehearsal on the CPU (there the
+    launch counts, the profile, the timings and the card-vs-CPU step are
+    skipped; ``lr`` above ``launch.train``'s default 3e-4 lets a SMOKE loss fall
+    in 6 steps)."""
+    from repro_torch.configs import get_config
+
+    tag = "22 train"
+    cfg = get_config("tinyllama-1.1b", smoke=smoke)
+    out = train_full(tag, cfg, smoke, steps, batch, seq, lr, device)
+    free_card_if(device)
+    out["grad"] = train_attention_grad(tag, cfg, batch, seq, device)
+    free_card_if(device)
+    out.update(train_checks(tag, cfg, device))
+    return out
+
+
+def free_card_if(device) -> None:
+    if device.type == "cuda":
+        free_card()
+
+
 def audit_example(device) -> dict:
     """``examples/torch_closed_loop_adaptive.py`` at smoke size (4 segments,
     the drift at 2) on ``device``: its result, printed lines and seconds."""
@@ -4742,6 +5143,17 @@ def timed_phase(tag: str, phase, device) -> dict:
     return out
 
 
+def start_clock():
+    """A function printing, after each phase, the seconds since this call:
+    the script must end within its time limit, and these lines say where
+    the time went."""
+    t0 = time.perf_counter()
+
+    def clock(label: str) -> None:
+        print(f"[clock] {label} ended at {time.perf_counter() - t0:.1f} s", flush=True)
+    return clock
+
+
 def free_card() -> None:
     """Return the earlier phases' device memory before a phase draws a
     large model."""
@@ -4763,15 +5175,24 @@ def main() -> int:
     import repro_torch  # noqa: F401  -- fails where the repository is missing
 
     device = torch.device("cuda")
+    clock = start_clock()
     smi_line = phase_env()
+    clock("phase_env")
     phase_build()
+    clock("phase_build")
     rows = phase_kernel(device)
+    clock("phase_kernel")
     n_launch = phase_rack(device)
+    clock("phase_rack")
     check(n_launch > 0, "main path never launched consolidation_scores")
     fleet = phase_fleet(device)
+    clock("phase_fleet")
     scatter = phase_pair_scatter(device)
+    clock("phase_pair_scatter")
     adaptive = phase_adaptive(device)
+    clock("phase_adaptive")
     health = phase_fleet_health(device)
+    clock("phase_fleet_health")
     # phase 15 compares with the rack runs' results and walls, phase 16 with
     # the fused rack run's engine and controller; the other engines (their
     # captured graphs) go before the serving phases draw their models
@@ -4781,39 +5202,56 @@ def main() -> int:
                       for name, keys in keep.items()}
     free_card()
     flash = phase_flash(device)
+    clock("phase_flash")
     served = phase_serve(device)
+    clock("phase_serve")
     wkv = phase_rwkv_scan(device)
+    clock("phase_rwkv_scan")
     served_rwkv = phase_serve_rwkv(device)
+    clock("phase_serve_rwkv")
     free_card()
     scan = phase_mamba_scan(device)
+    clock("phase_mamba_scan")
     served_jamba = phase_serve_jamba(device)
+    clock("phase_serve_jamba")
     free_card()
     served_int8 = timed_phase("18 serve int8", phase_serve_int8, device)
+    clock("phase_serve_int8")
     free_card()
     served_moe = timed_phase("19 serve moe", phase_serve_moe, device)
+    clock("phase_serve_moe")
     free_card()
     served_whisper = timed_phase("20 serve whisper", phase_serve_whisper, device)
+    clock("phase_serve_whisper")
     free_card()
     served_vlm = timed_phase("21 serve vlm", phase_serve_vlm, device)
+    clock("phase_serve_vlm")
+    free_card()
+    trained = timed_phase("22 train", phase_train, device)
+    clock("phase_train")
     free_card()
     # last, so that its profiled and captured runs leave nothing to the
     # serving phases' profiles
     obs = phase_observability(device, health)
+    clock("phase_observability")
     free_card()
     axis = phase_server_axis(device, health)
+    clock("phase_server_axis")
     free_card()
     phase_audit(device)
+    clock("phase_audit")
 
     q = LOOP_Q  # the event loop's one call per micro-event, on every grid type
     flash_launches = {"9 serve": served["launches"], "13 serve jamba": served_jamba["launches_flash"],
                  "18 serve int8": served_int8["launches"], "19 serve moe": served_moe["launches"],
                  "20 serve whisper": served_whisper["launches"],
-                 "21 serve vlm": served_vlm["launches"]}
+                 "21 serve vlm": served_vlm["launches"], "22 train": trained["launches"]}
     flash_uses = {"int8_prefill": served_int8["rows"]["prefill"],
                 "int8_decode": served_int8["rows"]["decode@542"],
                 "whisper_encoder": served_whisper["rows"]["encoder"],
                 "cross_prefill": served_whisper["rows"]["cross prefill"],
-                "cross_decode": served_whisper["rows"]["cross decode"]}
+                "cross_decode": served_whisper["rows"]["cross decode"],
+                "training_forward": trained["grad"]["row"]}
     print(json.dumps({"kernels": [{
         "name": "consolidation_scores", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/consolidation_scores.cu",
@@ -4894,6 +5332,10 @@ def main() -> int:
         **{name: {key: r[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                           "library_ms", "shape", "max_abs_err")}
            for name, r in flash_uses.items()},
+        "training_step": {key: trained[key] for key in (
+            "step_ms", "tokens_per_s", "peak_gib", "flash_share", "device_busy", "opt_ms")}
+        | {key: trained["grad"][key] for key in ("fwd_bwd_ms", "plain_fwd_bwd_ms",
+                                                 "sdpa_fwd_bwd_ms")},
     }, {
         "name": "rwkv6_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",

@@ -5,7 +5,7 @@
 the JAX package for all ten archs; ``registry.get_config``
 maps ``--arch`` ids to them.
 """
-from .base import SHAPES, MeshConfig, ModelConfig
+from .base import SHAPES, MeshConfig, ModelConfig, RunConfig
 from .registry import ARCHS, SMOKES, get_config
 
-__all__ = ["ARCHS", "SHAPES", "SMOKES", "MeshConfig", "ModelConfig", "get_config"]
+__all__ = ["ARCHS", "SHAPES", "SMOKES", "MeshConfig", "ModelConfig", "RunConfig", "get_config"]

@@ -3,8 +3,9 @@
 Fields keep their JAX names and defaults, so a configuration reads the same
 in both packages; ``param_dtype`` and ``compute_dtype`` are torch dtypes
 (float32 master weights, bf16 compute). ``MeshConfig`` is copied too: the
-fleet controller's re-mesh plans (``distributed.fault_tolerance``) take it.
-The sharding rules are not copied: the port runs on one card.
+fleet controller's re-mesh plans (``distributed.fault_tolerance``) take it,
+and ``RunConfig``, every field kept, which the training step reads. The
+sharding rules are not copied: the port trains and serves on one card.
 """
 from __future__ import annotations
 
@@ -95,3 +96,35 @@ class MeshConfig:
     @property
     def dp(self) -> int:
         return (self.pods if self.multi_pod else 1) * self.data
+
+
+#: the all-reduce payloads of RunConfig.grad_compression; the port trains on
+#: one card, so only "none" is taken (compressed reductions: ROADMAP item 10p)
+GRAD_COMPRESSION = ("none", "bf16", "int8")
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: str  # key into SHAPES
+    mesh: MeshConfig = MeshConfig()
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    grad_clip: float = 1.0
+    microbatches: int = 1  # gradient-accumulation microbatches per step
+    grad_compression: str = "none"  # none | bf16 | int8 (all-reduce payload)
+
+    def __post_init__(self):
+        if self.grad_compression not in GRAD_COMPRESSION:
+            raise ValueError(f"grad_compression must be one of {GRAD_COMPRESSION}, "
+                             f"got {self.grad_compression!r}")
+        if self.grad_compression != "none":
+            raise NotImplementedError(
+                f"grad_compression={self.grad_compression!r} compresses a data-parallel "
+                "all-reduce; the port trains on one card (ROADMAP item 10p)")
+
+    @property
+    def shape_info(self) -> dict:
+        return SHAPES[self.shape]

@@ -7,7 +7,9 @@ port's versions on ``device``, so both implementations can score the
 identical tables. ``estimator_from_numpy`` does the same for a
 ``StreamingEstimator``'s state, so both compute the same next update.
 ``lm_params_from_numpy`` carries a JAX LM's parameter tree across (any
-family), and ``cache_from_numpy`` any family's JAX cache (the int8 KV
+family; ``params_from_numpy`` as the tree the training step takes),
+``opt_state_from_numpy`` an optimizer's state (AdamW, 8-bit AdamW,
+Adafactor), and ``cache_from_numpy`` any family's JAX cache (the int8 KV
 cache with its scales, the encoder-decoder's with its cross K/V
 included), checked key by key, shape by shape and dtype by dtype against
 the port's declaration. So both models run on the same weights and can
@@ -28,7 +30,9 @@ from .core.engine_torch import PackedDynamics
 from .device import resolve_device
 from .models.api import LM, build_model
 from .models.params import ParamInfo
+from .optim import OptConfig, make_optimizer
 from .telemetry.estimator import ScatterName, StreamingEstimator
+from .tree import tree_map
 
 
 def _from_numpy(cls, fields: Mapping[str, object], device):
@@ -112,17 +116,20 @@ def _tree_from_numpy(infos, tree, device, path="", what="parameter", exact_dtype
             for k in infos}
 
 
+def params_from_numpy(cfg, params: Mapping, *,
+                      device: str | torch.device | None = None) -> dict:
+    """A JAX LM's parameter tree (``Model.param_infos``: stacked layers)
+    with numpy leaves, as the port's tree of tensors in the declared dtypes
+    (what ``Model.loss`` and the training step take). Raises ``KeyError`` on
+    a missing or extra key and ``ValueError`` on a wrong shape."""
+    return _tree_from_numpy(build_model(cfg).param_infos(), params, resolve_device(device))
+
+
 def lm_params_from_numpy(cfg, params: Mapping, *,
                          device: str | torch.device | None = None) -> LM:
-    """The port's LM of ``cfg``'s family holding a JAX LM's parameters.
-
-    ``params`` is the JAX parameter tree (``Model.param_infos``: stacked
-    layers) with numpy leaves. Raises ``KeyError`` on a missing or extra
-    key and ``ValueError`` on a wrong shape.
-    """
-    device = resolve_device(device)
-    model = build_model(cfg)
-    return model.build(_tree_from_numpy(model.param_infos(), params, device))
+    """The port's LM of ``cfg``'s family holding a JAX LM's parameters
+    (``params_from_numpy``)."""
+    return build_model(cfg).build(params_from_numpy(cfg, params, device=device))
 
 
 def cache_from_numpy(cfg, cache: Mapping, *, batch: int, max_len: int,
@@ -141,3 +148,21 @@ def cache_from_numpy(cfg, cache: Mapping, *, batch: int, max_len: int,
     state = {k: v for k, v in cache.items() if k != "len"}
     out = _tree_from_numpy(infos, state, device, what="cache array", exact_dtype=True)
     return dict(out, len=int(np.asarray(cache["len"])))
+
+
+def opt_state_from_numpy(optimizer: str, state: Mapping, params, *, block: int = 256,
+                         device: str | torch.device | None = None) -> dict:
+    """A JAX optimizer state with numpy leaves as the port's: AdamW's
+    {m, step, v}, 8-bit AdamW's {m, step, v} with {q, s} per parameter, or
+    Adafactor's {state, step} with {vr, vc} (or {v}) per parameter. ``params``
+    (tensors or arrays) is the tree the state belongs to; the state is
+    checked key by key, shape by shape and dtype by dtype against what the
+    optimizer's init makes for it, so both packages compute the same next
+    step from it. The declaration is the port's ``init`` run on meta
+    tensors of ``params``' shapes."""
+    init = make_optimizer(optimizer, OptConfig(block=block))[0]
+    like = init(tree_map(lambda p: torch.empty(tuple(np.shape(p)), device="meta"), params))
+    infos = tree_map(lambda t: ParamInfo(tuple(t.shape), (None,) * t.ndim, "zeros",
+                                         dtype=t.dtype), like)
+    return _tree_from_numpy(infos, state, resolve_device(device), what="optimizer state",
+                            exact_dtype=True)

@@ -17,7 +17,7 @@ from .rwkv6_scan import rwkv6_scan, rwkv6_scan_torch
 from .telemetry import pair_scatter, pair_scatter_torch
 
 
-def _require_cuda(x: torch.Tensor) -> None:
+def require_cuda(x: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"mode='cuda' needs CUDA tensors, got {x.device}")
 
@@ -34,7 +34,7 @@ def greedy_scores(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Q x m candidate scores: (cache_after [Q, m], maxd_after [Q, m])."""
     if mode == "cuda":
-        _require_cuda(counts)
+        require_cuda(counts)
         return consolidation_scores(counts, D, rs, fs_resident, llc_budget, wtypes)
     if mode == "torch":
         return consolidation_scores_torch(counts, D, rs, fs_resident, llc_budget, wtypes)
@@ -51,7 +51,7 @@ def telemetry_pair_scatter(
     """K-stacked pair statistics: (pair [K, T, T], base [K, T]), K squeezed
     for 1-D ``vals``."""
     if mode == "cuda":
-        _require_cuda(cbar)
+        require_cuda(cbar)
         return pair_scatter(types, cbar, vals)
     if mode == "torch":
         return pair_scatter_torch(types, cbar, vals)
@@ -73,7 +73,7 @@ def gqa_flash_attention(
     transposed (the JAX wrapper does both). ``window`` > 0 keeps only the
     last ``window`` keys up to each query's position."""
     if mode == "cuda":
-        _require_cuda(q)
+        require_cuda(q)
         return flash_attention(q, k, v, causal=causal, q_offset=q_offset, window=window)
     if mode == "torch":
         return flash_attention_torch(q, k, v, causal=causal, q_offset=q_offset, window=window)
@@ -95,7 +95,7 @@ def rwkv6_wkv(
     nothing is folded or transposed (the JAX wrapper does both), and it
     takes any S >= 1."""
     if mode == "cuda":
-        _require_cuda(r)
+        require_cuda(r)
         return rwkv6_scan(r, k, v, wlog, u, s0)
     if mode == "torch":
         return rwkv6_scan_torch(r, k, v, wlog, u, s0)
@@ -114,7 +114,7 @@ def mamba_ssm_scan(
     float32, for any S >= 1 and any E (the Pallas kernel asserts block
     divisibility and starts from h0 as this does)."""
     if mode == "cuda":
-        _require_cuda(da)
+        require_cuda(da)
         return mamba_scan(da, dbu, c, h0)
     if mode == "torch":
         return mamba_scan_torch(da, dbu, c, h0)
@@ -136,7 +136,7 @@ def selective_scan(
     kernel, so [B, S, E, N] is never materialised; B and C may be strided
     views of the block's projection."""
     if mode == "cuda":
-        _require_cuda(delta)
+        require_cuda(delta)
         return mamba_selective_scan(delta, u, bm, cm, A, h0)
     if mode == "torch":
         return mamba_selective_scan_torch(delta, u, bm, cm, A, h0)

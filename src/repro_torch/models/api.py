@@ -8,6 +8,14 @@ module where the JAX ``Model`` takes its parameter tree:
   prefill(lm, batch, cache)       fill the cache from a prompt batch
   decode_step(lm, cache, tokens)  append one token per sequence
 
+and, as the JAX ``Model`` does, the training objective on the parameter
+tree itself (the ``param_infos`` tree as tensors, float32 masters):
+
+  loss(params, batch)             (loss, {"ce", "zloss"}) on tokens, labels
+
+which only the dense family takes so far (the others' training: ROADMAP
+item 10s).
+
 A batch holds ``tokens`` [B, S] and, for the vlm, ``vis_embeds`` [B, P, D]
 (patch embeddings put before the tokens), for the encdec ``audio_embeds``
 [B, enc_seq, D] (the encoder's frame embeddings); ``prefill_extras`` gives
@@ -113,6 +121,27 @@ class Model:
         return 0
 
     # --- steps -------------------------------------------------------------
+    def head_matrix(self, params):
+        """The unembedding [D, Vp] of a parameter tree (its masters)."""
+        if self.cfg.family in PREFIX_FAMILIES and self.cfg.tie_embeddings:
+            return params["embed"].T
+        return params["lm_head"]
+
+    def loss(self, params, batch: dict, *, mode: str | None = None):
+        """Training objective on the parameter tree: the final hidden states,
+        then the sequence-chunked cross-entropy (``transformer.
+        chunked_cross_entropy``), as the JAX ``Model.loss``, which adds no
+        MoE auxiliary loss. ``mode`` as in ``layers.attention_apply``.
+        Dense family only."""
+        if self.cfg.family != "dense":
+            raise NotImplementedError(
+                f"training the {self.cfg.family} family needs gradients through its MoE "
+                "dispatch or its scan kernels (ROADMAP item 10s)")
+        hidden, _ = transformer.forward(params, self.cfg, batch["tokens"], return_hidden=True,
+                                        mode=mode)
+        return transformer.chunked_cross_entropy(hidden, self.head_matrix(params),
+                                                 batch["labels"], self.cfg.vocab, self.cfg)
+
     def prefill(self, lm: LM, batch: dict, cache: dict):
         """(last-position logits [B, 1, Vp], cache) after the prompt and,
         in ``batch``, the vlm's patch embeddings or the encdec's frames."""

@@ -17,8 +17,12 @@ causal self-attention of the decoders, the encoder's bidirectional
 self-attention (``causal=False, rope_on=False``) and cross-attention.
 An int8 cache is dequantized, as the JAX layer does it, into a fresh
 compute-dtype buffer of the rows the queries see, which the kernel then
-reads. ``chunked_attention``, the JAX models' own attention, is kept as a
-plain function for the tests; it is not on the path. MoE is the JAX
+reads. ``chunked_attention``, the JAX models' own attention, is not on
+the forward path: it is the backward's. When q, k or v need a gradient
+(the training path), self-attention goes through ``FlashAttention``, an
+autograd Function whose forward is that same kernel call and whose
+backward differentiates ``chunked_attention`` recomputed from q, k and v,
+as JAX differentiates its jnp attention. MoE is the JAX
 package's single-device path (sort-based dispatch into per-expert capacity
 buffers); its expert-parallel ``shard_map`` path is not ported.
 """
@@ -32,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
-from ..kernels.flash_attention import NEG_INF, first_visible_row
+from ..kernels.flash_attention import NEG_INF, first_visible_row, flash_attention
 from .params import ParamInfo
 
 
@@ -231,6 +235,41 @@ def chunked_attention(
     return torch.cat(outs, dim=1)
 
 
+class FlashAttention(torch.autograd.Function):
+    """Self-attention with a gradient: ``apply(q, k, v, causal, window,
+    chunk)`` on q [B, S, H, dh], k, v [B, S, Hkv, dh].
+
+    The forward is ``kernels.flash_attention.flash_attention``: the
+    hand-written kernel on CUDA tensors (a launch like serving's, counted in
+    its ``LAUNCHES``), its plain version on CPU tensors. It keeps q, k and v.
+    The backward recomputes the attention with ``chunked_attention`` (query
+    chunks of ``chunk``, the JAX models' attention and the function JAX
+    differentiates; its ``jax.checkpoint`` per chunk recomputes as this does)
+    and returns its gradients: dk and dv sum over each kv head's query group.
+    The JAX package has no backward kernel (its Pallas flash kernel has none).
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, chunk: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = (causal, window, chunk)
+        return flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        causal, window, chunk = ctx.opts
+        B, S, H, dh = q.shape
+        Hkv = k.shape[2]
+        with torch.enable_grad():
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+            out = chunked_attention(qg.view(B, S, Hkv, H // Hkv, dh), kg, vg, causal=causal,
+                                    window=window, chunk=chunk)
+            dq, dk, dv = torch.autograd.grad(out, (qg, kg, vg), dout.reshape(out.shape))
+        return dq, dk, dv, None, None, None
+
+
 def attention_apply(
     p: Mapping[str, torch.Tensor],
     x: torch.Tensor,  # [B, S, D]
@@ -262,7 +301,10 @@ def attention_apply(
     cache's last window + S rows. ``mode`` picks the kernel route ('cuda')
     or the plain one ('torch'); ``None`` takes 'cuda' for CUDA tensors and
     'torch' for CPU tensors. ``rope_cs`` reuses RoPE tables of
-    ``positions``.
+    ``positions``. Without a cache, when q, k or v need a gradient, the
+    attention is ``FlashAttention`` (chunk ``cfg.attn_chunk``): there
+    ``mode`` may not ask for the plain route on CUDA tensors, whose forward
+    is the kernel.
     """
     dt = cfg.compute_dtype
     if not rope_on:
@@ -274,8 +316,16 @@ def attention_apply(
         mode = "cuda" if x.is_cuda else "torch"
     B, S = x.shape[:2]
     if cache is None:
-        out = ops.gqa_flash_attention(q.contiguous(), k, v, causal=causal, window=window,
-                                      mode=mode)
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            if mode == "cuda":
+                ops.require_cuda(q)
+            elif q.is_cuda:
+                raise ValueError("the training forward on CUDA tensors runs the kernel; "
+                                 f"mode={mode!r} asks for the plain route")
+            out = FlashAttention.apply(q.contiguous(), k, v, causal, window, cfg.attn_chunk)
+        else:
+            out = ops.gqa_flash_attention(q.contiguous(), k, v, causal=causal, window=window,
+                                          mode=mode)
         new_cache = None
     else:
         ck, cv, idx = cache["k"], cache["v"], int(cache["len"])

@@ -4,13 +4,22 @@ starcoder, tinyllama), the MoE family (moonshot, kimi: the MLP replaced by
 the top-k routed ``moe`` FFN on every layer) and the vlm family's backbone
 (internvl: patch embeddings prepended to the token embeddings).
 
-``TransformerLM`` is an ``nn.Module`` built from the JAX parameter tree's
-layout: ``embed`` [Vp, D], ``layers`` (every leaf stacked on a leading
-layer axis), ``ln_f``, ``lm_head`` [D, Vp] unless the embeddings are tied.
-Its layers are a Python loop over per-layer modules (the JAX package scans
-the stack); each layer's weights are views of the stacked tensors. MoE
-dispatches per sequence when a call brings several tokens and over the
-whole batch in decode (``group``), as the JAX model does.
+One function runs the LM: ``forward``, on a parameter tree in the JAX
+layout (``embed`` [Vp, D], ``layers`` with every leaf stacked on a leading
+layer axis, ``ln_f``, ``lm_head`` [D, Vp] unless the embeddings are tied),
+its leaves cast to the compute dtype inside, as the JAX package does. Its
+layers are a Python loop (the JAX package scans the stack). MoE dispatches
+per sequence when a call brings several tokens and over the whole batch in
+decode (``group``), as the JAX model does.
+
+``TransformerLM`` is the serving ``nn.Module``: it holds the weights,
+with per-layer modules whose weights are views of the stacked
+tensors, and calls ``forward`` on their compute-dtype copies (made once),
+where the cast inside is a no-op. Training calls ``forward`` on the
+float32 masters themselves, so gradients reach them, and with
+``cfg.remat == 'layer'`` recomputes each layer in the backward
+(``torch.utils.checkpoint``, JAX's ``jax.checkpoint`` per layer).
+``chunked_cross_entropy`` is JAX's sequence-chunked loss.
 
 The KV cache is the JAX one: ``k`` and ``v`` [L, B, max_len, Hkv, dh] in
 bf16 whatever the compute dtype, or with ``kv_cache_dtype='int8'`` int8
@@ -20,10 +29,12 @@ writes the new rows in place.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Mapping
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .params import ParamInfo, stack_layers
@@ -67,9 +78,24 @@ def cache_infos(cfg, batch: int, max_len: int) -> dict:
     return d
 
 
+def layer_apply(p: Mapping, x: torch.Tensor, cfg, *, positions, rope_cs, cache=None,
+                mode=None, group: str = "seq") -> torch.Tensor:
+    """One decoder layer on its parameters ``p`` (a layer's slice of the
+    tree, cast to the compute dtype inside). ``cache`` is the layer's
+    slice of the KV cache, written in place."""
+    a, _ = L.attention_apply(p["attn"], L.norm_apply(p["ln1"], x, cfg), cfg,
+                             positions=positions, cache=cache, window=cfg.sliding_window,
+                             mode=mode, rope_cs=rope_cs)
+    x = x + a
+    h = L.norm_apply(p["ln2"], x, cfg)
+    f = L.moe_apply(p["moe"], h, cfg, group=group) if "moe" in p else L.mlp_apply(p["mlp"], h, cfg)
+    return x + f
+
+
 class DecoderLayer(nn.Module):
     def __init__(self, cfg, p: Mapping[str, Mapping[str, torch.Tensor]]):
         super().__init__()
+        self.cfg = cfg
         self.ln1 = L.Norm(cfg, p["ln1"])
         self.attn = L.Attention(cfg, p["attn"])
         self.ln2 = L.Norm(cfg, p["ln2"])
@@ -78,12 +104,63 @@ class DecoderLayer(nn.Module):
         else:
             self.mlp = L.MLP(cfg, p["mlp"])
 
-    def forward(self, x, *, positions, rope_cs, cache=None, mode=None, group="seq"):
-        a, _ = self.attn(self.ln1(x), positions=positions, cache=cache, mode=mode,
-                         rope_cs=rope_cs)
-        x = x + a
-        h = self.ln2(x)
-        return x + (self.moe(h, group) if hasattr(self, "moe") else self.mlp(h))
+    def forward(self, x, **kw):
+        return layer_apply({n: m.c for n, m in self.named_children()}, x, self.cfg, **kw)
+
+
+def unstack_layers(stacked: Mapping, n_layers: int) -> list[dict]:
+    """Per-layer views of the stacked layer tree ({block: {name: [L, ...]}}),
+    each leaf unbound once, so the backward stacks the layers' gradients in
+    one op."""
+    parts = {blk: {n: t.unbind(0) for n, t in d.items()} for blk, d in stacked.items()}
+    return [{blk: {n: ts[i] for n, ts in d.items()} for blk, d in parts.items()}
+            for i in range(n_layers)]
+
+
+def forward(params: Mapping, cfg, tokens: torch.Tensor, *, layers=None,
+            prefix_embeds: torch.Tensor | None = None, cache: dict | None = None,
+            last_only: bool = False, return_hidden: bool = False, mode: str | None = None):
+    """The LM on a parameter tree (JAX ``forward``) on tokens [B, S]:
+    (logits [B, P + S or 1, Vp], new_cache), or with ``return_hidden`` the
+    final normed hidden states [B, P + S or 1, D] in their place, in the
+    compute dtype.
+
+    Leaves are cast to the compute dtype inside: a tree of float32 masters
+    trains, the serving module's compute-dtype copies pass unchanged.
+    ``layers`` are per-layer callables ``(x, **kw) -> x`` (the serving
+    module's ``DecoderLayer``s); by default ``layer_apply`` on each layer's
+    slice of ``params["layers"]``. ``prefix_embeds`` [B, P, D] (the vlm's
+    patch embeddings) go before the token embeddings. With ``cache`` the
+    call appends P + S positions at ``cache['len']``; decode is this with
+    S == 1. Without a cache, where a gradient is asked for, self-attention
+    is ``FlashAttention`` (``layers.attention_apply``), and where the
+    embeddings carry one ``cfg.remat == 'layer'`` recomputes each layer in
+    the backward.
+    """
+    x = L.embed(params["embed"], tokens, cfg.compute_dtype)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(cfg.compute_dtype), x], dim=1)
+    S = x.shape[1]
+    offset = int(cache["len"]) if cache is not None else 0
+    positions = offset + torch.arange(S, device=x.device)
+    kw = dict(positions=positions, rope_cs=L.rope_tables(positions, cfg.d_head, cfg.rope_theta),
+              mode=mode, group="batch" if S == 1 else "seq")
+    if layers is None:
+        layers = [partial(layer_apply, lp, cfg=cfg)
+                  for lp in unstack_layers(params["layers"], cfg.n_layers)]
+    remat = cfg.remat == "layer" and cache is None and x.requires_grad
+    for i, layer in enumerate(layers):
+        if cache is not None:
+            kw["cache"] = dict({n: t[i] for n, t in cache.items() if n != "len"}, len=offset)
+        x = checkpoint(layer, x, use_reentrant=False, **kw) if remat else layer(x, **kw)
+    new_cache = None if cache is None else dict(cache, len=offset + S)
+    if last_only:  # the norm is per position: normalise only what is kept
+        x = x[:, -1:, :]
+    x = L.norm_apply(params["ln_f"], x, cfg)
+    if return_hidden:
+        return x, new_cache
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return L.mask_padded_logits(x @ head.to(cfg.compute_dtype), cfg.vocab), new_cache
 
 
 class TransformerLM(L.Weights):
@@ -111,35 +188,51 @@ class TransformerLM(L.Weights):
             for i in range(cfg.n_layers))
         self.ln_f = L.Norm(cfg, params["ln_f"])
 
-    def head(self) -> torch.Tensor:
-        """The unembedding [D, Vp] in the compute dtype."""
-        return self.c["embed"].T if self.cfg.tie_embeddings else self.c["lm_head"]
-
     def forward(self, tokens: torch.Tensor, *, prefix_embeds: torch.Tensor | None = None,
                 cache: dict | None = None,
                 last_only: bool = False) -> tuple[torch.Tensor, dict | None]:
-        """Run the LM on tokens [B, S]: (logits [B, P + S or 1, Vp] in the
-        compute dtype, new_cache). ``prefix_embeds`` [B, P, D] (the vlm's
-        patch embeddings) go before the token embeddings, in the compute
-        dtype. With ``cache`` the call appends P + S positions at
-        ``cache['len']``; decode is this with S == 1."""
-        cfg = self.cfg
-        x = L.embed(self.c["embed"], tokens, cfg.compute_dtype)
-        if prefix_embeds is not None:
-            x = torch.cat([prefix_embeds.to(cfg.compute_dtype), x], dim=1)
-        S = x.shape[1]
-        offset = int(cache["len"]) if cache is not None else 0
-        positions = offset + torch.arange(S, device=x.device)
-        rope_cs = L.rope_tables(positions, cfg.d_head, cfg.rope_theta)
-        group = "batch" if S == 1 else "seq"
-        for i, layer in enumerate(self.layers):
-            lc = None if cache is None else dict(
-                {n: t[i] for n, t in cache.items() if n != "len"}, len=offset)
-            x = layer(x, positions=positions, rope_cs=rope_cs, cache=lc, mode=self.mode,
-                      group=group)
-        new_cache = None if cache is None else dict(cache, len=offset + S)
-        if last_only:  # the norm is per position: normalise only what is kept
-            x = x[:, -1:, :]
-        x = self.ln_f(x)
-        logits = x @ self.head()
-        return L.mask_padded_logits(logits, cfg.vocab), new_cache
+        """The module-level ``forward`` on the compute-dtype copies."""
+        return forward(dict(self.c, ln_f=self.ln_f.c), self.cfg, tokens, layers=self.layers,
+                       prefix_embeds=prefix_embeds, cache=cache, last_only=last_only,
+                       mode=self.mode)
+
+
+# --- losses ------------------------------------------------------------------------
+
+def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                          true_vocab: int, cfg, n_chunks: int = 8, z_weight: float = 1e-4):
+    """Unembed + cross-entropy over sequence chunks, each recomputed in the
+    backward (JAX ``chunked_cross_entropy``): x [B, S, D] final hidden
+    states, head [D, Vp], labels [B, S]. The [B, S, Vp] logits never
+    materialise whole; per-chunk sums in float32 (logits masked to the true
+    vocab, lse in float32, z-loss weight ``z_weight``) are normalised once.
+    Returns (loss, {"ce", "zloss"})."""
+    B, S, D = x.shape
+    if S % n_chunks != 0:
+        n_chunks = 1
+    c = S // n_chunks
+    hd = head.to(cfg.compute_dtype)
+
+    def body(xc, lc, hd):
+        lg = L.mask_padded_logits(xc @ hd, true_vocab).float()
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = lg.gather(-1, lc.long()[..., None])[..., 0]
+        return torch.sum(lse - gold), z_weight * torch.sum(lse ** 2)
+
+    ce_sum = z_sum = 0.0
+    for i in range(n_chunks):
+        ce, z = checkpoint(body, x[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c], hd,
+                           use_reentrant=False)
+        ce_sum, z_sum = ce_sum + ce, z_sum + z
+    n = B * S
+    return ce_sum / n + z_sum / n, {"ce": ce_sum / n, "zloss": z_sum / n}
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, z_weight: float = 1e-4):
+    """Stable softmax cross-entropy in float32 with z-loss; mean over tokens."""
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = lg.gather(-1, labels.long()[..., None])[..., 0]
+    ce = lse - gold
+    z = z_weight * (lse ** 2)
+    return ce.mean() + z.mean(), {"ce": ce.mean(), "zloss": z.mean()}

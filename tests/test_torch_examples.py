@@ -6,7 +6,9 @@ per-segment placements and observation counts -- equal those of the JAX
 example run in the same test. The serving twin's admission is held to the
 JAX serving module's ``admission_check`` (placements and metric frame), not to its
 tokens: JAX's serving entry raises on the CPU
-(``tests/test_system.py::test_serve_generates``). No twin imports JAX or the
+(``tests/test_system.py::test_serve_generates``). The training twin is held
+to what the JAX example prints of itself: the restart resumes and runs 20
+steps (its numerics are ``tests/test_torch_train.py``'s). No twin imports JAX or the
 JAX package, and each refuses to run without a card unless ``--device cpu``
 is given.
 """
@@ -27,7 +29,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 EXAMPLES = ROOT / "examples"
-TWINS = ("torch_quickstart", "torch_closed_loop_adaptive", "torch_serve_with_admission")
+TWINS = ("torch_quickstart", "torch_closed_loop_adaptive", "torch_serve_with_admission",
+         "torch_train_end_to_end")
 
 
 def _load(name: str, alias: str):
@@ -185,3 +188,17 @@ def test_serve_twin_admission_matches_jax(monkeypatch):
     res = JaxEngine([spec, spec]).run([(0.0, stream)] * 4)
     want_h100 = [None if q else p for p, q in zip(res.placements, res.was_queued)]
     assert lines[0] == f"consolidation admission: 4 stream(s) -> hosts {want_h100}"
+
+
+def test_train_twin_resumes_after_the_crash():
+    """The training twin on the CPU: 40 steps with checkpoints at 20 and 40,
+    then a restart that resumes from step 40 and runs the 20 steps to 60,
+    with finite losses that fall over the first run, as the JAX example's
+    printout says of itself."""
+    twin = _load("torch_train_end_to_end", "twin_train")
+    losses, lines = _printed(twin.main, ["--device", "cpu"])
+    assert len(losses) == 20 and all(np.isfinite(losses))
+    assert "resumed from step 40" in lines
+    assert lines[-1] == "resumed run executed 20 steps (expected 20)"
+    first = next(line for line in lines if line.startswith("final loss"))
+    assert first.endswith("improved: True"), first

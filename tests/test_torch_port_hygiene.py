@@ -56,7 +56,10 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.kernels.ops, repro_torch.models, repro_torch.configs, "
             "repro_torch.distributed.serve_step, repro_torch.launch.serve, repro_torch.fleet, "
             "repro_torch.core.closed_loop, repro_torch.obs, repro_torch.obs.explain, "
-            "repro_torch.obs.report, repro_torch.core.scheduler, repro_torch.core.refine; "
+            "repro_torch.obs.report, repro_torch.core.scheduler, repro_torch.core.refine, "
+            "repro_torch.data, repro_torch.data.placement, repro_torch.optim, "
+            "repro_torch.checkpoint, repro_torch.distributed.train_step, "
+            "repro_torch.launch.train; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], env=_env(), capture_output=True,
