@@ -16,9 +16,11 @@ kernel (non-causal for Whisper's encoder and cross-attention), and the
 fleet-health plane with the fused closed loop, whose
 CUSUM scan and action loops are hand-written CUDA (``cusum_scan``,
 ``fleet_actions``), with the observability plane and the float64 oracle's
-tensor twins, and the server axis over a one-rank process group -- in
-twenty-one phases (14 runs after 7; 18-21 after 13; 15, 16 and 17 last),
-then the purity audit over all of it:
+tensor twins, the server axis over a one-rank process group, and the
+training path of every LM family (``distributed.train_step``, whose
+gradients run through the flash, WKV and scan kernels' autograd
+Functions) -- in twenty-three phases (14 runs after 7; 18-23 after 13;
+15, 16 and 17 last), then the purity audit over all of it:
 
   1. environment: torch and CUDA versions, the card's name and power limit;
   2. build: nvcc builds every kernel under ``src/repro_torch/kernels/csrc``;
@@ -274,9 +276,25 @@ then the purity audit over all of it:
  21. the vlm (item 10d): ``internvl2-2b`` at full width (24 layers, dh
      128), 256 patch embeddings before each 512-token prompt, 32 generated,
      through ``serve_arch`` (24 x 32 flash launches), the cache sized for
-     the patches; the SMOKE card-vs-CPU check.
+     the patches; the SMOKE card-vs-CPU check;
+ 22. training the dense family (item 10f): ``tinyllama-1.1b`` at full
+     width through ``launch.train`` (6 steps of 8 x 1024, exactly 264
+     flash launches, a falling loss, step ms, tokens/s, peak memory), the
+     attention's gradient at the training shape against the plain version
+     and float64, and at depth 2 a float32 step on the card against the
+     CPU's, two microbatches against one and a resumed run bit for bit;
+ 23. training the other families (item 10s): ``rwkv6-7b`` at depth 4, a
+     one-period ``jamba-v0.1-52b`` with 2 experts on Adafactor,
+     ``moonshot-v1-16b-a3b`` at depth 2, ``whisper-medium`` and
+     ``internvl2-2b`` whole, at published widths through ``make_train_step``
+     (4 steps on one 4 x 1024 batch: every leaf's gradient finite and
+     nonzero, exact flash, WKV and scan launches, a falling loss, step ms,
+     tokens/s, peak memory at most 72 GiB); the WKV and scan Functions and
+     whisper's cross and encoder attention at the training shape against
+     the plain version and float64, with the kernels' rows there; each
+     SMOKE model's float32 loss and gradients on the card against the CPU.
 
-Each of 18-21 prints its wall seconds. Then a JSON line with each kernel's numbers, the ``nvidia-smi`` name/power
+Each of 18-23 prints its wall seconds. Then a JSON line with each kernel's numbers, the ``nvidia-smi`` name/power
 line, and a last JSON line ``{"ok": true, "device": {...}}``. Any failed
 check raises, so the script exits nonzero; without a CUDA device, or
 without the repository beside it, it exits nonzero before printing a result.
@@ -4756,34 +4774,38 @@ def attention_f64(q, k, v, causal: bool = True):
     return torch.einsum("bhgqt,bthd->bqhgd", torch.softmax(s, -1), v).reshape(B, S, H, dh)
 
 
-def train_attention_grad(tag: str, cfg, B: int, S: int, device) -> dict:
-    """One layer's attention at the training shape (bf16, causal) with a
-    gradient: the Function (kernel forward, chunked plain backward) against
-    autograd through the kernel's plain version on the same inputs and
-    output gradient (out within FLASH_TOL, dq, dk, dv within
-    TRAIN_GRAD_TOL of the plain gradient's scale), both against a float64
-    witness on batch row 0 and kv head 0 (its query group); the kernel's
-    forward row at this shape (``flash_row``: ms, plain, SDPA, bound) and
-    the forward + backward ms of the Function, the plain version and SDPA.
-    Returns the numbers and the forward row."""
+def train_attention_grad(tag: str, cfg, B: int, S: int, device, *, Skv: int | None = None,
+                         causal: bool = True, label: str = "training forward") -> dict:
+    """One layer's attention at the training shape (bf16; causal
+    self-attention, or with ``causal=False`` the encoder's or, with ``Skv``
+    keys, cross-attention) with a gradient: the Function (kernel forward,
+    chunked plain backward) against autograd through the kernel's plain
+    version on the same inputs and output gradient (out within FLASH_TOL,
+    dq, dk, dv within TRAIN_GRAD_TOL of the plain gradient's scale), both
+    against a float64 witness on batch row 0 and kv head 0 (its query
+    group); the kernel's forward row at this shape (``flash_row``: ms,
+    plain, SDPA, bound) and the forward + backward ms of the Function, the
+    plain version and SDPA. Returns the numbers and the forward row."""
     import torch
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.models.layers import FlashAttention
 
     H, Hkv, dh, chunk = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.attn_chunk
+    Skv = S if Skv is None else Skv
     gen = torch.Generator(device).manual_seed(SEED + 22)
     q = torch.randn(B, S, H, dh, generator=gen, device=device).bfloat16()
-    k, v = (torch.randn(B, S, Hkv, dh, generator=gen, device=device).bfloat16() for _ in range(2))
+    k, v = (torch.randn(B, Skv, Hkv, dh, generator=gen, device=device).bfloat16()
+            for _ in range(2))
     dout = torch.randn(B, S, H, dh, generator=gen, device=device).bfloat16()
 
     def fn_route():
         x = [t.detach().requires_grad_() for t in (q, k, v)]
-        out = FlashAttention.apply(*x, True, 0, chunk)
+        out = FlashAttention.apply(*x, causal, 0, chunk)
         return out.detach(), torch.autograd.grad(out, x, dout)
 
     def plain_route():
         x = [t.detach().requires_grad_() for t in (q, k, v)]
-        out = kf.flash_attention_torch(*x, causal=True)
+        out = kf.flash_attention_torch(*x, causal=causal)
         return out.detach(), torch.autograd.grad(out, x, dout)
 
     kf.reset_launches()
@@ -4793,7 +4815,8 @@ def train_attention_grad(tag: str, cfg, B: int, S: int, device) -> dict:
     pout, pgrads = plain_route()
     x64 = [t[:1, :, :H // Hkv if t.shape[2] == H else 1].double().requires_grad_()
            for t in (q, k, v)]
-    w64 = torch.autograd.grad(attention_f64(*x64), x64, dout[:1, :, :H // Hkv].double())
+    w64 = torch.autograd.grad(attention_f64(*x64, causal=causal), x64,
+                              dout[:1, :, :H // Hkv].double())
     sl = lambda t: t[:1, :, :H // Hkv if t.shape[2] == H else 1].double()  # noqa: E731
     res = {"out": float((out.double() - pout.double()).abs().max())}
     check(bool(torch.isfinite(out).all()) and all(bool(torch.isfinite(g).all()) for g in grads),
@@ -4811,7 +4834,8 @@ def train_attention_grad(tag: str, cfg, B: int, S: int, device) -> dict:
         check(res[f"{name}_f64"] <= TRAIN_GRAD64_TOL,
               f"{tag}: {name} {res[f'{name}_f64']:.3g} of its scale from float64 "
               f"(tol {TRAIN_GRAD64_TOL})")
-    print(f"[{tag}] attention gradient at B={B} S={S} H={H} Hkv={Hkv} dh={dh} bf16 causal: "
+    print(f"[{tag}] {label}: attention gradient at B={B} Sq={S} Skv={Skv} H={H} Hkv={Hkv} "
+          f"dh={dh} bf16 {'causal' if causal else 'non-causal'}: "
           f"out {res['out']:.3g} from the plain version; dq {res['dq']:.3g}, dk {res['dk']:.3g}, "
           f"dv {res['dv']:.3g} of their scale from autograd through the plain version (tol "
           f"{TRAIN_GRAD_TOL}); against float64 on one batch row and kv head: Function "
@@ -4820,17 +4844,18 @@ def train_attention_grad(tag: str, cfg, B: int, S: int, device) -> dict:
           f"(tol {TRAIN_GRAD64_TOL})")
     if device.type != "cuda":
         return res
-    res["row"] = flash_row(tag, "training forward", q, k, v, causal=True)
+    res["row"] = flash_row(tag, label, q, k, v, causal=causal)
 
     def sdpa_route():
         x = [t.detach().requires_grad_() for t in (q, k, v)]
-        out = sdpa_form(*x, True, 0)
+        out = sdpa_form(*x, causal, 0)
         return torch.autograd.grad(out, x, dout)
 
     res["fwd_bwd_ms"] = call_ms(fn_route, reps=10)
     res["plain_fwd_bwd_ms"] = call_ms(plain_route, reps=10)
     res["sdpa_fwd_bwd_ms"] = call_ms(sdpa_route, reps=10)
-    print(f"[{tag}] forward + backward ms: Function (kernel forward, chunked plain backward) "
+    print(f"[{tag}] {label} forward + backward ms: Function (kernel forward, chunked plain "
+          f"backward) "
           f"{res['fwd_bwd_ms']:.4f}, plain version {res['plain_fwd_bwd_ms']:.4f}, SDPA "
           f"{res['sdpa_fwd_bwd_ms']:.4f} (CUDA events around each call, median of 10)")
     return res
@@ -5044,6 +5069,466 @@ def phase_train(device, smoke: bool = False, steps: int = 6, batch: int = 8,
     return out
 
 
+#: phase 23 (ROADMAP item 10s): the families that train besides the dense
+#: one, each at its published widths and cut to what one card holds with
+#: its optimizer (PERF.md section 4): (arch, the cut, the parameter count
+#: reckoned from the widths)
+TRAIN_FAMILIES = (
+    ("rwkv6-7b", {"n_layers": 4}, 1.41e9),
+    ("jamba-v0.1-52b", {"n_layers": 8, "moe_experts": 2, "optimizer": "adafactor"}, 3.43e9),
+    ("moonshot-v1-16b-a3b", {"n_layers": 2}, 1.81e9),
+    ("whisper-medium", {}, 0.81e9),
+    ("internvl2-2b", {}, 1.89e9),
+)
+#: whisper's text under its 1500 frames: the decoder's published context
+WHISPER_TEXT = 448
+#: the most device memory a family's steps may hold
+TRAIN_PEAK_GIB = 72.0
+#: a family's parameter count against the reckoning (relative)
+PARAMS_REL = 0.01
+#: card against CPU at each SMOKE configuration, float32: the loss
+#: (relative) and every gradient (of its leaf's largest |.|) within the CPU
+#: tests' tolerances against JAX (tests/test_torch_train_*.py)
+SMOKE_TRAIN_TOL = {"ssm": 5e-5, "hybrid": 2e-5, "moe": 5e-6, "vlm": 5e-6, "encdec": 5e-6}
+#: leaves whose gradient is zero in exact arithmetic (the key biases: a
+#: shift shared by every key leaves the softmax as it is): finite and held
+#: to the tree's largest gradient, never required to be nonzero
+ZERO_IN_EXACT = ("bk",)
+
+
+def train_cut(arch: str, cut: dict, smoke: bool):
+    """``arch``'s configuration cut as phase 23 trains it; with ``smoke``
+    the SMOKE configuration, keeping only the cut's optimizer."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch, smoke=smoke)
+    return dc.replace(cfg, **({k: v for k, v in cut.items() if k == "optimizer"} if smoke
+                              else cut))
+
+
+def text_len(cfg, seq: int) -> int:
+    """Text tokens of a training sequence of ``seq`` positions: the vlm's
+    after its patches (JAX's s_text = S - vis_tokens), whisper's decoder
+    text over its frames."""
+    if cfg.family == "vlm":
+        return seq - cfg.vis_tokens
+    if cfg.family == "encdec":
+        return min(WHISPER_TEXT, seq)
+    return seq
+
+
+def family_batch(cfg, batch: int, seq: int, device) -> dict:
+    """The first batch of tokens and labels from ``launch.train``'s
+    chunk-store pipeline at the family's text length, with the family's
+    patch or frame embeddings (``Model.prefill_extras``) drawn N(0, 1) from
+    a seeded generator in the compute dtype."""
+    import torch
+    from repro_torch.models import build_model
+
+    b = on_device(next(train_pipe(cfg, batch, text_len(cfg, seq))), device)
+    gen = torch.Generator(device).manual_seed(SEED + 23)
+    for name, shape in build_model(cfg).prefill_extras(batch).items():
+        b[name] = torch.randn(*shape, generator=gen, device=device).to(cfg.compute_dtype)
+    return b
+
+
+def perturb_tree_decay(params, gen) -> None:
+    """``perturb_decay`` on a parameter tree's stacked time-mix leaves: the
+    init's zero ``w_lora_b`` gives ``w_lora_a`` an all-zero gradient."""
+    time_mix = params["layers"]["time"]
+    time_mix["w_base"].uniform_(-6.0, 1.0, generator=gen)
+    time_mix["w_lora_b"].normal_(0.0, 0.1, generator=gen)
+
+
+def leaf_check(tag: str, grads) -> int:
+    """Every leaf's gradient finite and, but for ZERO_IN_EXACT's, not all
+    zero (a kernel route without a grad_fn gives its upstream leaves none,
+    which ``loss_and_grads`` refuses, or zeros, which this refuses).
+    Returns the leaves checked."""
+    import torch
+    from repro_torch.tree import leaves_with_path
+
+    n = 0
+    for path, g in leaves_with_path(grads):
+        name = "/".join(map(str, path))
+        check(bool(torch.isfinite(g).all()), f"{tag}: the gradient of {name} is not finite")
+        check(path[-1] in ZERO_IN_EXACT or bool(g.ne(0).any()),
+              f"{tag}: the gradient of {name} is all zero")
+        n += 1
+    return n
+
+
+def lm_launches() -> dict:
+    """The three LM kernels' launch counts by entry, those launched."""
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import mamba_scan as km
+    from repro_torch.kernels import rwkv6_scan as ks
+
+    out = {}
+    for name, mod in (("flash", kf), ("rwkv6_scan", ks), ("mamba_scan", km)):
+        by = collections.Counter()
+        for key, n in mod.LAUNCHES.items():
+            by[key[0]] += n
+        if by:
+            out[name] = dict(by)
+    return out
+
+
+def want_launches(cfg, steps: int) -> dict:
+    """Each LM kernel's launches in ``steps`` training steps of ``cfg``: the
+    forward and the remat recompute of every attention (the encdec's
+    encoder, decoder and cross), WKV and Mamba layer, on the entry a bf16
+    training forward takes."""
+    from repro_torch.models import hybrid
+
+    L = cfg.n_layers
+    n_attn = {"ssm": 0, "encdec": 3 * L,
+              "hybrid": L // hybrid.PERIOD * sum(hybrid.is_attn(cfg, i)
+                                                 for i in range(hybrid.PERIOD))}.get(cfg.family, L)
+    n_mamba = L - n_attn if cfg.family == "hybrid" else 0
+    return {name: {entry: 2 * n * steps} for name, entry, n in (
+        ("flash", "mma", n_attn), ("rwkv6_scan", "chunked", L if cfg.family == "ssm" else 0),
+        ("mamba_scan", "model", n_mamba)) if n}
+
+
+def train_family(tag: str, cfg, reckoned: float, steps: int, batch: int, seq: int, lr: float,
+                 device) -> dict:
+    """``cfg`` trained through ``make_train_step`` on ``device``: seed 0
+    masters (RWKV's decay perturbed), a batch from the chunk-store
+    pipeline with the family's extras; every leaf's gradient on it
+    (``leaf_check``); then ``steps`` steps on that batch (the config's
+    optimizer, peak lr ``lr`` from the first step, no warmup) with the LM
+    kernels' launches counted from zero around them (card: exactly
+    ``want_launches``), finite losses and grad norms, the last loss below
+    the first. One batch, as an overfitting check: the pipeline's tokens
+    are uniformly random, so a fresh batch's loss can only fall by the
+    logits' calibration, less in a few steps than one batch's spread from
+    the next (on an H100, fresh batches' losses rose over 4 steps as the
+    model fitted the ones it saw, rwkv 11.5005 to 11.5027). Step ms (median
+    after the first), tokens/s (the loss's text tokens), peak memory (card:
+    at most TRAIN_PEAK_GIB). Returns the numbers."""
+    import math
+
+    import torch
+    from repro_torch.configs import RunConfig
+    from repro_torch.distributed.train_step import loss_and_grads, make_train_step
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import mamba_scan as km
+    from repro_torch.kernels import rwkv6_scan as ks
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves
+
+    on_card = device.type == "cuda"
+    model = build_model(cfg)
+    init, step_fn = make_train_step(model, RunConfig(
+        model=cfg, shape="train_4k", learning_rate=lr, total_steps=steps, warmup_steps=0))
+    params, opt = init(torch.Generator(device).manual_seed(SEED))
+    if cfg.family == "ssm":
+        perturb_tree_decay(params, torch.Generator(device).manual_seed(SEED + 1))
+    n_params = sum(p.numel() for p in leaves(params))
+    check(not on_card or math.isclose(n_params, reckoned, rel_tol=PARAMS_REL),
+          f"{tag}: {n_params} parameters, reckoned {reckoned:.3g}")
+    b = family_batch(cfg, batch, seq, device)
+    t0 = time.perf_counter()
+    n_leaves = leaf_check(tag, loss_and_grads(model, params, b)[2])
+    check_s = time.perf_counter() - t0
+    if on_card:
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+    for mod in (kf, ks, km):
+        mod.reset_launches()
+    losses, norms, step_s = [], [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, b, i)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if on_card:
+            torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = lm_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+    del params, opt
+    want = want_launches(cfg, steps)
+    step_ms = 1e3 * statistics.median(step_s[1:])
+    tokens = batch * text_len(cfg, seq)
+    out = dict(n_params=n_params, reckoned=reckoned, leaves=n_leaves, launches=launches,
+               want=want, losses=losses, grad_norms=norms, step_ms=step_ms,
+               first_step_ms=1e3 * step_s[0], tokens_per_s=tokens / (step_ms / 1e3),
+               peak_gib=peak, grad_check_s=check_s)
+    print(f"[{tag}] {cfg.name} ({cfg.family}, {cfg.n_layers} layers, {cfg.optimizer}) "
+          f"{n_params / 1e9:.4f} B params (reckoned {reckoned / 1e9:.2f} B); all {n_leaves} "
+          f"leaves' gradients finite and nonzero ({', '.join(ZERO_IN_EXACT)} finite; "
+          f"{check_s:.1f} s); {steps} steps of {batch} x {seq} ({tokens} text tokens a step): "
+          f"losses {[round(x, 4) for x in losses]}, grad norms {[round(x, 3) for x in norms]}; "
+          f"step {step_ms:.2f} ms (median of steps 2-{steps}; first {out['first_step_ms']:.1f}), "
+          f"{out['tokens_per_s']:.0f} tokens/s, peak device memory {peak:.3f} GiB; launches "
+          f"{launches} (want {want if on_card else 'card only'})", flush=True)
+    if on_card:
+        check(launches == want, f"{tag}: kernel launches {launches}, want {want}")
+        check(peak <= TRAIN_PEAK_GIB, f"{tag}: peak device memory {peak:.3f} GiB")
+    check(all(math.isfinite(x) for x in losses + norms), f"{tag}: losses {losses}, norms {norms}")
+    check(losses[-1] < losses[0], f"{tag}: the loss did not fall: {losses}")
+    return out
+
+
+def wkv_grad_check(tag: str, B: int, S: int, H: int, dh: int, device) -> dict:
+    """The WKV Function at the training shape (bf16 r/k/v, zero s0): its
+    forward (the kernel's chunked entry, one launch) within the WKV
+    tolerance of the plain version; its gradients (dr, dk, dv, dwlog, du)
+    against autograd through the plain version on the same inputs and dy
+    within TRAIN_GRAD_TOL of each one's scale, and dr, dk, dv, dwlog
+    against a float64 witness (``rwkv6_ref``) on batch row 0 and head 0
+    within TRAIN_GRAD64_TOL (du sums over the batch rows: plain only); the
+    kernel's row at this shape and the forward + backward ms of the
+    Function and of the plain version. Returns the numbers."""
+    import torch
+    from repro_torch.kernels import rwkv6_scan as ks
+    from repro_torch.models.rwkv import WKV
+
+    gen = torch.Generator(device).manual_seed(SEED + 23)
+    r, k, v, wlog, u, s0 = rwkv_inputs(B, S, H, dh, "bfloat16", False, False, gen, device)
+    dy = torch.randn(B, S, H, dh, generator=gen, device=device)
+
+    def route(fn):
+        def run():
+            xs = [t.detach().requires_grad_() for t in (r, k, v, wlog, u)]
+            y, _ = fn(*xs, s0)
+            return y.detach(), torch.autograd.grad(y, xs, dy)
+        return run
+
+    fn_route, plain_route = route(WKV.apply), route(ks.rwkv6_scan_torch)
+    ks.reset_launches()
+    y, grads = fn_route()
+    if device.type == "cuda":
+        check(dict(ks.LAUNCHES) == {("chunked", B, S, H, dh): 1},
+              f"{tag}: the WKV Function launched {dict(ks.LAUNCHES)}")
+    py, pgrads = plain_route()
+    res = {"out": rwkv_err((y,), (py,), f"{tag} WKV forward")}
+    x64 = [t[:1, :, :1].double().requires_grad_() for t in (r, k, v, wlog)]
+    y64, _ = rwkv_ref64(*x64, u[:1].double(), s0[:1, :1].double())
+    w64 = torch.autograd.grad(y64, x64, dy[:1, :, :1].double())
+    for name, g, pg in zip(("dr", "dk", "dv", "dwlog", "du"), grads, pgrads):
+        check(bool(torch.isfinite(g).all()), f"{tag}: WKV {name} not finite")
+        res[name] = float((g.double() - pg.double()).abs().max()) / float(pg.double().abs().max())
+        check(res[name] <= TRAIN_GRAD_TOL, f"{tag}: WKV {name} {res[name]:.3g} of its scale from "
+              f"autograd through the plain version (tol {TRAIN_GRAD_TOL})")
+    for name, g, pg, w in zip(("dr", "dk", "dv", "dwlog"), grads, pgrads, w64):
+        scale = float(w.abs().max())
+        res[f"{name}_f64"] = float((g[:1, :, :1].double() - w).abs().max()) / scale
+        res[f"{name}_plain_f64"] = float((pg[:1, :, :1].double() - w).abs().max()) / scale
+        check(res[f"{name}_f64"] <= TRAIN_GRAD64_TOL, f"{tag}: WKV {name} "
+              f"{res[f'{name}_f64']:.3g} of its scale from float64 (tol {TRAIN_GRAD64_TOL})")
+    print(f"[{tag}] WKV Function at B={B} S={S} H={H} dh={dh} bf16: forward {res['out']:.3g} "
+          f"from the plain version; gradients of their scale from autograd through the plain "
+          f"version: " + ", ".join(f"{n} {res[n]:.3g}" for n in ("dr", "dk", "dv", "dwlog", "du"))
+          + f" (tol {TRAIN_GRAD_TOL}); against float64 on batch row 0, head 0: Function "
+          + "/".join(f"{res[n + '_f64']:.3g}" for n in ("dr", "dk", "dv", "dwlog")) + ", plain "
+          + "/".join(f"{res[n + '_plain_f64']:.3g}" for n in ("dr", "dk", "dv", "dwlog"))
+          + f" (tol {TRAIN_GRAD64_TOL})")
+    if device.type != "cuda":
+        return res
+    args = (r, k, v, wlog, u, s0)
+    row = dict(max_abs_err=res["out"], entry="chunked", library_ms=None,
+               shape=f"B={B} S={S} H={H} dh={dh} bfloat16 r/k/v, zero s0 (training forward)",
+               ms=device_ms(lambda: ks.rwkv6_scan(*args)),
+               plain_ms=device_ms(lambda: ks.rwkv6_scan_torch(*args), reps=5))
+    row["bound_ms"], row["bound_by"] = rwkv_bound_ms(B, S, H, dh, 2)
+    res["row"] = row
+    res["fwd_bwd_ms"] = call_ms(fn_route, reps=5)
+    res["plain_fwd_bwd_ms"] = call_ms(plain_route, reps=5)
+    print(f"[{tag}] WKV training forward ({row['shape']}): device ms kernel {row['ms']:.5f} plain "
+          f"{row['plain_ms']:.5f} bound {row['bound_ms']:.5f} by {row['bound_by']}, library none; "
+          f"forward + backward ms: Function (kernel forward, plain backward) "
+          f"{res['fwd_bwd_ms']:.3f}, plain version {res['plain_fwd_bwd_ms']:.3f} (CUDA events "
+          f"around each call, median of 5)")
+    return res
+
+
+def scan_f64(delta, u, bm, cm, A):
+    """The selective scan in float64 from a zero state, one token at a
+    time, differentiable: the witness."""
+    import torch
+
+    h = torch.zeros(delta.shape[0], *A.shape, dtype=torch.float64, device=delta.device)
+    ys = []
+    for t in range(delta.shape[1]):
+        h = torch.exp(delta[:, t, :, None] * A) * h + (delta[:, t] * u[:, t])[..., None] \
+            * bm[:, t, None, :]
+        ys.append(torch.einsum("ben,bn->be", h, cm[:, t]))
+    return torch.stack(ys, dim=1)
+
+
+def scan_grad_check(tag: str, B: int, S: int, E: int, N: int, device) -> dict:
+    """The selective-scan Function at the training shape (bf16 u, B, C as
+    strided views of one projection, zero h0): its forward (the kernel's
+    model entry, one launch) within the scan tolerance of the plain
+    version; its gradients (ddelta, du, dB, dC, dA) against autograd
+    through the plain version within TRAIN_GRAD_TOL of each one's scale,
+    and ddelta, du, dB, dC against a float64 witness on batch row 0 within
+    TRAIN_GRAD64_TOL (dA sums over the rows: plain only); the kernel's row
+    at this shape and the forward + backward ms of the Function and of the
+    plain version. Returns the numbers."""
+    import torch
+    from repro_torch.kernels import mamba_scan as km
+    from repro_torch.models.mamba import SelectiveScan
+
+    gen = torch.Generator(device).manual_seed(SEED + 23)
+    delta, u, bm, cm, A, h0 = mamba_inputs(B, S, E, N, "bfloat16", False, gen, device)
+    dy = torch.randn(B, S, E, generator=gen, device=device)
+
+    def route(fn):
+        def run():
+            xs = [t.detach().requires_grad_() for t in (delta, u, bm, cm, A)]
+            y, _ = fn(*xs, h0)
+            return y.detach(), torch.autograd.grad(y, xs, dy)
+        return run
+
+    fn_route, plain_route = route(SelectiveScan.apply), route(km.mamba_selective_scan_torch)
+    km.reset_launches()
+    y, grads = fn_route()
+    if device.type == "cuda":
+        check(dict(km.LAUNCHES) == {("model", B, S, E, N): 1},
+              f"{tag}: the scan Function launched {dict(km.LAUNCHES)}")
+    py, pgrads = plain_route()
+    res = {"out": mamba_err((y,), (py,), f"{tag} scan forward")}
+    x64 = [t[:1].double().requires_grad_() for t in (delta, u, bm, cm)]
+    w64 = torch.autograd.grad(scan_f64(*x64, A.double()), x64, dy[:1].double())
+    names = ("ddelta", "du", "dB", "dC", "dA")
+    for name, g, pg in zip(names, grads, pgrads):
+        check(bool(torch.isfinite(g).all()), f"{tag}: scan {name} not finite")
+        res[name] = float((g.double() - pg.double()).abs().max()) / float(pg.double().abs().max())
+        check(res[name] <= TRAIN_GRAD_TOL, f"{tag}: scan {name} {res[name]:.3g} of its scale from "
+              f"autograd through the plain version (tol {TRAIN_GRAD_TOL})")
+    for name, g, pg, w in zip(names, grads, pgrads, w64):
+        scale = float(w.abs().max())
+        res[f"{name}_f64"] = float((g[:1].double() - w).abs().max()) / scale
+        res[f"{name}_plain_f64"] = float((pg[:1].double() - w).abs().max()) / scale
+        check(res[f"{name}_f64"] <= TRAIN_GRAD64_TOL, f"{tag}: scan {name} "
+              f"{res[f'{name}_f64']:.3g} of its scale from float64 (tol {TRAIN_GRAD64_TOL})")
+    print(f"[{tag}] scan Function at B={B} S={S} E={E} N={N} bf16: forward {res['out']:.3g} "
+          f"from the plain version; gradients of their scale from autograd through the plain "
+          f"version: " + ", ".join(f"{n} {res[n]:.3g}" for n in names)
+          + f" (tol {TRAIN_GRAD_TOL}); against float64 on batch row 0: Function "
+          + "/".join(f"{res[n + '_f64']:.3g}" for n in names[:4]) + ", plain "
+          + "/".join(f"{res[n + '_plain_f64']:.3g}" for n in names[:4])
+          + f" (tol {TRAIN_GRAD64_TOL})")
+    if device.type != "cuda":
+        return res
+    args = (delta, u, bm, cm, A, h0)
+    row = dict(max_abs_err=res["out"], library_ms=None,
+               shape=f"B={B} S={S} E={E} N={N} bfloat16 u/B/C, zero h0 (model entry, "
+                     f"training forward)",
+               ms=device_ms(lambda: km.mamba_selective_scan(*args)),
+               plain_ms=device_ms(lambda: km.mamba_selective_scan_torch(*args), reps=3))
+    row["bound_ms"], row["bound_by"] = mamba_bound_ms(B, S, E, N, 2, True)
+    row["sfu_ms"] = 1e3 * B * S * E * N / SFU_EX2_PER_S
+    res["row"] = row
+    res["fwd_bwd_ms"] = call_ms(fn_route, reps=3)
+    res["plain_fwd_bwd_ms"] = call_ms(plain_route, reps=3)
+    print(f"[{tag}] scan training forward ({row['shape']}): device ms kernel {row['ms']:.5f} "
+          f"plain {row['plain_ms']:.5f} bound {row['bound_ms']:.5f} by {row['bound_by']} (SFU "
+          f"floor {row['sfu_ms']:.5f}), library none; forward + backward ms: Function (kernel "
+          f"forward, chunked plain backward) {res['fwd_bwd_ms']:.3f}, plain version "
+          f"{res['plain_fwd_bwd_ms']:.3f} (CUDA events around each call, median of 3)")
+    return res
+
+
+def smoke_train_card_vs_cpu(tag: str, arch: str, cut: dict, device) -> dict:
+    """The family's SMOKE model at float32 compute (the cut's optimizer
+    aside, which the loss does not see): ``loss_and_grads`` on the card
+    against the CPU from the same masters (RWKV's decay perturbed) and
+    batch (B 2, 64 positions), the loss within SMOKE_TRAIN_TOL relative
+    and every gradient within it of its leaf's largest |.|
+    (ZERO_IN_EXACT's of the tree's). Returns the gaps."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.distributed.train_step import loss_and_grads
+    from repro_torch.models import build_model, materialize
+    from repro_torch.tree import leaves, leaves_with_path, tree_map
+
+    cfg = dc.replace(train_cut(arch, cut, smoke=True), compute_dtype=torch.float32)
+    model = build_model(cfg)
+    cpu = torch.device("cpu")
+    params = materialize(model.param_infos(), torch.Generator(cpu).manual_seed(SEED))
+    if cfg.family == "ssm":
+        perturb_tree_decay(params, torch.Generator(cpu).manual_seed(SEED + 1))
+    b = family_batch(cfg, 2, 64, cpu)
+    l0, _, g0 = loss_and_grads(model, params, b)
+    l1, _, g1 = loss_and_grads(model, tree_map(lambda t: t.to(device), params),
+                               on_device(b, device))
+    tol = SMOKE_TRAIN_TOL[cfg.family]
+    top = max(float(w.abs().max()) for w in leaves(g0))
+    res = {"loss": abs(float(l1) - float(l0)) / abs(float(l0)), "grad": 0.0}
+    check(res["loss"] <= tol, f"{tag}: SMOKE loss on the card {float(l1)} against the CPU's "
+          f"{float(l0)} (tol {tol})")
+    for (path, g), w in zip(leaves_with_path(g1), leaves(g0)):
+        scale = top if path[-1] in ZERO_IN_EXACT else float(w.abs().max())
+        gap = float((g.cpu().double() - w.double()).abs().max()) / scale
+        res["grad"] = max(res["grad"], gap)
+        check(gap <= tol, f"{tag}: SMOKE gradient of {'/'.join(map(str, path))} {gap:.3g} of "
+              f"its scale from the CPU's (tol {tol})")
+    print(f"[{tag}] SMOKE float32 card against CPU: loss {float(l1):.6f} vs {float(l0):.6f} "
+          f"(rel {res['loss']:.3g}), every gradient within {res['grad']:.3g} of its scale "
+          f"(tol {tol})")
+    return res
+
+
+def phase_train_families(device, smoke: bool = False, steps: int = 4, batch: int = 4,
+                         seq: int = 1024, lr: float = 3e-4) -> dict:
+    """Phase 23, training the other families (ROADMAP item 10s): each of
+    TRAIN_FAMILIES at its published widths with its cut (``train_family``:
+    every leaf's gradient, exact launches, falling loss, step ms,
+    tokens/s, peak memory), the autograd Function new on its path at the
+    training shape (``wkv_grad_check``, ``scan_grad_check``, whisper's
+    cross-attention at 448 x 1500 and encoder at 1500 x 1500 through
+    ``train_attention_grad``), the flash kernel's row at the other
+    families' training attention, and (card only) the SMOKE model's loss
+    and gradients on the card against the CPU. ``smoke`` and the sizes
+    shrink it for a rehearsal on the CPU, where the launch counts, the
+    peak, the kernel rows, the timings and the card-vs-CPU check are
+    skipped. Returns the numbers by arch."""
+    import torch
+
+    on_card = device.type == "cuda"
+    out = {}
+    for arch, cut, reckoned in TRAIN_FAMILIES:
+        tag = f"23 train {arch}"
+        cfg = train_cut(arch, cut, smoke)
+        r = train_family(tag, cfg, reckoned, steps, batch, seq, lr, device)
+        free_card_if(device)
+        S = text_len(cfg, seq)
+        if cfg.family == "ssm":
+            r["wkv"] = wkv_grad_check(tag, batch, S, cfg.d_model // cfg.rwkv_head_size,
+                                      cfg.rwkv_head_size, device)
+        elif cfg.family == "hybrid":
+            E = cfg.mamba_expand * cfg.d_model
+            r["scan"] = scan_grad_check(tag, batch, S, E, cfg.mamba_dstate, device)
+        elif cfg.family == "encdec":
+            r["cross"] = train_attention_grad(tag, cfg, batch, S, device, Skv=cfg.enc_seq,
+                                              causal=False, label="cross-attention")
+            free_card_if(device)
+            r["encoder"] = train_attention_grad(tag, cfg, batch, cfg.enc_seq, device,
+                                                causal=False, label="encoder")
+        if on_card and cfg.family in ("hybrid", "moe", "vlm"):
+            gen = torch.Generator(device).manual_seed(SEED + 23)
+            H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+            q = torch.randn(batch, seq, H, dh, generator=gen, device=device).bfloat16()
+            k, v = (torch.randn(batch, seq, Hkv, dh, generator=gen, device=device).bfloat16()
+                    for _ in range(2))
+            r["flash_row"] = flash_row(tag, "training forward", q, k, v, causal=True,
+                                       window=cfg.sliding_window)
+            del q, k, v
+        free_card_if(device)
+        if on_card:
+            r["card_vs_cpu"] = smoke_train_card_vs_cpu(tag, arch, cut, device)
+        out[arch] = r
+    return out
+
+
 def free_card_if(device) -> None:
     if device.type == "cuda":
         free_card()
@@ -5230,6 +5715,9 @@ def main() -> int:
     trained = timed_phase("22 train", phase_train, device)
     clock("phase_train")
     free_card()
+    families = timed_phase("23 train families", phase_train_families, device)
+    clock("phase_train_families")
+    free_card()
     # last, so that its profiled and captured runs leave nothing to the
     # serving phases' profiles
     obs = phase_observability(device, health)
@@ -5245,13 +5733,23 @@ def main() -> int:
     flash_launches = {"9 serve": served["launches"], "13 serve jamba": served_jamba["launches_flash"],
                  "18 serve int8": served_int8["launches"], "19 serve moe": served_moe["launches"],
                  "20 serve whisper": served_whisper["launches"],
-                 "21 serve vlm": served_vlm["launches"], "22 train": trained["launches"]}
+                 "21 serve vlm": served_vlm["launches"], "22 train": trained["launches"],
+                 "23 train": sum(r["launches"].get("flash", {}).get("mma", 0)
+                                 for k, r in families.items() if k != "seconds")}
+    trained23 = {k: r for k, r in families.items() if k != "seconds"}
+    wkv_train, scan_train = trained23["rwkv6-7b"]["wkv"], trained23["jamba-v0.1-52b"]["scan"]
+    rwkv_train = trained23["rwkv6-7b"]["launches"]["rwkv6_scan"]["chunked"]
+    scan_train_n = trained23["jamba-v0.1-52b"]["launches"]["mamba_scan"]["model"]
     flash_uses = {"int8_prefill": served_int8["rows"]["prefill"],
                 "int8_decode": served_int8["rows"]["decode@542"],
                 "whisper_encoder": served_whisper["rows"]["encoder"],
                 "cross_prefill": served_whisper["rows"]["cross prefill"],
                 "cross_decode": served_whisper["rows"]["cross decode"],
-                "training_forward": trained["grad"]["row"]}
+                "training_forward": trained["grad"]["row"],
+                "training_whisper_encoder": trained23["whisper-medium"]["encoder"]["row"],
+                "training_whisper_cross": trained23["whisper-medium"]["cross"]["row"],
+                **{f"training_{arch.split('-')[0]}": trained23[arch]["flash_row"]
+                   for arch in ("jamba-v0.1-52b", "moonshot-v1-16b-a3b", "internvl2-2b")}}
     print(json.dumps({"kernels": [{
         "name": "consolidation_scores", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/consolidation_scores.cu",
@@ -5336,12 +5834,17 @@ def main() -> int:
             "step_ms", "tokens_per_s", "peak_gib", "flash_share", "device_busy", "opt_ms")}
         | {key: trained["grad"][key] for key in ("fwd_bwd_ms", "plain_fwd_bwd_ms",
                                                  "sdpa_fwd_bwd_ms")},
+        "training_families": {arch: {key: r[key] for key in (
+            "step_ms", "tokens_per_s", "peak_gib", "n_params")} for arch, r in trained23.items()},
+        **{f"fwd_bwd_whisper_{part}": {key: trained23["whisper-medium"][part][key] for key in (
+            "fwd_bwd_ms", "plain_fwd_bwd_ms", "sdpa_fwd_bwd_ms")} for part in ("encoder", "cross")},
     }, {
         "name": "rwkv6_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
         "replaces": "src/repro/kernels/rwkv6_scan.py:90",
-        "launches": served_rwkv["launches"], "launches_by_entry": served_rwkv["by_entry"],
-        "max_abs_err": max(served_rwkv["shadow_err"],
+        "launches": served_rwkv["launches"] + rwkv_train,
+        "launches_by_entry": served_rwkv["by_entry"], "launches_phase_23": rwkv_train,
+        "max_abs_err": max(served_rwkv["shadow_err"], wkv_train["out"],
                            *(max(r["max_abs_err"], r.get("ref_err", 0.0)) for r in wkv.values())),
         **{key: wkv["prefill"][key]
            for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
@@ -5350,12 +5853,15 @@ def main() -> int:
         "strong_decay": {key: wkv["strong decay"][key]
                          for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                      "shape", "ref_err", "plain_ref_err")},
+        "training_forward": {key: wkv_train["row"][key] for key in KERNEL_KEYS},
+        "training_fwd_bwd": {key: wkv_train[key] for key in ("fwd_bwd_ms", "plain_fwd_bwd_ms")},
     }, {
         "name": "mamba_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
         "replaces": "src/repro/kernels/mamba_scan.py:66",
-        "launches": served_jamba["launches_scan"],
-        "max_abs_err": max(served_jamba["shadow_err"],
+        "launches": served_jamba["launches_scan"] + scan_train_n,
+        "launches_phase_23": scan_train_n,
+        "max_abs_err": max(served_jamba["shadow_err"], scan_train["out"],
                            *(max(r["max_abs_err"], r.get("ref_err", 0.0)) for r in scan.values())),
         **{key: scan[("model", "prefill")][key]
            for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
@@ -5364,6 +5870,8 @@ def main() -> int:
                    for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
         "contract": {key: scan[("contract", "prefill")][key]
                      for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+        "training_forward": {key: scan_train["row"][key] for key in KERNEL_KEYS + ("sfu_ms",)},
+        "training_fwd_bwd": {key: scan_train[key] for key in ("fwd_bwd_ms", "plain_fwd_bwd_ms")},
     }]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -86,20 +86,39 @@ def mamba_selective_scan_torch(
     """Plain PyTorch version of the model entry: the JAX model's chunked
     scan (``repro/models/mamba.py:102-123``), chunks of 256 tokens when they
     divide S, else one chunk, each forming da = exp(delta * A) and dbu =
-    (delta * u) * B over [B, c, E, N] before the sequential steps."""
-    S = delta.shape[1]
-    c = CHUNK if S % CHUNK == 0 else S
-    uf, bf, cf = u.float(), bm.float(), cm.float()
+    (delta * u) * B over [B, c, E, N] before the sequential steps
+    (``chunk_scan``)."""
     h = h0.float()
     ys = []
-    for c0 in range(0, S, c):
-        d_c = delta[:, c0:c0 + c].float()
-        da_c = torch.exp(d_c[..., None] * A)  # [B, c, E, N]
-        dbu_c = (d_c * uf[:, c0:c0 + c])[..., None] * bf[:, c0:c0 + c, None, :]
-        for t in range(c):
-            h = da_c[:, t] * h + dbu_c[:, t]
-            ys.append(torch.einsum("ben,bn->be", h, cf[:, c0 + t]))
-    return torch.stack(ys, dim=1), h
+    for c0, c1 in chunks(delta.shape[1]):
+        y, h = chunk_scan(delta[:, c0:c1], u[:, c0:c1], bm[:, c0:c1], cm[:, c0:c1], A, h)
+        ys.append(y)
+    return torch.cat(ys, dim=1), h
+
+
+def chunks(S: int) -> list[tuple[int, int]]:
+    """The [start, end) token ranges of the JAX model's scan: chunks of
+    CHUNK tokens when they divide S, else one chunk."""
+    c = CHUNK if S % CHUNK == 0 else S
+    return [(c0, c0 + c) for c0 in range(0, S, c)]
+
+
+def chunk_scan(d_c, u_c, b_c, c_c, A, h) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of the plain model entry from the state h [B, E, N] (JAX's
+    ``chunk_body``): da = exp(delta * A) and dbu = (delta * u) * B over
+    [B, c, E, N], the sequential steps, then y_t = h_t . C_t for every token
+    of the chunk in one contraction (the same sums over N as JAX's per-step
+    einsum; under autograd, two ops a token instead of JAX's per-step
+    einsum's several); (y [B, c, E], h after the chunk), float32."""
+    d_c = d_c.float()
+    da_c = torch.exp(d_c[..., None] * A)  # [B, c, E, N]
+    dbu_c = (d_c * u_c.float())[..., None] * b_c.float()[:, :, None, :]
+    hs = []
+    for da_t, dbu_t in zip(da_c.unbind(1), dbu_c.unbind(1)):
+        h = da_t * h + dbu_t
+        hs.append(h)
+    y = torch.einsum("bcen,bcn->bce", torch.stack(hs, dim=1), c_c.float())
+    return y, h
 
 
 def _same_device(*xs: torch.Tensor) -> None:

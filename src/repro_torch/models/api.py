@@ -13,13 +13,12 @@ tree itself (the ``param_infos`` tree as tensors, float32 masters):
 
   loss(params, batch)             (loss, {"ce", "zloss"}) on tokens, labels
 
-which only the dense family takes so far (the others' training: ROADMAP
-item 10s).
+for every family, through the family module's ``forward`` on the tree.
 
-A batch holds ``tokens`` [B, S] and, for the vlm, ``vis_embeds`` [B, P, D]
-(patch embeddings put before the tokens), for the encdec ``audio_embeds``
-[B, enc_seq, D] (the encoder's frame embeddings); ``prefill_extras`` gives
-their shapes.
+A batch holds ``tokens`` [B, S] (and, to train, ``labels`` [B, S]) and,
+for the vlm, ``vis_embeds`` [B, P, D] (patch embeddings put before the
+tokens), for the encdec ``audio_embeds`` [B, enc_seq, D] (the encoder's
+frame embeddings); ``prefill_extras`` gives their shapes.
 
 ``init`` draws the weights (``lm_infos`` with the float32 master dtype)
 from a ``torch.Generator`` on the target device, and ``init_cache`` makes
@@ -128,19 +127,30 @@ class Model:
         return params["lm_head"]
 
     def loss(self, params, batch: dict, *, mode: str | None = None):
-        """Training objective on the parameter tree: the final hidden states,
-        then the sequence-chunked cross-entropy (``transformer.
+        """Training objective on the parameter tree: the family's final
+        hidden states (the vlm's past its patches), then the
+        sequence-chunked cross-entropy (``transformer.
         chunked_cross_entropy``), as the JAX ``Model.loss``, which adds no
-        MoE auxiliary loss. ``mode`` as in ``layers.attention_apply``.
-        Dense family only."""
-        if self.cfg.family != "dense":
-            raise NotImplementedError(
-                f"training the {self.cfg.family} family needs gradients through its MoE "
-                "dispatch or its scan kernels (ROADMAP item 10s)")
-        hidden, _ = transformer.forward(params, self.cfg, batch["tokens"], return_hidden=True,
-                                        mode=mode)
+        MoE auxiliary loss. The batch's ``vis_embeds`` go before the tokens
+        of the transformer families, its ``audio_embeds`` (which the encdec
+        needs) to the encoder. ``mode`` picks the kernels' route, as in
+        ``layers.attention_apply``."""
+        cfg, tokens = self.cfg, batch["tokens"]
+        module, _ = FAMILIES[cfg.family]
+        if cfg.family == "encdec":
+            if "audio_embeds" not in batch:
+                raise KeyError("the encdec family's loss needs the batch's audio_embeds "
+                               "[B, enc_seq, D], the encoder's frame embeddings")
+            kw = {"audio_embeds": batch["audio_embeds"]}
+        elif cfg.family in PREFIX_FAMILIES:
+            kw = {"prefix_embeds": batch.get("vis_embeds")}
+        else:
+            kw = {}
+        hidden, _ = module.forward(params, cfg, tokens, return_hidden=True, mode=mode, **kw)
+        if cfg.family == "vlm" and "vis_embeds" in batch:
+            hidden = hidden[:, batch["vis_embeds"].shape[1]:, :]
         return transformer.chunked_cross_entropy(hidden, self.head_matrix(params),
-                                                 batch["labels"], self.cfg.vocab, self.cfg)
+                                                 batch["labels"], cfg.vocab, cfg)
 
     def prefill(self, lm: LM, batch: dict, cache: dict):
         """(last-position logits [B, 1, Vp], cache) after the prompt and,

@@ -9,13 +9,18 @@ FFN is MoE (16 experts, top-2) on odd sub-layers and the dense SwiGLU MLP on
 even ones. MoE dispatches per sequence at the prefill and over the whole
 batch in decode (``group``), as the JAX model does.
 
-``HybridLM`` is an ``nn.Module`` built from the JAX parameter tree:
-``embed`` [Vp, D], ``periods`` (each sub-layer's leaves stacked on a
-leading period axis), ``ln_f``, ``lm_head`` [D, Vp]. Its periods are a
-Python loop over per-period modules whose weights are views of the stacked
-tensors (the JAX package scans over the periods). Attention runs through
-the ``flash_attention`` kernel and Mamba's scan through ``mamba_scan`` on
-the card, their plain versions on the CPU.
+One function runs the LM: ``forward``, on the JAX parameter tree
+(``embed`` [Vp, D], ``periods`` with each sub-layer's leaves stacked on a
+leading period axis, ``ln_f``, ``lm_head`` [D, Vp]), its leaves cast to
+the compute dtype inside; its periods are a Python loop (the JAX package
+scans over them) and with ``cfg.remat == 'layer'`` each period is
+recomputed in the backward, as JAX's ``jax.checkpoint`` of its period
+body. ``HybridLM`` is the serving ``nn.Module``: per-period modules whose
+weights are views of the stacked tensors, and ``forward`` called on their
+compute-dtype copies. Attention runs through the ``flash_attention``
+kernel and Mamba's scan through ``mamba_scan`` on the card, their plain
+versions on the CPU; where a gradient is asked for, through their autograd
+Functions (``layers.FlashAttention``, ``mamba.SelectiveScan``).
 
 The cache is the JAX one: ``k`` and ``v`` [P, n_attn, B, max_len, Hkv, dh]
 in bf16 (``kv_cache_dtype`` is not read: JAX's hybrid keeps a bf16 cache
@@ -29,7 +34,9 @@ from typing import Mapping
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from ..tree import unstack
 from . import layers as L
 from . import mamba
 from .params import ParamInfo, stack_layers
@@ -143,6 +150,44 @@ class Period(nn.Module):
         return {sub: {blk: m.c for blk, m in blocks.items()} for sub, blocks in self.subs.items()}
 
 
+def forward(params: Mapping, cfg, tokens: torch.Tensor, *, periods=None,
+            cache: dict | None = None, last_only: bool = False, return_hidden: bool = False,
+            mode: str | None = None):
+    """The LM on a parameter tree (JAX ``forward``) on tokens [B, S]:
+    (logits [B, S or 1, Vp], new_cache), or with ``return_hidden`` the
+    final normed hidden states [B, S or 1, D] in their place, in the
+    compute dtype.
+
+    ``periods`` are the periods' parameter mappings (``pp`` of
+    ``_period_apply``; the serving module's compute-dtype copies); by
+    default the slices of ``params["periods"]``. With ``cache`` the call
+    appends S tokens at ``cache['len']`` and writes the new k/v rows,
+    ``h`` and ``conv`` into it in place; decode is this with S == 1.
+    Without a cache, where the embeddings carry a gradient,
+    ``cfg.remat == 'layer'`` recomputes each period in the backward."""
+    x = L.embed(params["embed"], tokens, cfg.compute_dtype)
+    S = x.shape[1]
+    offset = int(cache["len"]) if cache is not None else 0
+    positions = offset + torch.arange(S, device=x.device)
+    kw = dict(positions=positions, rope_cs=L.rope_tables(positions, cfg.d_head, cfg.rope_theta),
+              group="batch" if S == 1 else "seq", mode=mode)
+    if periods is None:
+        periods = unstack(params["periods"], cfg.n_layers // PERIOD)
+    remat = cfg.remat == "layer" and cache is None and x.requires_grad
+    for i, pp in enumerate(periods):
+        pcache = None if cache is None else dict({n: cache[n][i] for n in ("k", "v", "h", "conv")},
+                                                 len=offset)
+        x = (checkpoint(_period_apply, pp, x, cfg, use_reentrant=False, pcache=None, **kw)
+             if remat else _period_apply(pp, x, cfg, pcache=pcache, **kw))
+    new_cache = None if cache is None else dict(cache, len=offset + S)
+    if last_only:  # the norm is per position: normalise only what is kept
+        x = x[:, -1:, :]
+    x = L.norm_apply(params["ln_f"], x, cfg)
+    if return_hidden:
+        return x, new_cache
+    return L.mask_padded_logits(x @ params["lm_head"].to(cfg.compute_dtype), cfg.vocab), new_cache
+
+
 class HybridLM(L.Weights):
     """The hybrid LM on the device its weights lie on.
 
@@ -169,26 +214,7 @@ class HybridLM(L.Weights):
 
     def forward(self, tokens: torch.Tensor, *, cache: dict | None = None,
                 last_only: bool = False) -> tuple[torch.Tensor, dict | None]:
-        """Run the LM on tokens [B, S]: (logits [B, S or 1, Vp] in the compute
-        dtype, new_cache). With ``cache`` the call appends S tokens at
-        ``cache['len']`` and writes the new k/v rows, ``h`` and ``conv`` into
-        it; decode is this with S == 1."""
-        cfg = self.cfg
-        x = L.embed(self.c["embed"], tokens, cfg.compute_dtype)
-        S = x.shape[1]
-        offset = int(cache["len"]) if cache is not None else 0
-        positions = offset + torch.arange(S, device=x.device)
-        rope_cs = L.rope_tables(positions, cfg.d_head, cfg.rope_theta)
-        group = "batch" if S == 1 else "seq"
-        for i, period in enumerate(self.periods):
-            pcache = None if cache is None else {n: cache[n][i] for n in ("k", "v", "h", "conv")}
-            if pcache is not None:
-                pcache["len"] = offset
-            x = _period_apply(period.weights(), x, cfg, positions=positions, rope_cs=rope_cs,
-                              pcache=pcache, group=group, mode=self.mode)
-        new_cache = None if cache is None else dict(cache, len=offset + S)
-        if last_only:  # the norm is per position: normalise only what is kept
-            x = x[:, -1:, :]
-        x = self.ln_f(x)
-        logits = x @ self.c["lm_head"]
-        return L.mask_padded_logits(logits, cfg.vocab), new_cache
+        """The module-level ``forward`` on the compute-dtype copies."""
+        return forward(dict(self.c, ln_f=self.ln_f.c), self.cfg, tokens,
+                       periods=[period.weights() for period in self.periods], cache=cache,
+                       last_only=last_only, mode=self.mode)

@@ -19,12 +19,14 @@ An int8 cache is dequantized, as the JAX layer does it, into a fresh
 compute-dtype buffer of the rows the queries see, which the kernel then
 reads. ``chunked_attention``, the JAX models' own attention, is not on
 the forward path: it is the backward's. When q, k or v need a gradient
-(the training path), self-attention goes through ``FlashAttention``, an
-autograd Function whose forward is that same kernel call and whose
-backward differentiates ``chunked_attention`` recomputed from q, k and v,
-as JAX differentiates its jnp attention. MoE is the JAX
+(the training path), self- and cross-attention go through
+``FlashAttention``, an autograd Function whose forward is that same kernel
+call and whose backward differentiates ``chunked_attention`` recomputed
+from q, k and v, as JAX differentiates its jnp attention (``grad_route``
+picks it, as the WKV and the selective scan pick theirs). MoE is the JAX
 package's single-device path (sort-based dispatch into per-expert capacity
-buffers); its expert-parallel ``shard_map`` path is not ported.
+buffers, differentiated through its gathers and the top-k's values); its
+expert-parallel ``shard_map`` path is not ported.
 """
 from __future__ import annotations
 
@@ -236,8 +238,9 @@ def chunked_attention(
 
 
 class FlashAttention(torch.autograd.Function):
-    """Self-attention with a gradient: ``apply(q, k, v, causal, window,
-    chunk)`` on q [B, S, H, dh], k, v [B, S, Hkv, dh].
+    """Attention with a gradient: ``apply(q, k, v, causal, window, chunk)``
+    on q [B, Sq, H, dh], k, v [B, Skv, Hkv, dh] (self-attention, or
+    cross-attention on an encoder's rows).
 
     The forward is ``kernels.flash_attention.flash_attention``: the
     hand-written kernel on CUDA tensors (a launch like serving's, counted in
@@ -260,14 +263,29 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v = ctx.saved_tensors
         causal, window, chunk = ctx.opts
-        B, S, H, dh = q.shape
+        B, Sq, H, dh = q.shape
         Hkv = k.shape[2]
         with torch.enable_grad():
             qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-            out = chunked_attention(qg.view(B, S, Hkv, H // Hkv, dh), kg, vg, causal=causal,
+            out = chunked_attention(qg.view(B, Sq, Hkv, H // Hkv, dh), kg, vg, causal=causal,
                                     window=window, chunk=chunk)
             dq, dk, dv = torch.autograd.grad(out, (qg, kg, vg), dout.reshape(out.shape))
         return dq, dk, dv, None, None, None
+
+
+def grad_route(mode: str, *xs: torch.Tensor) -> bool:
+    """Whether a kernel call takes its autograd Function: where a gradient
+    is asked for through any of ``xs`` (the training forward). There the
+    Function's forward is the kernel on CUDA tensors, so ``mode`` may not
+    ask for the plain route on them, and 'cuda' needs CUDA tensors."""
+    if not (torch.is_grad_enabled() and any(x.requires_grad for x in xs)):
+        return False
+    if mode == "cuda":
+        ops.require_cuda(xs[0])
+    elif xs[0].is_cuda:
+        raise ValueError("the training forward on CUDA tensors runs the kernel; "
+                         f"mode={mode!r} asks for the plain route")
+    return True
 
 
 def attention_apply(
@@ -316,12 +334,7 @@ def attention_apply(
         mode = "cuda" if x.is_cuda else "torch"
     B, S = x.shape[:2]
     if cache is None:
-        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-            if mode == "cuda":
-                ops.require_cuda(q)
-            elif q.is_cuda:
-                raise ValueError("the training forward on CUDA tensors runs the kernel; "
-                                 f"mode={mode!r} asks for the plain route")
+        if grad_route(mode, q, k, v):
             out = FlashAttention.apply(q.contiguous(), k, v, causal, window, cfg.attn_chunk)
         else:
             out = ops.gqa_flash_attention(q.contiguous(), k, v, causal=causal, window=window,
@@ -383,7 +396,9 @@ def cross_attention_apply(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg,
     """Cross-attention of x [B, S, D] (no RoPE) on the encoder's K, V
     [B, T_enc, Hkv, dh]: every query sees every encoder row. The K, V may
     be the bf16 cache's rows under a float32 q (the kernel reads them as
-    they are; JAX casts them to float32, which changes no value)."""
+    they are; JAX casts them to float32, which changes no value). When a
+    gradient is asked for (``grad_route``) the attention is
+    ``FlashAttention``, non-causal over the encoder's rows."""
     dt = cfg.compute_dtype
     q = _project(x, p["wq"].to(dt))
     if cfg.qkv_bias:
@@ -391,7 +406,10 @@ def cross_attention_apply(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg,
     if mode is None:
         mode = "cuda" if x.is_cuda else "torch"
     k, v = enc_kv
-    out = ops.gqa_flash_attention(q.contiguous(), k, v, causal=False, mode=mode)
+    if grad_route(mode, q, k, v):
+        out = FlashAttention.apply(q.contiguous(), k, v, False, 0, cfg.attn_chunk)
+    else:
+        out = ops.gqa_flash_attention(q.contiguous(), k, v, causal=False, mode=mode)
     wo = p["wo"].to(dt)
     B, S = x.shape[:2]
     return out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])

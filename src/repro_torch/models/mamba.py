@@ -12,7 +12,10 @@ a depthwise causal convolution over the last d_conv tokens. The scan runs
 through ``kernels.ops.selective_scan``: the hand-written CUDA kernel for
 CUDA tensors, which forms the decays and inputs in registers, and its plain
 PyTorch version (the JAX model's chunked scan) for CPU tensors or wherever
-``mode='torch'`` is asked for.
+``mode='torch'`` is asked for. Where a gradient is asked for, it runs
+through ``SelectiveScan``, an autograd Function whose forward is that same
+kernel call and whose backward recomputes the plain scan one chunk at a
+time, as JAX's ``jax.checkpoint`` of its chunk body does.
 
 ``apply`` is a plain function on a mapping from the JAX parameter names to
 tensors; ``Mamba`` holds the weights (``layers.Weights``). As in the JAX
@@ -30,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..kernels.mamba_scan import chunk_scan, chunks, mamba_selective_scan
 from . import layers as L
 from .params import ParamInfo
 
@@ -87,12 +91,69 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y + b, up[:, -(K - 1):]
 
 
+class SelectiveScan(torch.autograd.Function):
+    """The selective scan with a gradient: ``apply(delta, u, B, C, A, h0)``
+    -> (y [B, S, E], hT [B, E, N]), both float32 (``ops.selective_scan``'s
+    contract).
+
+    The forward is ``kernels.mamba_scan.mamba_selective_scan``: the
+    hand-written kernel's model entry on CUDA tensors (counted in its
+    ``LAUNCHES``), the plain version on CPU tensors. It keeps its inputs.
+    The backward recomputes the plain scan in JAX's chunks
+    (``chunk_scan``): a pass without a graph for the state entering each
+    chunk, then each chunk in reverse, differentiated from its entering
+    state with the gradient of the state it leaves, which it hands to the
+    chunk before. So it holds one chunk's graph ([B, c, E, N] decays and
+    each token's state) at a time, where autograd through the whole token
+    loop would hold every token's. The JAX package has no backward kernel."""
+
+    @staticmethod
+    def forward(ctx, delta, u, bm, cm, A, h0):
+        ctx.save_for_backward(delta, u, bm, cm, A, h0)
+        ctx.set_materialize_grads(False)
+        return mamba_selective_scan(delta, u, bm, cm, A, h0)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, dhT):
+        delta, u, bm, cm, A, h0 = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        spans = chunks(delta.shape[1])
+        seq = (delta, u, bm, cm)
+        with torch.no_grad():  # the state entering each chunk
+            hs = [h0.float()]
+            for c0, c1 in spans[:-1]:
+                hs.append(chunk_scan(*(t[:, c0:c1] for t in seq), A, hs[-1])[1])
+        dh = dhT
+        dA = torch.zeros_like(A) if need[4] else None
+        parts = [[] for _ in seq]
+        for (c0, c1), h in zip(reversed(spans), reversed(hs)):
+            with torch.enable_grad():
+                xs = [t[:, c0:c1].detach().requires_grad_(n) for t, n in zip(seq, need)]
+                a = A.detach().requires_grad_(need[4])
+                h = h.detach().requires_grad_(need[5] or c0 > 0)
+                y, hT = chunk_scan(*xs, a, h)
+                outs = [(o, g) for o, g in ((y, None if dy is None else dy[:, c0:c1]), (hT, dh))
+                        if g is not None]
+                wrt = [t for t in (*xs, a, h) if t.requires_grad]
+                got = iter(torch.autograd.grad([o for o, _ in outs], wrt, [g for _, g in outs]))
+            for part, x in zip(parts, xs):
+                if x.requires_grad:
+                    part.append(next(got))
+            if a.requires_grad:
+                dA += next(got)
+            dh = next(got) if h.requires_grad else None
+        grads = [torch.cat(part[::-1], dim=1) if part else None for part in parts]
+        return (*grads, dA, dh if need[5] else None)
+
+
 def apply(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg, state: dict | None,
           mode: str | None = None) -> tuple[torch.Tensor, dict]:
     """Mamba block on x [B, S, D]: (out [B, S, D], {'h': [B, E, N] float32,
     'conv': [B, K - 1, E] bf16}). ``state`` holds the same keys or is None
     (a zero state); ``mode`` picks the scan route ('cuda' or 'torch'; None
-    follows x's device)."""
+    follows x's device). Where a gradient is asked for the scan is
+    ``SelectiveScan`` (``layers.grad_route``)."""
     B = x.shape[0]
     d_inner, dt_rank, d_state = dims(cfg)
     dt = cfg.compute_dtype
@@ -112,7 +173,10 @@ def apply(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg, state: dict | Non
           else torch.zeros((B, d_inner, d_state), dtype=torch.float32, device=x.device))
     if mode is None:
         mode = "cuda" if x.is_cuda else "torch"
-    y, hT = ops.selective_scan(delta, u, bm, cm, A, h0, mode=mode)
+    if L.grad_route(mode, delta, u, bm, cm, A, h0):
+        y, hT = SelectiveScan.apply(delta, u, bm, cm, A, h0)
+    else:
+        y, hT = ops.selective_scan(delta, u, bm, cm, A, h0, mode=mode)
 
     y = y.to(dt) + u * p["d_skip"].to(dt)
     y = y * F.silu(z)

@@ -10,14 +10,22 @@ Per head (key dim i, value dim j) the time mix runs the WKV6 recurrence
 with wlog_t = -exp(w_base + LoRA(x_t)) from the token-shift mix. It runs
 through ``kernels.ops.rwkv6_wkv``: the hand-written CUDA kernel for CUDA
 tensors, its plain PyTorch version (the JAX model's chunked form) for CPU
-tensors or wherever ``mode='torch'`` is asked for.
+tensors or wherever ``mode='torch'`` is asked for. Where a gradient is
+asked for, it runs through ``WKV``, an autograd Function whose forward is
+that same kernel call and whose backward differentiates the plain version
+recomputed from its inputs, as JAX differentiates its chunked WKV.
 
-Each block is a plain function on a mapping from the JAX parameter names
-to tensors (``time_mix``, ``channel_mix``, ``_layer_apply``) and an
-``nn.Module`` holding the float32 masters (``layers.Weights``). As in the
-JAX layers, the decay's leaves (``w_base``, ``w_lora_a``, ``w_lora_b``),
-the bonus ``u`` and the group norm's scale stay float32 whatever the
-compute dtype; the rest is cast to it.
+One function runs the LM: ``forward``, on a parameter tree in the JAX
+layout (``embed``, ``layers`` stacked on a leading layer axis, ``ln_f``,
+``lm_head``), its leaves cast to the compute dtype inside, with
+``cfg.remat == 'layer'`` recomputing each layer in the backward. Each
+block is a plain function on a mapping from the JAX parameter names to
+tensors (``time_mix``, ``channel_mix``, ``_layer_apply``) and an
+``nn.Module`` holding the float32 masters (``layers.Weights``); ``RWKVLM``
+calls ``forward`` on its modules' compute-dtype copies. As in the JAX
+layers, the decay's leaves (``w_base``, ``w_lora_a``, ``w_lora_b``), the
+bonus ``u`` and the group norm's scale stay float32 whatever the compute
+dtype; the rest is cast to it.
 
 The cache is the JAX one: per layer the WKV state ``wkv`` [L, B, H, dh, dh]
 in float32, the token-shift rows ``shift_t`` and ``shift_c`` [L, B, D] in
@@ -26,13 +34,17 @@ bf16 whatever the compute dtype, and ``len``, here a host ``int``.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Mapping
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
+from ..kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_torch
+from ..tree import unstack
 from . import layers as L
 from .params import ParamInfo, stack_layers
 
@@ -106,12 +118,44 @@ def _token_shift(x: torch.Tensor, prev: torch.Tensor | None) -> torch.Tensor:
     return torch.cat([pad, x[:, :-1]], dim=1)
 
 
+class WKV(torch.autograd.Function):
+    """The WKV6 recurrence with a gradient: ``apply(r, k, v, wlog, u, s0)``
+    -> (y [B, S, H, dh], sT [B, H, dh, dh]), both float32.
+
+    The forward is ``kernels.rwkv6_scan.rwkv6_scan``: the hand-written
+    kernel on CUDA tensors (its chunked tensor-core entry for bf16 r/k/v
+    with S > 1, counted in its ``LAUNCHES``), the plain version on CPU
+    tensors. It keeps its inputs. The backward recomputes
+    ``rwkv6_scan_torch`` (JAX's ``wkv_chunked``, the function JAX
+    differentiates) from them and returns its gradients, ds0 only where s0
+    needs one. The JAX package has no backward kernel."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, wlog, u, s0):
+        ctx.save_for_backward(r, k, v, wlog, u, s0)
+        ctx.set_materialize_grads(False)
+        return rwkv6_scan(r, k, v, wlog, u, s0)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, dsT):
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+            y, sT = rwkv6_scan_torch(*xs)
+            outs = [(o, g) for o, g in ((y, dy), (sT, dsT)) if g is not None]
+            wrt = [x for x in xs if x.requires_grad]
+            grads = iter(torch.autograd.grad([o for o, _ in outs], wrt, [g for _, g in outs]))
+        return tuple(next(grads) if n else None for n in need)
+
+
 def time_mix(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg, state: dict | None,
              mode: str | None = None):
     """RWKV6 time mixing of x [B, S, D]: (out [B, S, D], {'wkv': sT, 'shift':
     x[:, -1]}). ``state`` is {'wkv': [B, H, dh, dh], 'shift': [B, D]} or
     None; ``mode`` picks the WKV route ('cuda' or 'torch'; None follows
-    x's device)."""
+    x's device). Where a gradient is asked for the WKV is ``WKV``
+    (``layers.grad_route``)."""
     H, dh = cfg.d_model // cfg.rwkv_head_size, cfg.rwkv_head_size
     dt = cfg.compute_dtype
     B, S, _ = x.shape
@@ -132,7 +176,10 @@ def time_mix(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg, state: dict | 
           else torch.zeros((B, H, dh, dh), dtype=torch.float32, device=x.device))
     if mode is None:
         mode = "cuda" if x.is_cuda else "torch"
-    y, sT = ops.rwkv6_wkv(r, k, v, wlog, p["bonus"], s0, mode=mode)
+    if L.grad_route(mode, r, k, v, wlog, p["bonus"], s0):
+        y, sT = WKV.apply(r, k, v, wlog, p["bonus"], s0)
+    else:
+        y, sT = ops.rwkv6_wkv(r, k, v, wlog, p["bonus"], s0, mode=mode)
 
     # per-head group norm (RMS, no mean), then the SiLU gate
     var = (y * y).mean(-1, keepdim=True)
@@ -158,7 +205,7 @@ def channel_mix(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg, state: dict
 
 
 def _layer_apply(p: Mapping[str, Mapping[str, torch.Tensor]], x: torch.Tensor, cfg,
-                 state: dict | None, mode: str | None = None):
+                 state: dict | None = None, mode: str | None = None):
     """One layer: (x', {'wkv', 'shift_t', 'shift_c'}); ``state`` holds the
     same keys or is None."""
     st_t = None if state is None else {"wkv": state["wkv"], "shift": state["shift_t"]}
@@ -168,6 +215,50 @@ def _layer_apply(p: Mapping[str, Mapping[str, torch.Tensor]], x: torch.Tensor, c
     h, new_c = channel_mix(p["channel"], L.norm_apply(p["ln2"], x, cfg), cfg, st_c)
     x = x + h
     return x, {"wkv": new_t["wkv"], "shift_t": new_t["shift"], "shift_c": new_c["shift"]}
+
+
+#: the cache's per-layer states
+STATES = ("wkv", "shift_t", "shift_c")
+
+
+def forward(params: Mapping, cfg, tokens: torch.Tensor, *, layers=None,
+            cache: dict | None = None, last_only: bool = False, return_hidden: bool = False,
+            mode: str | None = None):
+    """The LM on a parameter tree (JAX ``forward``) on tokens [B, S]:
+    (logits [B, S or 1, Vp], new_cache), or with ``return_hidden`` the
+    final normed hidden states [B, S or 1, D] in their place, in the
+    compute dtype.
+
+    ``layers`` are per-layer callables ``(x, state=, mode=) -> (x, new
+    state)`` (the serving module's ``RWKVLayer``s); by default
+    ``_layer_apply`` on each layer's slice of ``params["layers"]``. With
+    ``cache`` the call continues from its states and writes the new ones
+    into it in place (the shift rows rounded to bf16); decode is this with
+    S == 1. Without a cache, where the embeddings carry a gradient,
+    ``cfg.remat == 'layer'`` recomputes each layer in the backward (JAX
+    checkpoints every layer and, scanning, every eighth carry too: the same
+    gradients)."""
+    x = L.embed(params["embed"], tokens, cfg.compute_dtype)
+    if layers is None:
+        layers = [partial(_layer_apply, lp, cfg=cfg) for lp in unstack(params["layers"],
+                                                                       cfg.n_layers)]
+    remat = cfg.remat == "layer" and cache is None and x.requires_grad
+    for i, layer in enumerate(layers):
+        if remat:
+            x = checkpoint(lambda h, layer=layer: layer(h, mode=mode)[0], x, use_reentrant=False)
+            continue
+        state = None if cache is None else {n: cache[n][i] for n in STATES}
+        x, new = layer(x, state=state, mode=mode)
+        if cache is not None:
+            for n in STATES:
+                cache[n][i].copy_(new[n])
+    new_cache = None if cache is None else dict(cache, len=int(cache["len"]) + x.shape[1])
+    if last_only:  # the norm is per position: normalise only what is kept
+        x = x[:, -1:, :]
+    x = L.norm_apply(params["ln_f"], x, cfg)
+    if return_hidden:
+        return x, new_cache
+    return L.mask_padded_logits(x @ params["lm_head"].to(cfg.compute_dtype), cfg.vocab), new_cache
 
 
 class TimeMix(L.Weights):
@@ -227,22 +318,6 @@ class RWKVLM(L.Weights):
 
     def forward(self, tokens: torch.Tensor, *, cache: dict | None = None,
                 last_only: bool = False) -> tuple[torch.Tensor, dict | None]:
-        """Run the LM on tokens [B, S]: (logits [B, S or 1, Vp] in the compute
-        dtype, new_cache). With ``cache`` the call continues from its states
-        and writes the new ones into it (the shift rows rounded to bf16);
-        decode is this with S == 1."""
-        cfg = self.cfg
-        x = L.embed(self.c["embed"], tokens, cfg.compute_dtype)
-        for i, layer in enumerate(self.layers):
-            state = None if cache is None else {n: cache[n][i]
-                                                for n in ("wkv", "shift_t", "shift_c")}
-            x, new = layer(x, state, mode=self.mode)
-            if cache is not None:
-                for n in ("wkv", "shift_t", "shift_c"):
-                    cache[n][i].copy_(new[n])
-        new_cache = None if cache is None else dict(cache, len=int(cache["len"]) + x.shape[1])
-        if last_only:  # the norm is per position: normalise only what is kept
-            x = x[:, -1:, :]
-        x = self.ln_f(x)
-        logits = x @ self.c["lm_head"]
-        return L.mask_padded_logits(logits, cfg.vocab), new_cache
+        """The module-level ``forward`` on the compute-dtype copies."""
+        return forward(dict(self.c, ln_f=self.ln_f.c), self.cfg, tokens, layers=self.layers,
+                       cache=cache, last_only=last_only, mode=self.mode)

@@ -36,6 +36,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..tree import unstack
 from . import layers as L
 from .params import ParamInfo, stack_layers
 
@@ -108,15 +109,6 @@ class DecoderLayer(nn.Module):
         return layer_apply({n: m.c for n, m in self.named_children()}, x, self.cfg, **kw)
 
 
-def unstack_layers(stacked: Mapping, n_layers: int) -> list[dict]:
-    """Per-layer views of the stacked layer tree ({block: {name: [L, ...]}}),
-    each leaf unbound once, so the backward stacks the layers' gradients in
-    one op."""
-    parts = {blk: {n: t.unbind(0) for n, t in d.items()} for blk, d in stacked.items()}
-    return [{blk: {n: ts[i] for n, ts in d.items()} for blk, d in parts.items()}
-            for i in range(n_layers)]
-
-
 def forward(params: Mapping, cfg, tokens: torch.Tensor, *, layers=None,
             prefix_embeds: torch.Tensor | None = None, cache: dict | None = None,
             last_only: bool = False, return_hidden: bool = False, mode: str | None = None):
@@ -147,7 +139,7 @@ def forward(params: Mapping, cfg, tokens: torch.Tensor, *, layers=None,
               mode=mode, group="batch" if S == 1 else "seq")
     if layers is None:
         layers = [partial(layer_apply, lp, cfg=cfg)
-                  for lp in unstack_layers(params["layers"], cfg.n_layers)]
+                  for lp in unstack(params["layers"], cfg.n_layers)]
     remat = cfg.remat == "layer" and cache is None and x.requires_grad
     for i, layer in enumerate(layers):
         if cache is not None:

@@ -55,6 +55,14 @@ def unzip(tree, parts, n: int) -> tuple:
     return tuple(tree_map(lambda _, t, i=i: t[i], tree, parts) for i in range(n))
 
 
+def unstack(tree, n: int) -> list:
+    """The n slices of a tree whose tensor leaves are stacked on a leading
+    axis of n (a model's layers or periods), each leaf unbound once, so the
+    backward stacks the slices' gradients in one op."""
+    parts = tree_map(lambda t: t.unbind(0), tree)
+    return [tree_map(lambda _, ts, i=i: ts[i], tree, parts) for i in range(n)]
+
+
 def structure(tree) -> str:
     """JAX's ``str(jax.tree_util.tree_structure(tree))`` for a tree of dicts,
     lists and tuples: ``PyTreeDef({'a': *, 'b': [*, *]})``."""

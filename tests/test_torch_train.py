@@ -268,17 +268,31 @@ def test_remat_on_and_off_give_equal_gradients():
 
 
 def test_training_modes_and_families_refused():
-    """``mode='cuda'`` on CPU tensors raises; the families whose training
-    is not ported raise and name ROADMAP item 10s; a compressed gradient
-    reduction (a data-parallel all-reduce) raises and names item 10p."""
+    """``mode='cuda'`` on CPU tensors raises; every other family's SMOKE
+    model now builds a finite loss with a gradient on its own draw (its
+    parity with JAX: ``tests/test_torch_train_*.py``); a compressed
+    gradient reduction (a data-parallel all-reduce) raises and names item
+    10p."""
     jcfg, tcfg = _configs()
     params = params_from_numpy(tcfg, _params_np("port", jcfg, tcfg), device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
         loss_and_grads(build_model(tcfg), params, _tb(_batch(tcfg.vocab)), mode="cuda")
+    rng = np.random.default_rng(0)
     for arch in ("moonshot-v1-16b-a3b", "rwkv6-7b", "jamba-v0.1-52b", "whisper-medium",
                  "internvl2-2b"):
-        with pytest.raises(NotImplementedError, match="10s"):
-            build_model(get_config(arch, smoke=True)).loss({}, {})
+        cfg = get_config(arch, smoke=True)
+        model = build_model(cfg)
+        b = _tb(_batch(cfg.vocab, S=32))
+        if cfg.family == "vlm":
+            b["vis_embeds"] = torch.from_numpy(
+                rng.normal(size=(2, cfg.vis_tokens, cfg.d_model)).astype(np.float32))
+        if cfg.family == "encdec":
+            b["audio_embeds"] = torch.from_numpy(
+                rng.normal(size=(2, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+        loss, _, grads = loss_and_grads(model, materialize(model.param_infos(),
+                                                           torch.Generator().manual_seed(0)), b)
+        assert bool(torch.isfinite(loss)) and float(loss) > 0, arch
+        assert all(bool(torch.isfinite(g).all()) for g in leaves(grads)), arch
     with pytest.raises(NotImplementedError, match="10p"):
         RunConfig(model=tcfg, shape="train_4k", grad_compression="int8")
     with pytest.raises(ValueError, match="grad_compression"):
