@@ -19,8 +19,9 @@ CUSUM scan and action loops are hand-written CUDA (``cusum_scan``,
 tensor twins, the server axis over a one-rank process group, and the
 training path of every LM family (``distributed.train_step``, whose
 gradients run through the flash, WKV and scan kernels' autograd
-Functions) -- in twenty-three phases (14 runs after 7; 18-23 after 13;
-15, 16 and 17 last), then the purity audit over all of it:
+Functions), and the dry run held to what the card measured -- in
+twenty-four phases (14 runs after 7; 18-24 after 13; 15, 16 and 17 last),
+then the purity audit over all of it:
 
   1. environment: torch and CUDA versions, the card's name and power limit;
   2. build: nvcc builds every kernel under ``src/repro_torch/kernels/csrc``;
@@ -292,9 +293,18 @@ Functions) -- in twenty-three phases (14 runs after 7; 18-23 after 13;
      tokens/s, peak memory at most 72 GiB); the WKV and scan Functions and
      whisper's cross and encoder attention at the training shape against
      the plain version and float64, with the kernels' rows there; each
-     SMOKE model's float32 loss and gradients on the card against the CPU.
+     SMOKE model's float32 loss and gradients on the card against the CPU;
+ 24. the dry run against the card (item 10f-b; no new step): ``launch.
+     dryrun`` on meta tensors for phase 22's model and shape, each of
+     phase 23's cuts and phase 9's serving cell (8 x 544 tokens, bf16
+     cache) on a 1 x 1 mesh: parameter counts equal to the trees the
+     phases ran, the state bytes (parameters, gradients, optimizer state,
+     serving copies, cache, batch) at most each phase's measured peak,
+     the predicted peak beside the measured one with their ratio, the
+     compute term (FLOPs / 989e12) beside phase 22's step ms, and no
+     device memory allocated by the dry run.
 
-Each of 18-23 prints its wall seconds. Then a JSON line with each kernel's numbers, the ``nvidia-smi`` name/power
+Each of 18-24 prints its wall seconds. Then a JSON line with each kernel's numbers, the ``nvidia-smi`` name/power
 line, and a last JSON line ``{"ok": true, "device": {...}}``. Any failed
 check raises, so the script exits nonzero; without a CUDA device, or
 without the repository beside it, it exits nonzero before printing a result.
@@ -313,12 +323,15 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+# published H100 SXM peaks (NVIDIA data sheet), kept in one place with the dry
+# run's: HBM3 bandwidth, fp32 non-tensor, dense bf16 tensor cores; the import
+# fails where the repository is missing
+from repro_torch.launch.roofline import FP32_FLOPS  # noqa: E402
+from repro_torch.launch.roofline import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.roofline import PEAK_FLOPS as BF16_FLOPS  # noqa: E402
+
 SEED = 0
-#: published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 non-tensor,
-#: dense bf16 tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-BF16_FLOPS = 989e12
 #: ex2 per second on the SFU: 16 per SM per clock, 132 SMs at the 1.98 GHz
 #: boost clock (H100 SXM; Hopper tuning guide's throughput table)
 SFU_EX2_PER_S = 16 * 132 * 1.98e9
@@ -4450,6 +4463,7 @@ def serve_arch(device, cfg, tag: str, *, requests: int, prompt_len: int, n_gen: 
                weight_gb=weight_bytes / 1e9, init_s=init_s, prefill_ms=1e3 * run.prefill_s,
                decode_ms=statistics.mean(decode_ms), tokens_per_s=requests * n_gen / total,
                peak_gib=peak / 2**30, worst_rel=worst_rel, prefill_rel=gaps[0][0], flips=flips,
+               cfg=cfg, requests=requests, tokens=prompt_len + n_gen,
                model=model, lm=lm, prompts=prompts, extras=extras, run=run)
     if on_card:
         out.update(profile_serving(model, lm, prompts, run, {kf: entry_counts(kf, FLASH_KERNELS)},
@@ -4912,7 +4926,8 @@ def train_full(tag: str, cfg, smoke: bool, steps: int, batch: int, seq: int, lr:
     n_params = sum(p.numel() for p in leaves(run.params))
     out = dict(launches=n_launch, losses=losses, grad_norms=norms, step_ms=step_ms,
                first_step_ms=1e3 * run.step_s[0], tokens_per_s=batch * seq / (step_ms / 1e3),
-               peak_gib=peak / 2**30, wall_s=wall, n_params=n_params)
+               peak_gib=peak / 2**30, wall_s=wall, n_params=n_params, cfg=cfg, batch=batch,
+               seq=seq)
     print(f"[{tag}] {cfg.name} {n_params / 1e9:.4f} B params, {steps} steps of {batch} x {seq} "
           f"tokens: losses {[round(x, 4) for x in losses]}, grad norms "
           f"{[round(x, 3) for x in norms]}; step {step_ms:.2f} ms (median of steps 2-{steps}; "
@@ -5257,7 +5272,7 @@ def train_family(tag: str, cfg, reckoned: float, steps: int, batch: int, seq: in
     out = dict(n_params=n_params, reckoned=reckoned, leaves=n_leaves, launches=launches,
                want=want, losses=losses, grad_norms=norms, step_ms=step_ms,
                first_step_ms=1e3 * step_s[0], tokens_per_s=tokens / (step_ms / 1e3),
-               peak_gib=peak, grad_check_s=check_s)
+               peak_gib=peak, grad_check_s=check_s, cfg=cfg, batch=batch, seq=seq)
     print(f"[{tag}] {cfg.name} ({cfg.family}, {cfg.n_layers} layers, {cfg.optimizer}) "
           f"{n_params / 1e9:.4f} B params (reckoned {reckoned / 1e9:.2f} B); all {n_leaves} "
           f"leaves' gradients finite and nonzero ({', '.join(ZERO_IN_EXACT)} finite; "
@@ -5529,6 +5544,98 @@ def phase_train_families(device, smoke: bool = False, steps: int = 4, batch: int
     return out
 
 
+def dryrun_case(tag: str, label: str, cfg, shape: dict, measured_gib: float,
+                n_params: int, count: bool) -> dict:
+    """The dry run of ``cfg`` at ``shape`` on a 1 x 1 mesh (``launch.dryrun``,
+    meta tensors): its parameter count against ``n_params`` (exact), its
+    state bytes at most ``measured_gib``; the predicted peak beside the
+    measured one. ``count`` adds the step's FLOPs and bytes (``run_cell``),
+    else only the memory breakdown. Returns the numbers."""
+    from repro_torch.configs import MeshConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+    from repro_torch.models.params import count_params
+
+    mesh = MeshConfig(data=1, model=1)
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    if count:
+        art = dryrun.run_cell(cfg, shape, mesh, mesh_label="1x1", verbose=False)
+        mem, peak = art.memory_breakdown, art.peak_memory_per_device
+    else:
+        art, mem = None, dryrun.memory(model, shape, mesh)
+        peak = dryrun.peak_bytes(mem)
+    seconds = time.perf_counter() - t0
+    predicted = count_params(model.param_infos())
+    state = dryrun.state_bytes(mem) / 2**30
+    check(predicted == n_params, f"{tag} {label}: the dry run counts {predicted} parameters, "
+          f"the phase ran {n_params}")
+    check(state <= measured_gib, f"{tag} {label}: predicted state "
+          f"{state:.3f} GiB exceeds the measured peak {measured_gib:.3f} GiB")
+    out = dict(n_params=predicted, state_gib=state, peak_gib=peak / 2**30,
+               measured_gib=measured_gib, ratio=peak / 2**30 / measured_gib,
+               state_ratio=state / measured_gib, seconds=seconds,
+               breakdown_gib={k: v / 2**30 for k, v in mem.items()})
+    if art is not None:
+        out.update(flops=art.flops, bytes=art.bytes_accessed, compute_ms=1e3 * art.terms()[
+            "compute_s"], memory_ms=1e3 * art.terms()["memory_s"], model_flops=art.model_flops)
+    print(f"[{tag}] {label}: {predicted} parameters (= the phase's); state "
+          f"{state:.3f} GiB <= measured peak {measured_gib:.3f} GiB (state / peak "
+          f"{out['state_ratio']:.3f}); predicted peak {out['peak_gib']:.3f} GiB, predicted / "
+          f"measured {out['ratio']:.3f} (" + ", ".join(f"{k} {v:.3f}" for k, v in
+                                                       out["breakdown_gib"].items())
+          + f" GiB); {seconds:.2f} s", flush=True)
+    return out
+
+
+def phase_dryrun(device, served: dict, trained: dict, families: dict) -> dict:
+    """Phase 24, the dry run against the card (ROADMAP item 10f-b), reusing
+    phases 9, 22 and 23 (no new step): ``dryrun_case`` for phase 22's
+    model at its shape (with the step's count: the compute term, FLOPs /
+    989e12, beside the measured step ms as a roofline fraction), for each
+    of phase 23's cuts at its shape and for phase 9's serving cell (a
+    prefill of its requests x prompt + generated tokens, bf16 cache); the
+    card's allocated memory must not move across the dry-run calls."""
+    import torch
+
+    tag = "24 dry run"
+    on_card = device.type == "cuda"
+    before = torch.cuda.memory_allocated() if on_card else 0
+    out = {}
+    cfg = trained["cfg"]
+    r = dryrun_case(tag, f"phase 22 {cfg.name} train {trained['batch']} x {trained['seq']}",
+                    cfg, {"seq_len": trained["seq"], "global_batch": trained["batch"],
+                          "kind": "train"}, trained["peak_gib"], trained["n_params"], True)
+    r["step_ms"] = trained["step_ms"]
+    r["roofline_fraction"] = r["compute_ms"] / trained["step_ms"]
+    print(f"[{tag}] phase 22's step: {r['flops']:.4g} FLOPs counted ({r['model_flops']:.4g} "
+          f"model FLOPs), compute term {r['compute_ms']:.2f} ms at {BF16_FLOPS:.3g} FLOP/s "
+          f"against the measured {trained['step_ms']:.2f} ms: roofline fraction "
+          f"{r['roofline_fraction']:.3f}; memory term {r['memory_ms']:.2f} ms "
+          f"({r['bytes']:.4g} unfused bytes)")
+    out["train"] = r
+    for arch, fam in families.items():
+        if arch == "seconds":
+            continue
+        fcfg = fam["cfg"]
+        seq = fam["seq"] if fcfg.family == "vlm" else text_len(fcfg, fam["seq"])
+        out[arch] = dryrun_case(tag, f"phase 23 {arch} cut ({fcfg.n_layers} layers) train "
+                                f"{fam['batch']} x {seq}", fcfg,
+                                {"seq_len": seq, "global_batch": fam["batch"], "kind": "train"},
+                                fam["peak_gib"], fam["n_params"], False)
+    scfg = served["cfg"]
+    out["serve"] = dryrun_case(tag, f"phase 9 {scfg.name} serve {served['requests']} x "
+                               f"{served['tokens']}", scfg,
+                               {"seq_len": served["tokens"], "global_batch": served["requests"],
+                                "kind": "prefill"}, served["peak_gib"], served["n_params"], True)
+    after = torch.cuda.memory_allocated() if on_card else 0
+    check(after == before, f"{tag}: the dry run moved the card's allocated memory "
+          f"{before} -> {after} bytes")
+    print(f"[{tag}] card memory allocated {before} bytes before and after the dry run")
+    out["allocated"] = (before, after)
+    return out
+
+
 def free_card_if(device) -> None:
     if device.type == "cuda":
         free_card()
@@ -5718,6 +5825,8 @@ def main() -> int:
     families = timed_phase("23 train families", phase_train_families, device)
     clock("phase_train_families")
     free_card()
+    timed_phase("24 dry run", lambda d: phase_dryrun(d, served, trained, families), device)
+    clock("phase_dryrun")
     # last, so that its profiled and captured runs leave nothing to the
     # serving phases' profiles
     obs = phase_observability(device, health)

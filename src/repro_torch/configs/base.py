@@ -4,13 +4,16 @@ Fields keep their JAX names and defaults, so a configuration reads the same
 in both packages; ``param_dtype`` and ``compute_dtype`` are torch dtypes
 (float32 master weights, bf16 compute). ``MeshConfig`` is copied too: the
 fleet controller's re-mesh plans (``distributed.fault_tolerance``) take it,
-and ``RunConfig``, every field kept, which the training step reads. The
-sharding rules are not copied: the port trains and serves on one card.
+and ``RunConfig``, every field kept, which the training step reads.
+``sharding_rules`` and ``batch_axes`` are JAX's logical-axis rules for the
+production meshes: the port trains and serves on one card, and the dry run
+(``launch.dryrun``) reads the rules to say what each device of a mesh would
+hold.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+from typing import Any, Mapping
 
 import torch
 
@@ -81,6 +84,21 @@ class ModelConfig:
     moe_combine_dtype: str = "f32"
     kv_cache_dtype: str = "bf16"  # bf16 | int8
 
+    @property
+    def is_subquadratic(self) -> bool:
+        """Archs that may run the long_500k shape (SSM / hybrid)."""
+        return self.family in ("ssm", "hybrid")
+
+    # The production mesh fixes TP = 16; kv head counts that do not divide
+    # it get a time-sharded KV cache.
+    TP_HINT = 16
+
+    @property
+    def kv_cache_time_sharded(self) -> bool:
+        """The KV cache's logical axes shard time, not kv heads, when the kv
+        heads do not divide TP."""
+        return self.n_kv_heads % self.TP_HINT != 0
+
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
@@ -128,3 +146,53 @@ class RunConfig:
     @property
     def shape_info(self) -> dict:
         return SHAPES[self.shape]
+
+
+# --- logical-axis -> mesh-axis rules (see models/params.py) -------------------
+
+def sharding_rules(cfg: ModelConfig, mesh: MeshConfig) -> dict[str, Any]:
+    """Resolve logical parameter/activation axes onto the production mesh
+    (JAX's rules, entry for entry).
+
+    TP ('model') shards heads / mlp hidden / vocab / experts. Under FSDP the
+    residual-stream dimension of the weights is also sharded over the data
+    axes, so float32 masters and optimizer state scale with the fleet.
+    ``layout='dp'`` is pure data parallelism over the whole mesh with FSDP
+    weights: no TP activation traffic, only the gradient reduction and the
+    per-layer weight gathers.
+    """
+    data_axes = ("pod", "data") if mesh.multi_pod else ("data",)
+    if cfg.layout == "dp":
+        all_axes = data_axes + ("model",)
+        return {
+            "layer": None,
+            "dmodel": all_axes,
+            "heads": None, "kv_heads": None, "mlp": None,
+            "vocab": None, "expert": None, "conv": None, "state": None,
+            "batch": all_axes,
+            "act_seq": None, "act_heads": None, "act_vocab": None,
+            "act_expert": None, "cache_time": None,
+        }
+    return {
+        "layer": None,
+        "dmodel": data_axes if cfg.fsdp else None,
+        "heads": "model",
+        "kv_heads": "model",
+        "mlp": "model",
+        "vocab": "model",
+        "expert": "model",
+        "expert_dmodel": data_axes if (cfg.fsdp and cfg.expert_fsdp) else None,
+        "conv": None,
+        "state": None,
+        # activation axes
+        "batch": data_axes,
+        "act_seq": "model",
+        "act_heads": "model",
+        "act_vocab": "model",
+        "act_expert": "model",
+        "cache_time": "model",
+    }
+
+
+def batch_axes(mesh: MeshConfig) -> tuple[str, ...]:
+    return ("pod", "data") if mesh.multi_pod else ("data",)

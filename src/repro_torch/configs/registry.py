@@ -14,7 +14,7 @@ from . import (
     tinyllama_1_1b,
     whisper_medium,
 )
-from .base import ModelConfig
+from .base import SHAPES, ModelConfig
 
 _MODULES = (
     llama3_2_3b,
@@ -38,3 +38,17 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     if arch not in table:
         raise KeyError(f"unknown --arch {arch!r}; known: {sorted(table)}")
     return table[arch]
+
+
+def cells(include_skipped: bool = False) -> list[tuple[str, str, str | None]]:
+    """All 40 (arch x shape) cells as (arch, shape, skip); a skipped cell
+    carries its reason: long_500k runs only on the subquadratic archs."""
+    out = []
+    for arch, cfg in ARCHS.items():
+        for shape in SHAPES:
+            skip = None
+            if shape == "long_500k" and not cfg.is_subquadratic:
+                skip = "SKIP(full-attention)"
+            if skip is None or include_skipped:
+                out.append((arch, shape, skip))
+    return out

@@ -42,6 +42,12 @@ Public API:
                                                   -- the online runtime
   AdaptiveEngine, AdaptiveResult                  -- the observe -> estimate
                                                      -> schedule loop
+  JobProfile, PodSpec, FleetState, pack_jobs, pair_degradation,
+  additive_degradations, roofline_degradations,
+  fleet_throughput_report                         -- (arch x shape) jobs packed
+                                                     onto pods (core.cluster;
+                                                     ChipSpec, TPU_V5E,
+                                                     H100_SXM, h100_pod there)
 """
 from .binpack_torch import (
     QUEUED,
@@ -71,6 +77,16 @@ from .binpack import (
     run_allocator,
 )
 from .calibrate import calibrate_alpha, pick_alpha, sweep_alpha
+from .cluster import (
+    FleetState,
+    JobProfile,
+    PodSpec,
+    additive_degradations,
+    fleet_throughput_report,
+    pack_jobs,
+    pair_degradation,
+    roofline_degradations,
+)
 from .contention import (
     additive_degradation,
     measure_pair_simulated,

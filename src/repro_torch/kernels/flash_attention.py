@@ -36,7 +36,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, meta
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
@@ -233,13 +233,16 @@ def flash_attention(
     On CUDA tensors the kernel runs on PyTorch's current stream and reads
     only the visible kv rows (with a window, from the first tile that holds
     a row some query of the CTA sees); ``Sq == 0`` returns an empty output
-    without a launch. CPU tensors go to the plain version.
+    without a launch. CPU tensors go to the plain version; meta tensors
+    get the output's shape only (``kernels.meta``), with no launch.
     """
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cuda or cpu (meta: shapes only), not {q.device}")
     _check(q, k, v, q_offset, window)
     if q.device.type == "cpu":
         return flash_attention_torch(q, k, v, causal=causal, q_offset=q_offset, window=window)
+    if q.device.type == "meta":
+        return meta.flash_attention(q, k, v, causal, q_offset, window)
     B, Sq, H, dh = q.shape
     if Sq == 0 or B == 0:
         return torch.empty((B, Sq, H, dh), dtype=q.dtype, device=q.device)

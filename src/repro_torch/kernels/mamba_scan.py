@@ -40,7 +40,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, meta
 
 STATE_DIMS = (4, 8, 16)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -242,8 +242,8 @@ def launch(lib: ctypes.CDLL, entry: str, inputs: tuple[torch.Tensor, ...],
 
 
 def _device_check(x: torch.Tensor, name: str) -> None:
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
+    if x.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"{name} runs on cuda or cpu (meta: shapes only), not {x.device}")
 
 
 def mamba_scan(
@@ -254,11 +254,14 @@ def mamba_scan(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The contract entry: (y [B, S, E], hT [B, E, N]), both float32 (see the
     module docstring). On CUDA tensors the kernel runs on PyTorch's current
-    stream; CPU tensors go to the plain version."""
+    stream; CPU tensors go to the plain version; meta tensors get the
+    outputs' shapes only (``kernels.meta``), with no launch."""
     _device_check(da, "mamba_scan")
     _check(da, dbu, c, h0)
     if da.device.type == "cpu":
         return mamba_scan_torch(da, dbu, c, h0)
+    if da.device.type == "meta":
+        return meta.mamba_scan(da, dbu, c, h0)
     with torch.cuda.device(da.device):
         y, hT = launch(_lib(), "contract", (da, dbu, c, h0),
                        torch.cuda.current_stream().cuda_stream)
@@ -277,11 +280,14 @@ def mamba_selective_scan(
     """The model entry: (y [B, S, E], hT [B, E, N]), both float32, with da
     and dbu formed inside the kernel (see the module docstring). On CUDA
     tensors the kernel runs on PyTorch's current stream; CPU tensors go to
-    the plain version."""
+    the plain version; meta tensors get the outputs' shapes only
+    (``kernels.meta``), with no launch."""
     _device_check(delta, "mamba_selective_scan")
     _check_model(delta, u, bm, cm, A, h0)
     if delta.device.type == "cpu":
         return mamba_selective_scan_torch(delta, u, bm, cm, A, h0)
+    if delta.device.type == "meta":
+        return meta.mamba_selective_scan(delta, u, bm, cm, A, h0)
     with torch.cuda.device(delta.device):
         y, hT = launch(_lib(), "model", (delta, u, bm, cm, A, h0),
                        torch.cuda.current_stream().cuda_stream)

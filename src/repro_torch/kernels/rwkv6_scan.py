@@ -36,7 +36,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, meta
 
 HEAD_DIMS = (16, 64)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -202,12 +202,15 @@ def rwkv6_scan(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(y [B, S, H, dh], sT [B, H, dh, dh]), both float32 (see the module
     docstring). On CUDA tensors the kernel's entry for the dtype and S runs
-    on PyTorch's current stream; CPU tensors go to the plain version."""
-    if r.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"rwkv6_scan runs on cuda or cpu, not {r.device}")
+    on PyTorch's current stream; CPU tensors go to the plain version; meta
+    tensors get the outputs' shapes only (``kernels.meta``), with no launch."""
+    if r.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"rwkv6_scan runs on cuda or cpu (meta: shapes only), not {r.device}")
     _check(r, k, v, wlog, u, s0)
     if r.device.type == "cpu":
         return rwkv6_scan_torch(r, k, v, wlog, u, s0)
+    if r.device.type == "meta":
+        return meta.rwkv6_scan(r, k, v, wlog, u, s0)
     with torch.cuda.device(r.device):
         name, y, sT = launch(_lib(), r, k, v, wlog, u, s0,
                              torch.cuda.current_stream().cuda_stream)

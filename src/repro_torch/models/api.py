@@ -31,7 +31,7 @@ import dataclasses
 
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import SHAPES, ModelConfig
 from ..device import resolve_device
 from . import encdec, hybrid, rwkv, transformer
 from .params import ParamInfo, map_infos, materialize
@@ -112,6 +112,30 @@ class Model:
         if cfg.family == "encdec":
             return {"audio_embeds": (batch, cfg.enc_seq, cfg.d_model)}
         return {}
+
+    def input_specs(self, shape: str | dict) -> dict:
+        """Meta tensors standing for one input shape (a key of SHAPES or a
+        dict of its keys), JAX's ``input_specs``: int32 tokens (and labels to
+        train), the vlm's patch and the encdec's frame embeddings in the
+        compute dtype; a decode step's one token per sequence."""
+        info = SHAPES[shape] if isinstance(shape, str) else shape
+        B, S, kind = info["global_batch"], info["seq_len"], info["kind"]
+        cfg = self.cfg
+
+        def spec(*dims, dtype=torch.int32):
+            return torch.empty(dims, dtype=dtype, device="meta")
+
+        if kind == "decode":
+            return {"tokens": spec(B, 1)}
+        if kind not in ("train", "prefill"):
+            raise ValueError(kind)
+        s_text = S - cfg.vis_tokens if cfg.family == "vlm" else S
+        out = {name: spec(*dims, dtype=cfg.compute_dtype)
+               for name, dims in self.prefill_extras(B).items()}
+        out["tokens"] = spec(B, s_text)
+        if kind == "train":
+            out["labels"] = spec(B, s_text)
+        return out
 
     def prefix_len(self, batch: dict) -> int:
         """Cache rows a prefill of ``batch`` writes before its tokens."""

@@ -41,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 from ..tree import unstack
 from . import layers as L
 from .params import ParamInfo, stack_layers
+from .transformer import kv_cache_axes
 
 
 def enc_layer_infos(cfg) -> dict:
@@ -79,7 +80,7 @@ def lm_infos(cfg) -> dict:
 def cache_infos(cfg, batch: int, max_len: int) -> dict:
     Hkv, dh = cfg.n_kv_heads, cfg.d_head
     kv = ParamInfo((cfg.n_layers, batch, max_len, Hkv, dh),
-                   ("layer", "batch", None, "kv_heads", None), "zeros", dtype=torch.bfloat16)
+                   kv_cache_axes(cfg), "zeros", dtype=torch.bfloat16)
     xkv = ParamInfo((cfg.n_layers, batch, cfg.enc_seq, Hkv, dh),
                     ("layer", "batch", None, "kv_heads", None), "zeros", dtype=torch.bfloat16)
     return {"k": kv, "v": kv, "xk": xkv, "xv": xkv}

@@ -86,9 +86,11 @@ def cache_infos(cfg, batch: int, max_len: int) -> dict:
     n_attn = sum(is_attn(cfg, i) for i in range(PERIOD))
     n_mamba = PERIOD - n_attn
     d_inner, _, d_state = mamba.dims(cfg)
+    kv_axes = (("layer", None, "batch", "cache_time", None, None)
+               if cfg.kv_cache_time_sharded
+               else ("layer", None, "batch", None, "kv_heads", None))
     kv = ParamInfo((n_p, n_attn, batch, max_len, cfg.n_kv_heads, cfg.d_head),
-                   ("layer", None, "batch", None, "kv_heads", None), "zeros",
-                   dtype=torch.bfloat16)
+                   kv_axes, "zeros", dtype=torch.bfloat16)
     return {
         "k": kv,
         "v": kv,

@@ -277,8 +277,13 @@ def grad_route(mode: str, *xs: torch.Tensor) -> bool:
     """Whether a kernel call takes its autograd Function: where a gradient
     is asked for through any of ``xs`` (the training forward). There the
     Function's forward is the kernel on CUDA tensors, so ``mode`` may not
-    ask for the plain route on them, and 'cuda' needs CUDA tensors."""
+    ask for the plain route on them, and 'cuda' needs CUDA tensors (or meta
+    ones, where the kernel gives shapes only: the dry run's count). On meta
+    tensors 'torch' takes autograd through the plain version, the dry run's
+    count of the plain route."""
     if not (torch.is_grad_enabled() and any(x.requires_grad for x in xs)):
+        return False
+    if mode == "torch" and xs[0].is_meta:
         return False
     if mode == "cuda":
         ops.require_cuda(xs[0])

@@ -27,7 +27,10 @@ as the fan-in of ``wi`` [E, D, 2, F] and ``wo`` [E, F, D] (1/sqrt(16) at
 jamba's 16 experts, not 1/sqrt(D) and 1/sqrt(F)): a random MoE layer's
 output would otherwise be thousands of times its input. Both are init
 choices of the port only; the parity tests carry the JAX weights across.
-The sharding axes of the JAX declaration are kept as names only.
+The sharding axes of the JAX declaration are kept as logical names;
+``partition_specs`` resolves them onto a mesh with JAX's rules, as a plain
+spec per leaf: a tuple with one entry per dimension, each None, a mesh-axis
+name or a tuple of names (the entries of JAX's ``PartitionSpec``).
 
 A leaf declared in another dtype than float32 is drawn in float32 slabs of
 at most ``SLAB`` elements, each cast into the leaf as it is drawn, so the
@@ -38,7 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable
+from typing import Any, Callable, Mapping
 
 import torch
 
@@ -119,3 +122,82 @@ def stack_layers(n: int, info_tree):
     return map_infos(
         lambda i: ParamInfo((n, *i.shape), ("layer", *i.axes), i.init, i.scale, i.dtype),
         info_tree)
+
+
+#: a leaf's sharding: per dimension None, a mesh-axis name or a tuple of names
+Spec = tuple
+
+
+def _axes_product(axes, sizes: Mapping[str, int]) -> int:
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        return sizes.get(axes, 1)
+    n = 1
+    for a in axes:
+        n *= sizes.get(a, 1)
+    return n
+
+
+def axis_names(axes) -> tuple:
+    """The mesh-axis names of one spec entry (None, a name or a tuple)."""
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def spec_entry(axes):
+    """One spec entry in JAX's normal form: a one-name tuple is the name."""
+    return axes[0] if isinstance(axes, tuple) and len(axes) == 1 else axes
+
+
+def partition_spec(info: ParamInfo, rules: Mapping[str, Any],
+                   axis_sizes: Mapping[str, int] | None = None) -> Spec:
+    """One leaf's spec: each logical axis through ``rules`` (name -> mesh
+    axes). With ``axis_sizes`` (mesh axis -> size), JAX's divisibility rules:
+      * a mesh axis that does not divide its dimension is dropped
+        (kv_heads = 4 on model = 16 -> replicated);
+      * a weight of 2^20 elements or more that so loses 'model' entirely
+        shards its 'dmodel' (contraction) dimension over 'model' instead,
+        where that divides.
+    """
+    resolved = [rules.get(a) if a is not None else None for a in info.axes]
+    if axis_sizes is None:
+        return tuple(spec_entry(a) for a in resolved)
+    out = []
+    for dim, axes in zip(info.shape, resolved):
+        n = _axes_product(axes, axis_sizes)
+        out.append(axes if (n > 1 and dim % n == 0) else (axes if n == 1 else None))
+    uses_model = any("model" in axis_names(a) for a in out)
+    big = math.prod(info.shape) >= (1 << 20)
+    if not uses_model and big and "model" in axis_sizes:
+        for i, (dim, logical) in enumerate(zip(info.shape, info.axes)):
+            if logical != "dmodel":
+                continue
+            combined = axis_names(out[i]) + ("model",)
+            if dim % _axes_product(combined, axis_sizes) == 0:
+                out[i] = combined
+                break
+    return tuple(spec_entry(a) for a in out)
+
+
+def partition_specs(tree, rules: Mapping[str, Any], axis_sizes: Mapping[str, int] | None = None):
+    """``partition_spec`` of every ParamInfo leaf (JAX's ``partition_specs``)."""
+    return map_infos(lambda info: partition_spec(info, rules, axis_sizes), tree)
+
+
+def shard_factor(spec: Spec, axis_sizes: Mapping[str, int]) -> int:
+    """Devices a leaf of ``spec`` is split over: the product of the sizes of
+    the mesh axes that shard it."""
+    return math.prod(_axes_product(a, axis_sizes) for a in spec)
+
+
+def info_leaves(tree) -> list[ParamInfo]:
+    """The ParamInfo leaves of a nested dict, in sorted key order."""
+    if isinstance(tree, ParamInfo):
+        return [tree]
+    return [leaf for k in sorted(tree) for leaf in info_leaves(tree[k])]
+
+
+def count_params(tree) -> int:
+    return sum(math.prod(i.shape) for i in info_leaves(tree))

@@ -66,9 +66,17 @@ def lm_infos(cfg) -> dict:
     return d
 
 
+def kv_cache_axes(cfg) -> tuple:
+    """The KV cache's logical axes (JAX's): time-sharded when the kv heads
+    do not divide TP (``cfg.kv_cache_time_sharded``)."""
+    if cfg.kv_cache_time_sharded:
+        return ("layer", "batch", "cache_time", None, None)
+    return ("layer", "batch", None, "kv_heads", None)
+
+
 def cache_infos(cfg, batch: int, max_len: int) -> dict:
     int8 = cfg.kv_cache_dtype == "int8"
-    axes = ("layer", "batch", None, "kv_heads", None)
+    axes = kv_cache_axes(cfg)
     kv = ParamInfo((cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head), axes, "zeros",
                    dtype=torch.int8 if int8 else torch.bfloat16)
     d = {"k": kv, "v": kv}

@@ -212,8 +212,11 @@ def test_wrapper_contract():
         km.mamba_selective_scan(delta, u, bm, cm, A[:4], h)
     with pytest.raises(ValueError, match="u must be contiguous"):
         km.mamba_selective_scan(delta, torch.zeros(1, 3, 16)[..., ::2], bm, cm, A, h)
-    with pytest.raises(ValueError, match="runs on cuda or cpu"):
-        km.mamba_scan(*(x.to("meta") for x in (da, dbu, c, h0)))
+    # meta tensors (the dry run): the outputs' shapes, no launch
+    y, hT = km.mamba_scan(*(x.to("meta") for x in (da, dbu, c, h0)))
+    assert y.is_meta and y.shape == da.shape[:3] and hT.shape == h0.shape
+    y, hT = km.mamba_selective_scan(*(x.to("meta") for x in margs))
+    assert y.is_meta and y.shape == margs[0].shape and hT.shape == margs[-1].shape
     assert not km.LAUNCHES  # the CPU route never launches the kernel
 
 

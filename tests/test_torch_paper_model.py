@@ -157,11 +157,9 @@ def test_corun_grid_and_makespans_bitwise(name, rs):
 RENAMED = {"brute_force_jax": "brute_force_torch", "greedy_sequence_jax": "greedy_sequence",
            "local_search_jax": "local_search_torch",
            "score_candidates_jnp": "score_candidates_torch"}
-#: repro.core names of core/cluster.py (TPU job packing with TPU constants),
-#: which comes with training and the data path (ROADMAP item 10f)
-NOT_YET = {"FleetState", "JobProfile", "PodSpec", "additive_degradations",
-           "fleet_throughput_report", "pack_jobs", "pair_degradation",
-           "roofline_degradations"}
+#: repro.core names the port does not have yet (none: core/cluster.py's
+#: eight names are ported)
+NOT_YET: set = set()
 
 
 def test_core_exports_cover_repro_core():

@@ -176,9 +176,11 @@ def test_wrapper_contract():
         ks.rwkv6_scan(r.transpose(2, 3).contiguous().transpose(2, 3), k, v, wlog, u, s0)
     with pytest.raises(ValueError, match="s0 must be contiguous"):
         ks.rwkv6_scan(r, k, v, wlog, u, s0.transpose(2, 3))
-    with pytest.raises(ValueError, match="runs on cuda or cpu"):
-        ks.rwkv6_scan(r.to("meta"), k.to("meta"), v.to("meta"), wlog.to("meta"),
-                      u.to("meta"), s0.to("meta"))
+    # meta tensors (the dry run): the outputs' shapes in float32, no launch
+    y, sT = ks.rwkv6_scan(r.to("meta"), k.to("meta"), v.to("meta"), wlog.to("meta"),
+                          u.to("meta"), s0.to("meta"))
+    assert y.is_meta and y.shape == r.shape and sT.shape == s0.shape
+    assert y.dtype == sT.dtype == torch.float32
     assert not ks.LAUNCHES  # the CPU route never launches the kernel
 
 
