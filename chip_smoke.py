@@ -259,9 +259,9 @@ then the purity audit over all of it:
      beside the kernel's alone, the plain route's, SDPA's on the
      dequantized rows and a bound that reads the codes and scales once;
  19. the MoE LM (item 10d): ``moonshot-v1-16b-a3b`` at its published
-     widths and depth (48 layers, 64 experts, top 6) with bf16 weights
-     (28.06 B parameters, 56.1 GB, held to the count reckoned from the
-     widths) through ``serve_arch`` (48 x 32 flash launches); then the
+     widths (64 experts, top 6) cut to 24 of its 48 layers with bf16
+     weights (14.36 B parameters, 28.7 GB, held to the count reckoned from
+     the widths) through ``serve_arch`` (24 x 32 flash launches); then the
      kimi and moonshot SMOKE models at f32 compute on the card against the
      CPU (``smoke_card_matches_cpu``: teacher-forced logits within 1e-3,
      tokens equal; kimi at seeds 0, 1 and 2, each up to a near-tie, where
@@ -302,9 +302,30 @@ then the purity audit over all of it:
      serving copies, cache, batch) at most each phase's measured peak,
      the predicted peak beside the measured one with their ratio, the
      compute term (FLOPs / 989e12) beside phase 22's step ms, and no
-     device memory allocated by the dry run.
+     device memory allocated by the dry run;
+ 25. the decoder LMs on a (data, model) mesh (item 10p, first half; after
+     24): the collectives' NCCL form at a one-rank group (each collective
+     and autograd pair, a SMOKE step at (1, 1) equal to the one-process
+     step), then two processes on the one card in a gloo group
+     (``python3 chip_smoke.py --tp-rank R DIR``), each case held to the
+     same card's one-process route run by each rank in turn: (a)
+     ``tinyllama-1.1b`` at full width and depth on (1, 2), 8 x (512 + 32)
+     served in bf16 (22 x 32 flash launches a rank, logits within
+     REPLAY_TOL and tokens equal but at near-ties) and one float32 step at
+     4 x 1024 (loss, grad norm, m within phase 22's card-vs-CPU
+     tolerances); (b) ``llama3.2-3b`` at full width cut to 4 layers,
+     sequence-sharded attention, float32 forward and backward (loss and
+     every gradient within those tolerances) and bf16 (rank 1 launches the
+     prefill entry at Sq 512, Skv 1024, q_offset 512); (c)
+     ``moonshot-v1-16b-a3b`` at full width and depth 2, expert-parallel,
+     combine f32 and bf16; (d) ``tinyllama-1.1b`` cut to 2 layers on
+     (2, 1), 3 steps with each gradient compression ('none' equal to one
+     process on the whole batch, bf16 and int8 within 1e-2 of it, their
+     residuals nonzero and finite); each case's wall, peak GiB a rank and
+     collectives by kind; then the kernel at rank 1's sequence-sharded
+     prefill shape against its plain version and SDPA.
 
-Each of 18-24 prints its wall seconds. Then a JSON line with each kernel's numbers, the ``nvidia-smi`` name/power
+Each of 18-25 prints its wall seconds. Then a JSON line with each kernel's numbers, the ``nvidia-smi`` name/power
 line, and a last JSON line ``{"ok": true, "device": {...}}``. Any failed
 check raises, so the script exits nonzero; without a CUDA device, or
 without the repository beside it, it exits nonzero before printing a result.
@@ -4580,12 +4601,17 @@ def moe_params(cfg) -> int:
     return cfg.n_layers * layer + 2 * padded_vocab(cfg.vocab) * D + D
 
 
+#: phase 19 serves moonshot at its published widths cut to this depth (of
+#: 48), which pays for phase 25's time within the script's limit
+MOE_SERVE_LAYERS = 24
+
+
 def phase_serve_moe(device, smoke: bool = False, requests: int = 8, prompt_len: int = 512,
                     n_gen: int = 32) -> dict:
     """Phase 19, the MoE LM: ``moonshot-v1-16b-a3b`` at its published widths
-    and depth (48 layers, 64 experts, top 6) with bf16 weights (56 GB, drawn
-    on the card), its parameter count held to ``moe_params``, through
-    ``serve_arch`` (48 x 32 flash launches; the teacher-forced replay within
+    (64 experts, top 6) cut to MOE_SERVE_LAYERS layers, with bf16 weights
+    (28.7 GB, drawn on the card), its parameter count held to ``moe_params``,
+    through ``serve_arch`` (24 x 32 flash launches; the teacher-forced replay within
     REPLAY_TOL); then the kimi and moonshot SMOKE models at f32 compute,
     whose tokens on the card must equal the CPU's (kimi's at three seeds,
     each up to a near-tie that float32 caches on both devices remove; its
@@ -4598,6 +4624,8 @@ def phase_serve_moe(device, smoke: bool = False, requests: int = 8, prompt_len: 
 
     tag = "19 serve moe"
     cfg = dc.replace(get_config("moonshot-v1-16b-a3b", smoke=smoke), param_dtype=torch.bfloat16)
+    if not smoke:
+        cfg = dc.replace(cfg, n_layers=MOE_SERVE_LAYERS)
     out = serve_arch(device, cfg, tag, requests=requests, prompt_len=prompt_len, n_gen=n_gen,
                      want_launches=cfg.n_layers * n_gen)
     from repro_torch.models.layers import padded_vocab
@@ -5636,6 +5664,498 @@ def phase_dryrun(device, served: dict, trained: dict, families: dict) -> dict:
     return out
 
 
+# --- phase 25: the decoder LMs on a (data, model) mesh -----------------------
+
+#: ranks of the two-process check: both on the one card, in a gloo group
+TP_RANKS = 2
+#: (b) llama3.2-3b at published width, depth 28 cut to this
+TP_LLAMA_LAYERS = 4
+#: (c) moonshot at published width, phase 23's depth
+TP_MOONSHOT_LAYERS = 2
+#: (d) tinyllama on (2, 1) at published width, depth 22 cut to this
+TP_DP_LAYERS = 2
+#: float32 routes against the one-process route: phase 22's card-against-CPU
+#: tolerances (the loss and the grad norm relative; a gradient, or m after
+#: one step = 0.1 x the clipped gradient, within 2e-5 of its leaf's largest |.|)
+TP_F32 = {"loss": TRAIN_F32_TOL["loss"], "grad_norm": TRAIN_F32_TOL["grad_norm"],
+          "grad": TRAIN_F32_TOL["m"]}
+#: the bf16 combine rounds the experts' partial outputs to bf16 (2^-9)
+#: before the all-reduce adds them: each gradient held as phases 22-23 hold
+#: a bf16 route's gradient (TRAIN_GRAD_TOL, 2e-2 of its leaf)
+TP_COMBINE_BF16_GRAD = TRAIN_GRAD_TOL
+#: (d): a compressed mean's losses within this of the plain mean's
+TP_COMPRESSED_LOSS = 1e-2
+
+
+def tp_turns(rank: int, fn):
+    """``fn()`` on each rank in turn, the other waiting at a barrier (the
+    one-process reference routes: one of them on the card at a time)."""
+    import torch.distributed as dist
+
+    out = None
+    for r in range(TP_RANKS):
+        if r == rank:
+            out = fn()
+            free_card()
+        dist.barrier()
+    return out
+
+
+def tp_leaf_gaps(local, full, specs, mesh) -> tuple[float, str]:
+    """The worst leaf gap: max |local - the rank's slice of full| over the
+    full leaf's largest |.|, and that leaf's path."""
+    from repro_torch.distributed.sharding import leaves_of_specs, local_shard
+    from repro_torch.optim.grad_utils import keystr
+    from repro_torch.tree import leaves, leaves_with_path
+
+    worst, where = 0.0, ""
+    for (path, a), b, spec in zip(leaves_with_path(local), leaves(full),
+                                  leaves_of_specs(specs)):
+        want = local_shard(b, spec, mesh.coords, mesh.sizes)
+        gap = float((a.double() - want.double()).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if gap > worst:
+            worst, where = gap, keystr(path)
+    return worst, where
+
+
+def tp_stats(t0: float) -> dict:
+    """Wall seconds since ``t0``, this process's peak GiB on the card, and
+    the collectives by (kind, axis) since the last reset."""
+    import torch
+    from repro_torch.distributed import collectives as C
+
+    torch.cuda.synchronize()
+    return {"wall_s": time.perf_counter() - t0,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "collectives": {f"{k}@{a}": n for (k, a), n in sorted(C.CALLS.items())}}
+
+
+def tp_reset() -> float:
+    import torch
+    from repro_torch.distributed import collectives as C
+    from repro_torch.kernels import flash_attention as kf
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    C.reset_calls()
+    kf.reset_launches()
+    return time.perf_counter()
+
+
+def tp_serve(rank: int, device, mesh) -> dict:
+    """(a) serving: tinyllama-1.1b at published width and depth, bf16, on
+    (1, 2): 8 requests of 512 prompt tokens and 32 generated through
+    ``launch.serve`` with the mesh context (each rank its heads and vocab
+    block), flash launched 22 x 32 times per rank; then, in turns, the
+    one-process route teacher-forced on the mesh's tokens: every call's
+    logits on the rank's vocab block within REPLAY_TOL of the rank's, and
+    no greedy token that differs where the top-2 gap is wider than that
+    (phase 9's replay rule)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.launch import serve
+
+    cfg = get_config("tinyllama-1.1b")
+    ctx = serve.build_model(cfg).mesh_context(mesh)
+    model, lm, prompts, extras = serve.prepare(cfg, requests=8, prompt_len=512, seed=SEED,
+                                               device=device, ctx=ctx)
+    t0 = tp_reset()
+    run = serve.generate(model, lm, prompts, 32, extras=extras, keep_logits=True, ctx=ctx)
+    out = tp_stats(t0)
+    out["launches"] = sum(kf.LAUNCHES.values())
+    check(out["launches"] == cfg.n_layers * 32,
+          f"25 (a): rank {rank} launched flash {out['launches']} times, want 22 x 32")
+    out.update(prefill_ms=1e3 * run.prefill_s, decode_ms=1e3 * statistics.median(run.decode_s))
+    del lm
+    free_card()
+
+    def dense():
+        m, dlm, p, _ = serve.prepare(cfg, requests=8, prompt_len=512, seed=SEED, device=device)
+        check(torch.equal(p, prompts), "25 (a): the two routes drew different prompts")
+        cache = m.init_cache(8, 512 + 32, device=device)
+        v_loc = run.logits[0].shape[-1]
+        gaps, flips, wide = [], 0, 0
+        for t in range(32):
+            if t == 0:
+                logits, cache = m.prefill(dlm, {"tokens": p}, cache)
+            else:
+                logits, cache = m.decode_step(dlm, cache, run.tokens[:, t - 1:t])
+            full = logits[:, -1, :].float()
+            block = full[:, rank * v_loc:(rank + 1) * v_loc]
+            mine = run.logits[t].float()
+            ok = torch.isfinite(mine).all() and torch.isfinite(block).all()
+            check(bool(ok), f"25 (a): non-finite logits at call {t}")
+            real = full[:, :cfg.vocab]
+            gaps.append(float((block - mine).abs().max()) / float(real.abs().max()))
+            differ = real.argmax(-1) != run.tokens[:, t]
+            top2 = real.topk(2, dim=-1).values
+            flips += int(differ.sum())
+            wide += int((differ & ((top2[:, 0] - top2[:, 1]) > REPLAY_TOL
+                                   * real.abs().max())).sum())
+        return max(gaps), flips, wide
+
+    out["logit_gap"], out["token_flips"], out["wide_flips"] = tp_turns(rank, dense)
+    check(out["logit_gap"] <= REPLAY_TOL and out["wide_flips"] == 0,
+          f"25 (a): rank {rank} logits {out['logit_gap']:.3g} from the one-process route "
+          f"(tol {REPLAY_TOL}), {out['wide_flips']} tokens differing past a near-tie")
+    out["tokens_identical"] = int(run.tokens.numel()) - out["token_flips"]
+    out["tokens"] = int(run.tokens.numel())
+    return out
+
+
+def tp_train_tiny(rank: int, device, mesh) -> dict:
+    """(a) training: tinyllama-1.1b at published width and depth, float32
+    compute, on (1, 2): one step of the sharded step at 4 x 1024 from the
+    chunk-store pipeline, flash launched 2 x 22 times (forward and remat
+    recompute); then, in turns, the one-process step from the same seed and
+    batch: the loss and grad norm within TP_F32, each leaf's m (0.1 x the
+    clipped gradient) within TP_F32['grad'] of its leaf."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.distributed.train_step import make_sharded_train_step, make_train_step
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), compute_dtype=torch.float32)
+    model = build_model(cfg)
+    run = RunConfig(model=cfg, shape="train_4k", learning_rate=3e-4, total_steps=4,
+                    warmup_steps=1)
+    init, step, ctx = make_sharded_train_step(model, run, mesh)
+    params, opt = init(torch.Generator(device).manual_seed(SEED))
+    batch = on_device(next(train_pipe(cfg, 4, 1024)), device)
+    t0 = tp_reset()
+    params, opt, met = step(params, opt, batch, 1)
+    out = tp_stats(t0)
+    out["launches"] = sum(kf.LAUNCHES.values())
+    check(out["launches"] == 2 * cfg.n_layers, f"25 (a) train: flash {out['launches']} times")
+    m_local = opt["m"]
+    del params, opt
+    free_card()
+
+    def dense():
+        dinit, dstep = make_train_step(model, run)
+        dp, do = dinit(torch.Generator(device).manual_seed(SEED))
+        _, do, dmet = dstep(dp, do, batch, 1)
+        return (float(dmet["loss"]), float(dmet["grad_norm"]),
+                tp_leaf_gaps(m_local, do["m"], ctx.specs, mesh))
+
+    loss, gn, (gap, leaf) = tp_turns(rank, dense)
+    out.update(loss=float(met["loss"]), grad_norm=float(met["grad_norm"]), dense_loss=loss,
+               dense_grad_norm=gn, m_gap=gap, m_gap_leaf=leaf)
+    check(abs(out["loss"] - loss) <= TP_F32["loss"] * abs(loss)
+          and abs(out["grad_norm"] - gn) <= TP_F32["grad_norm"] * gn and gap <= TP_F32["grad"],
+          f"25 (a) train: loss {out['loss']} / {loss}, grad norm {out['grad_norm']} / {gn}, "
+          f"m {gap:.3g} at {leaf}")
+    return out
+
+
+def tp_grads_case(tag: str, rank: int, device, mesh, cfg, batch: int, seq: int,
+                  tol: dict | None) -> dict:
+    """One forward and backward of ``cfg`` through the sharded route (the
+    rank's slices of the seed-0 draw, a batch from the pipeline), then in
+    turns the one-process ``loss_and_grads``: the loss and every leaf's
+    gradient within ``tol`` (None: no reference run; the loss and the
+    gradients finite)."""
+    import torch
+    from repro_torch.distributed.sharding import local_shards
+    from repro_torch.distributed.train_step import loss_and_grads, sharded_loss_and_grads
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.models import build_model, materialize
+    from repro_torch.tree import leaves, tree_map
+
+    model = build_model(cfg)
+    ctx = model.mesh_context(mesh)
+    full = materialize(model.param_infos(), torch.Generator(device).manual_seed(SEED))
+    params = tree_map(lambda t: t.contiguous().clone(),
+                      local_shards(full, ctx.specs, mesh.coords, mesh.sizes))
+    del full
+    b = on_device(next(train_pipe(cfg, batch, seq)), device)
+    t0 = tp_reset()
+    loss, _, grads, _ = sharded_loss_and_grads(model, ctx, params, b)
+    out = tp_stats(t0)
+    out["launches"] = {"/".join(map(str, key)): n for key, n in kf.LAUNCHES.items()}
+    del params
+    free_card()
+    if tol is None:
+        ok = bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all())
+                                                for g in leaves(grads))
+        check(ok, f"25 {tag}: rank {rank} non-finite loss or gradient")
+        out["loss"] = float(loss)
+        return out
+
+    def dense():
+        dp = materialize(model.param_infos(), torch.Generator(device).manual_seed(SEED))
+        dloss, _, dgrads = loss_and_grads(model, dp, b)
+        return float(dloss), tp_leaf_gaps(grads, dgrads, ctx.specs, mesh)
+
+    dloss, (gap, leaf) = tp_turns(rank, dense)
+    out.update(loss=float(loss), dense_loss=dloss, grad_gap=gap, grad_gap_leaf=leaf)
+    check(abs(float(loss) - dloss) <= tol["loss"] * abs(dloss) and gap <= tol["grad"],
+          f"25 {tag}: rank {rank} loss {float(loss)} / {dloss}, gradient {gap:.3g} at {leaf}")
+    return out
+
+
+def tp_dp_steps(rank: int, device, mesh) -> dict:
+    """(d) tinyllama at published width cut to TP_DP_LAYERS, float32, on
+    (2, 1): 3 steps of 4 x 512 (2 rows a rank) with grad_compression
+    'none', 'bf16' and 'int8'; then, in turns, 3 one-process steps on the
+    whole batch. 'none' matches them within TP_F32['loss']; 'bf16' and
+    'int8' stay within TP_COMPRESSED_LOSS of 'none', their error-feedback
+    residuals finite and not all zero."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.distributed.train_step import make_sharded_train_step, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), compute_dtype=torch.float32,
+                              n_layers=TP_DP_LAYERS)
+    model = build_model(cfg)
+    pipe = train_pipe(cfg, 4, 512)
+    batches = [on_device(next(pipe), device) for _ in range(3)]
+    out = {}
+    for method in ("none", "bf16", "int8"):
+        run = RunConfig(model=cfg, shape="train_4k", learning_rate=1e-3, total_steps=4,
+                        warmup_steps=1, grad_compression=method)
+        init, step, _ = make_sharded_train_step(model, run, mesh)
+        params, opt = init(torch.Generator(device).manual_seed(SEED))
+        t0 = tp_reset()
+        losses = []
+        for i, b in enumerate(batches):
+            params, opt, met = step(params, opt, b, i)
+            losses.append(float(met["loss"]))
+        out[method] = dict(tp_stats(t0), losses=losses)
+        if method != "none":
+            errs = leaves(opt["grad_errors"])
+            out[method]["residual_max"] = max(float(e.abs().max()) for e in errs)
+            check(all(bool(torch.isfinite(e).all()) for e in errs)
+                  and out[method]["residual_max"] > 0,
+                  f"25 (d): {method} residuals {out[method]['residual_max']}")
+            gap = max(abs(a - b) for a, b in zip(losses, out["none"]["losses"]))
+            check(gap <= TP_COMPRESSED_LOSS, f"25 (d): {method} losses {losses} against "
+                  f"none's {out['none']['losses']}")
+        del params, opt
+        free_card()
+    run = RunConfig(model=cfg, shape="train_4k", learning_rate=1e-3, total_steps=4,
+                    warmup_steps=1)
+
+    def dense():
+        dinit, dstep = make_train_step(model, run)
+        dp, do = dinit(torch.Generator(device).manual_seed(SEED))
+        ls = []
+        for i, b in enumerate(batches):
+            dp, do, met = dstep(dp, do, b, i)
+            ls.append(float(met["loss"]))
+        return ls
+
+    out["dense_losses"] = tp_turns(rank, dense)
+    gap = max(abs(a - b) / abs(b) for a, b in zip(out["none"]["losses"], out["dense_losses"]))
+    check(gap <= TP_F32["loss"], f"25 (d): none's losses {out['none']['losses']} against one "
+          f"process on the whole batch {out['dense_losses']}")
+    return out
+
+
+def tp_done(rank: int, out: dict, case: str) -> None:
+    """Print one case's numbers as it ends (the rank's log keeps them)."""
+    print(f"[25 tp rank {rank}] {case}: {json.dumps(out[case], default=str)}", flush=True)
+
+
+def tp_rank(rank: int, where: pathlib.Path) -> int:
+    """One rank of phase 25: both ranks on cuda:0 in a gloo group on a
+    FileStore in ``where``, cases (a)-(d); writes ``where/rank<r>.json``."""
+    import dataclasses
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.distributed.collectives import Mesh
+
+    device = resolve_device("cuda")
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(str(where / "store"), TP_RANKS),
+                            rank=rank, world_size=TP_RANKS)
+    out: dict = {}
+    try:
+        tp = Mesh.build(1, 2)
+        t0 = time.perf_counter()
+        out["a_serve"] = tp_serve(rank, device, tp)
+        tp_done(rank, out, "a_serve")
+        out["a_train"] = tp_train_tiny(rank, device, tp)
+        tp_done(rank, out, "a_train")
+        llama = dataclasses.replace(get_config("llama3.2-3b"), n_layers=TP_LLAMA_LAYERS)
+        out["b_llama"] = tp_grads_case(
+            "(b) llama f32", rank, device, tp,
+            dataclasses.replace(llama, compute_dtype=torch.float32), 4, 1024, TP_F32)
+        out["b_llama_bf16"] = tp_grads_case("(b) llama bf16", rank, device, tp, llama, 4, 1024,
+                                            None)
+        key = "mma/4/512/1024/24/8/128"
+        if rank == 1:
+            check(out["b_llama_bf16"]["launches"].get(key, 0) == 2 * TP_LLAMA_LAYERS,
+                  f"25 (b): rank 1's launches {out['b_llama_bf16']['launches']}, want the "
+                  f"prefill entry at Sq 512, Skv 1024 (q_offset 512) x {2 * TP_LLAMA_LAYERS}")
+        tp_done(rank, out, "b_llama")
+        tp_done(rank, out, "b_llama_bf16")
+        moon = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), n_layers=TP_MOONSHOT_LAYERS,
+                                   compute_dtype=torch.float32)
+        out["c_moe_f32"] = tp_grads_case("(c) moonshot f32 combine", rank, device, tp, moon, 4,
+                                         1024, TP_F32)
+        tp_done(rank, out, "c_moe_f32")
+        out["c_moe_bf16"] = tp_grads_case(
+            "(c) moonshot bf16 combine", rank, device, tp,
+            dataclasses.replace(moon, moe_combine_dtype="bf16"), 4, 1024,
+            {"loss": TP_F32["loss"] * 10, "grad": TP_COMBINE_BF16_GRAD})
+        tp_done(rank, out, "c_moe_bf16")
+        out["d_dp"] = tp_dp_steps(rank, device, Mesh.build(2, 1))
+        tp_done(rank, out, "d_dp")
+        out["seconds"] = time.perf_counter() - t0
+        with open(where / f"rank{rank}.json", "w") as f:
+            json.dump(out, f)
+        return 0
+    except Exception:
+        traceback.print_exc()
+        return 1
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_nccl(device) -> dict:
+    """The collectives' NCCL form at a one-rank group (as phase 16 runs
+    the server axis): each collective and autograd pair on a CUDA tensor
+    equals its one-rank value, and a SMOKE tinyllama step of the sharded
+    step at (1, 1) equals the one-process step bit for bit."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.collectives import Mesh
+    from repro_torch.distributed.train_step import make_sharded_train_step, make_train_step
+    from repro_torch.models import build_model
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = Mesh.build(1, 1)
+        check(mesh.nccl, f"25 nccl: the mesh's backend is {mesh.backend}")
+        C.reset_calls()
+        x = torch.randn(4, 6, device=device, requires_grad=True)
+        axes = ("data", "model")
+        for y in (mesh.all_reduce(x, axes), mesh.all_gather(x, axes, 1),
+                  mesh.reduce_scatter(x, axes, 1)):
+            check(torch.equal(y, x) and not y.requires_grad,
+                  "25 nccl: a one-rank collective changed its input")
+        dy = torch.randn(4, 6, device=device)
+        for y in (C.copy_to(x, mesh, axes), C.reduce_from(x, mesh, axes),
+                  C.gather_sum(x, mesh, axes, 1), C.gather_from(x, mesh, axes, 1),
+                  C.scatter_to(x, mesh, axes, 1)):
+            (g,) = torch.autograd.grad(y, x, dy)
+            check(torch.equal(y, x) and torch.equal(g, dy),
+                  "25 nccl: a one-rank pair changed its input or dy")
+        calls = dict(C.CALLS)
+        cfg = dataclasses.replace(get_config("tinyllama-1.1b", smoke=True),
+                                  compute_dtype=torch.float32)
+        model = build_model(cfg)
+        run = RunConfig(model=cfg, shape="train_4k", learning_rate=1e-2, total_steps=4,
+                        warmup_steps=1)
+        b = on_device(next(train_pipe(cfg, 4, 64)), device)
+        results = []
+        for make in (lambda: make_sharded_train_step(model, run, mesh)[:2],
+                     lambda: make_train_step(model, run)):
+            init, step = make()
+            p, o = init(torch.Generator(device).manual_seed(SEED))
+            p, o, met = step(p, o, b, 1)
+            results.append((float(met["loss"]), float(met["grad_norm"])))
+        check(results[0] == results[1], f"25 nccl: sharded (1, 1) step {results[0]}, one "
+              f"process {results[1]}")
+        print(f"[25 tp] NCCL one-rank group: 8 collectives and pairs equal their input, "
+              f"calls {calls}; a SMOKE step at (1, 1) equals the one-process step {results[1]}")
+        return {"calls": {f"{k}@{a}": n for (k, a), n in calls.items()}, "step": results[0]}
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tp(device) -> dict:
+    """Phase 25 (ROADMAP 10p, first half): the decoder LMs on a mesh. The
+    NCCL form at one rank (``tp_nccl``); then two processes on the one card
+    in a gloo group (``tp_rank``) run (a) tinyllama served and trained on
+    (1, 2), (b) llama3.2-3b's sequence-sharded attention, (c) moonshot
+    expert-parallel, combine f32 and bf16, (d) tinyllama on (2, 1) with
+    each gradient compression, each held to the same card's one-process
+    route; then the flash kernel at rank 1's sequence-sharded prefill shape
+    against its plain version and SDPA. Prints each case's wall, peak GiB
+    per rank and collectives by kind."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    nccl = tp_nccl(device)
+    free_card()
+    with tempfile.TemporaryDirectory() as tmp:
+        where = pathlib.Path(tmp)
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--tp-rank",
+                                   str(r), str(where)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(TP_RANKS)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        for r, p in enumerate(procs):
+            if p.returncode:
+                print(logs[r][-6000:], file=sys.stderr)
+            else:
+                print("\n".join(ln for ln in logs[r].splitlines() if ln.startswith("[25 tp")))
+            check(p.returncode == 0, f"25: rank {r} exited {p.returncode}")
+        ranks = [json.loads((where / f"rank{r}.json").read_text()) for r in range(TP_RANKS)]
+    launches = tp_report(ranks)
+    free_card()
+    gen = torch.Generator(device).manual_seed(SEED + 25)
+    q = torch.randn(4, 512, 24, 128, generator=gen, device=device).bfloat16()
+    k, v = (torch.randn(4, 1024, 8, 128, generator=gen, device=device).bfloat16()
+            for _ in range(2))
+    row = flash_row("25 tp", "llama3.2 seq-sharded prefill, rank 1", q, k, v, causal=True,
+                    q_offset=512)
+    seconds = time.perf_counter() - t_phase
+    print(f"[25 tp] flash launches on the sharded paths (both ranks) {launches}; rank walls "
+          f"{[round(rk['seconds'], 1) for rk in ranks]} s; phase {seconds:.1f} s")
+    return {"ranks": ranks, "nccl": nccl, "flash_row": row, "launches": launches,
+            "seconds": seconds}
+
+
+def tp_report(ranks: list) -> int:
+    """Print each case's wall, peak GiB and collectives per rank, and its
+    numbers; return the flash launches of the sharded runs on both ranks."""
+    for case in ("a_serve", "a_train", "b_llama", "b_llama_bf16", "c_moe_f32", "c_moe_bf16"):
+        print(f"[25 tp] {case}: " + "; ".join(
+            f"rank {r} {rk[case]['wall_s']:.2f} s, peak {rk[case]['peak_gib']:.3f} GiB, "
+            f"collectives {rk[case]['collectives']}" for r, rk in enumerate(ranks)))
+        print(f"[25 tp] {case}: " + json.dumps({k: v for k, v in ranks[1][case].items()
+                                               if k not in ("collectives",)}))
+    d = ranks[0]["d_dp"]
+    print(f"[25 tp] d_dp: one process on the whole batch {d['dense_losses']}; " + "; ".join(
+        f"{m}: losses {d[m]['losses']}, {d[m]['wall_s']:.2f} s, peak {d[m]['peak_gib']:.3f} "
+        f"GiB, residual max {d[m].get('residual_max', 0.0):.3g}, collectives "
+        f"{d[m]['collectives']}" for m in ("none", "bf16", "int8")))
+    return sum(rk["a_serve"]["launches"] + rk["a_train"]["launches"]
+                   + sum(rk["b_llama"]["launches"].values())
+                   + sum(rk["b_llama_bf16"]["launches"].values())
+                   + sum(rk["c_moe_f32"]["launches"].values())
+                   + sum(rk["c_moe_bf16"]["launches"].values()) for rk in ranks)
+
+
 def free_card_if(device) -> None:
     if device.type == "cuda":
         free_card()
@@ -5766,6 +6286,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  -- fails where the repository is missing
 
+    if sys.argv[1:2] == ["--tp-rank"]:  # one rank of phase 25, started by phase_tp
+        return tp_rank(int(sys.argv[2]), pathlib.Path(sys.argv[3]))
     device = torch.device("cuda")
     clock = start_clock()
     smi_line = phase_env()
@@ -5827,6 +6349,9 @@ def main() -> int:
     free_card()
     timed_phase("24 dry run", lambda d: phase_dryrun(d, served, trained, families), device)
     clock("phase_dryrun")
+    free_card()
+    tp = timed_phase("25 tp", phase_tp, device)
+    clock("phase_tp")
     # last, so that its profiled and captured runs leave nothing to the
     # serving phases' profiles
     obs = phase_observability(device, health)
@@ -5844,7 +6369,8 @@ def main() -> int:
                  "20 serve whisper": served_whisper["launches"],
                  "21 serve vlm": served_vlm["launches"], "22 train": trained["launches"],
                  "23 train": sum(r["launches"].get("flash", {}).get("mma", 0)
-                                 for k, r in families.items() if k != "seconds")}
+                                 for k, r in families.items() if k != "seconds"),
+                 "25 tp": tp["launches"]}
     trained23 = {k: r for k, r in families.items() if k != "seconds"}
     wkv_train, scan_train = trained23["rwkv6-7b"]["wkv"], trained23["jamba-v0.1-52b"]["scan"]
     rwkv_train = trained23["rwkv6-7b"]["launches"]["rwkv6_scan"]["chunked"]
@@ -5855,6 +6381,7 @@ def main() -> int:
                 "cross_prefill": served_whisper["rows"]["cross prefill"],
                 "cross_decode": served_whisper["rows"]["cross decode"],
                 "training_forward": trained["grad"]["row"],
+                "training_seq_sharded_rank1": tp["flash_row"],
                 "training_whisper_encoder": trained23["whisper-medium"]["encoder"]["row"],
                 "training_whisper_cross": trained23["whisper-medium"]["cross"]["row"],
                 **{f"training_{arch.split('-')[0]}": trained23[arch]["flash_row"]

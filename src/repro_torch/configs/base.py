@@ -6,9 +6,11 @@ in both packages; ``param_dtype`` and ``compute_dtype`` are torch dtypes
 fleet controller's re-mesh plans (``distributed.fault_tolerance``) take it,
 and ``RunConfig``, every field kept, which the training step reads.
 ``sharding_rules`` and ``batch_axes`` are JAX's logical-axis rules for the
-production meshes: the port trains and serves on one card, and the dry run
-(``launch.dryrun``) reads the rules to say what each device of a mesh would
-hold.
+production meshes: the decoder LMs' sharded route (``models.layers``'
+``MeshContext``) lays each rank's parameters out by them, and the dry run
+(``launch.dryrun``) reads them to say what each device of a mesh would
+hold. ``attn_shard`` and ``kv_cache_time_sharded`` keep JAX's ``TP_HINT``
+rule: they follow the production mesh's TP of 16, whatever the mesh's own.
 """
 from __future__ import annotations
 
@@ -89,9 +91,15 @@ class ModelConfig:
         """Archs that may run the long_500k shape (SSM / hybrid)."""
         return self.family in ("ssm", "hybrid")
 
-    # The production mesh fixes TP = 16; kv head counts that do not divide
-    # it get a time-sharded KV cache.
+    # The production mesh fixes TP = 16; head counts that do not divide it
+    # get sequence-sharded attention and a time-sharded KV cache.
     TP_HINT = 16
+
+    @property
+    def attn_shard(self) -> str:
+        """'heads' when the query heads divide TP, else 'seq' (attention
+        sharded over the sequence)."""
+        return "heads" if self.n_heads % self.TP_HINT == 0 else "seq"
 
     @property
     def kv_cache_time_sharded(self) -> bool:
@@ -116,8 +124,8 @@ class MeshConfig:
         return (self.pods if self.multi_pod else 1) * self.data
 
 
-#: the all-reduce payloads of RunConfig.grad_compression; the port trains on
-#: one card, so only "none" is taken (compressed reductions: ROADMAP item 10p)
+#: the payloads of RunConfig.grad_compression: the data-parallel gradient
+#: mean of the sharded step (``optim.grad_utils.compressed_psum_mean``)
 GRAD_COMPRESSION = ("none", "bf16", "int8")
 
 
@@ -138,10 +146,6 @@ class RunConfig:
         if self.grad_compression not in GRAD_COMPRESSION:
             raise ValueError(f"grad_compression must be one of {GRAD_COMPRESSION}, "
                              f"got {self.grad_compression!r}")
-        if self.grad_compression != "none":
-            raise NotImplementedError(
-                f"grad_compression={self.grad_compression!r} compresses a data-parallel "
-                "all-reduce; the port trains on one card (ROADMAP item 10p)")
 
     @property
     def shape_info(self) -> dict:

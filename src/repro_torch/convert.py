@@ -117,12 +117,24 @@ def _tree_from_numpy(infos, tree, device, path="", what="parameter", exact_dtype
 
 
 def params_from_numpy(cfg, params: Mapping, *,
-                      device: str | torch.device | None = None) -> dict:
+                      device: str | torch.device | None = None, ctx=None) -> dict:
     """A JAX LM's parameter tree (``Model.param_infos``: stacked layers)
     with numpy leaves, as the port's tree of tensors in the declared dtypes
-    (what ``Model.loss`` and the training step take). Raises ``KeyError`` on
-    a missing or extra key and ``ValueError`` on a wrong shape."""
-    return _tree_from_numpy(build_model(cfg).param_infos(), params, resolve_device(device))
+    (what ``Model.loss`` and the training step take). With ``ctx`` (a
+    ``layers.MeshContext``) only this rank's slices under its specs
+    (``sharding.local_shards``). Raises ``KeyError`` on a missing or extra
+    key and ``ValueError`` on a wrong shape."""
+    infos = build_model(cfg).param_infos()
+    if ctx is None:
+        return _tree_from_numpy(infos, params, resolve_device(device))
+    from .distributed.sharding import local_shards
+
+    mesh = ctx.mesh
+    _tree_from_numpy(infos, params, "meta")  # the checks, nothing copied
+    local = local_shards(params, ctx.specs, mesh.coords, mesh.sizes)
+    dev = resolve_device(device)
+    return tree_map(lambda a, i: tensor_from_numpy(np.ascontiguousarray(a), dev).to(i.dtype),
+                    local, infos)
 
 
 def lm_params_from_numpy(cfg, params: Mapping, *,

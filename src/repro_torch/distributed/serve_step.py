@@ -4,6 +4,9 @@ sampling (counterpart of ``repro/distributed/serve_step.py``).
 
 Greedy decoding takes the argmax of the float32 cast of the last
 position's logits (the first index among equal maxima, as ``jnp.argmax``).
+On a mesh whose 'model' splits the vocab each rank holds a block of the
+logits: the argmax is a (value, global index) all-reduce over 'model', the
+largest value and, among ranks holding it, the lowest index.
 Temperature sampling draws from an explicit ``torch.Generator``; its draws
 are not JAX's ``categorical``.
 """
@@ -12,14 +15,27 @@ from __future__ import annotations
 from typing import Callable, Iterator
 
 import torch
+import torch.distributed as dist
 
+from ..models import layers as L
 from ..models.api import Model
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
     """Greedy next tokens [B] from logits [B, S, V]: argmax of the last
-    position's float32 cast."""
-    return logits[:, -1, :].float().argmax(dim=-1)
+    position's float32 cast (over the vocab blocks of every rank, on a mesh
+    that splits them)."""
+    lg = logits[:, -1, :].float()
+    ctx = L.mesh_info()
+    if not (ctx is not None and ctx.tp > 1
+            and lg.shape[-1] * ctx.tp == L.padded_vocab(ctx.cfg.vocab)):
+        return lg.argmax(dim=-1)
+    idx = lg.argmax(dim=-1)
+    val = lg.gather(-1, idx[:, None])[:, 0]
+    best = ctx.mesh.all_reduce(val, "model", op=dist.ReduceOp.MAX)
+    mine = torch.where(val == best, idx + ctx.rank * lg.shape[-1],
+                       torch.iinfo(torch.int64).max)
+    return ctx.mesh.all_reduce(mine, "model", op=dist.ReduceOp.MIN)
 
 
 def make_serve_steps(model: Model) -> tuple[Callable, Callable]:

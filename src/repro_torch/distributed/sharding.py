@@ -5,9 +5,10 @@ device holds under them.
 
 A spec is a tuple with one entry per dimension: None, a mesh-axis name or
 a tuple of names, the entries of JAX's ``PartitionSpec`` (the port has no
-``NamedSharding``; the specs are what the dry run and a tensor-parallel
-layout read). The port trains and serves on one card; these say what each
-device of a production mesh would hold.
+``NamedSharding``; the specs are what the dry run and the decoder LMs'
+sharded route read). ``local_shards`` cuts a full tree into one rank's
+slices under its specs: each rank of a mesh holds exactly what its spec
+gives it.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ import torch
 
 from ..configs.base import MeshConfig, batch_axes, sharding_rules
 from ..models.api import Model
-from ..models.params import Spec, map_infos, partition_specs, shard_factor, spec_entry
+from ..models.params import (Spec, axis_names, map_infos, partition_specs, shard_factor,
+                             spec_entry)
 from ..tree import leaves, tree_map
 
 
@@ -102,3 +104,36 @@ def bytes_per_device(tree, specs, sizes: Mapping[str, int]) -> float:
         raise ValueError(f"{len(xs)} leaves against {len(ss)} specs")
     return float(sum(math.prod(x.shape) * x.dtype.itemsize / shard_factor(s, sizes)
                      for x, s in zip(xs, ss)))
+
+
+def _slot(names: tuple, coords: Mapping[str, int], sizes: Mapping[str, int]) -> tuple[int, int]:
+    """(slot, slots) of a rank along the axes ``names`` (the first
+    outermost)."""
+    i, n = 0, 1
+    for a in names:
+        i, n = i * sizes[a] + coords[a], n * sizes[a]
+    return i, n
+
+
+def local_shard(x, spec: Spec, coords: Mapping[str, int], sizes: Mapping[str, int]):
+    """The slice of one leaf (a tensor or an array) that the rank at
+    ``coords`` holds under ``spec``: along each dimension the slot of the
+    axes its entry names. A view of ``x``."""
+    for dim, entry in enumerate(spec):
+        names = axis_names(entry)
+        if not names:
+            continue
+        i, n = _slot(names, coords, sizes)
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over {names}")
+        c = x.shape[dim] // n
+        x = x[(slice(None),) * dim + (slice(i * c, (i + 1) * c),)]
+    return x
+
+
+def local_shards(tree, specs, coords: Mapping[str, int], sizes: Mapping[str, int]):
+    """``local_shard`` of every leaf of ``tree`` (nested dicts: parameters,
+    or an optimizer state under ``opt_state_specs``) with its spec."""
+    if isinstance(tree, Mapping):
+        return {k: local_shards(tree[k], specs[k], coords, sizes) for k in tree}
+    return local_shard(tree, specs, coords, sizes)

@@ -23,8 +23,9 @@ Per cell (``run_cell``):
    leaves); to serve, the compute-dtype copies of the weights the serving
    LM keeps beside its masters (``models.layers.Weights``) and the cache;
    and the batch. Their sum is ``state``. Beside it, the activations, by a
-   formula (the port runs no tensor or sequence parallelism yet, ROADMAP
-   10p, so only the batch's split over the data axes shrinks them); with
+   formula (the count runs the one-device program, not the sharded route
+   of the decoder LMs, so only the batch's split over the data axes
+   shrinks them: ROADMAP 10p-b); with
    t = tokens a device runs (the batch's share times the sequence; one per
    sequence to decode), c = the compute dtype's bytes, L = layers (periods
    of 8 for the hybrid, both stacks for the encdec), w = 4 D + (H + 2 Hkv)
@@ -65,8 +66,8 @@ Per cell (``run_cell``):
    in the forward and in the remat recompute; to serve once), and the
    gradient reduction over the data axes (a reduce-scatter over the axes
    that shard the leaf, an all-reduce over the rest), by ring volumes.
-   Tensor-parallel activation traffic comes with ROADMAP 10p; ``extras``
-   says it is not counted, so no reader takes the term for XLA's.
+   Tensor-parallel activation traffic is ROADMAP 10p-b; ``extras`` says
+   it is not counted, so no reader takes the term for XLA's.
 """
 from __future__ import annotations
 
@@ -96,21 +97,22 @@ from .roofline import HBM_BYTES, CellArtifact, extrapolate, model_flops
 
 ARTIFACT_ROOT = pathlib.Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_torch"
 
-#: JAX's variants whose knob the port's ModelConfig acts on: a cell
-#: relowered with one knob flipped. JAX's ``bf16comb`` and
-#: ``nofsdpexp_bf16comb`` flip ``moe_combine_dtype``, which the port's MoE
-#: does not read (ROADMAP).
+#: JAX's variants, each a cell relowered with one knob flipped.
+#: ``bf16comb`` flips the dtype of the expert-parallel combine's
+#: all-reduce (``layers._moe_expert_parallel``).
 VARIANTS = {
     "dp": dict(layout="dp"),  # pure-DP + FSDP layout (small models)
     "int8kv": dict(kv_cache_dtype="int8"),  # quantized KV cache (decode)
     "nofsdpexp": dict(expert_fsdp=False),  # resident expert weights (MoE)
+    "bf16comb": dict(moe_combine_dtype="bf16"),  # half-width EP combine
+    "nofsdpexp_bf16comb": dict(expert_fsdp=False, moe_combine_dtype="bf16"),
     "dp_noremat": dict(layout="dp", remat="none"),  # small models fit w/o remat
     "int8kv_bf16p": dict(kv_cache_dtype="int8", param_dtype=torch.bfloat16),
     "dp_noremat_mb4": dict(layout="dp", remat="none", microbatches=4),
 }
 
-#: tensor-parallel activation traffic: the port has no tensor parallelism yet
-TP_NOT_COUNTED = "not counted (ROADMAP 10p)"
+#: tensor-parallel activation traffic: the count runs the one-device program
+TP_NOT_COUNTED = "not counted (ROADMAP 10p-b)"
 
 _SKIP_BYTES = frozenset({torch.ops.aten.empty, torch.ops.aten.empty_strided,
                          torch.ops.aten.empty_like, torch.ops.aten.new_empty})

@@ -34,6 +34,14 @@ bf16 weights (56 GB): ``chip_smoke.py`` serves it with
 ``kimi-k2-1t-a32b`` runs as ``--smoke`` only: its 1T parameters fit no
 card, and its head dim of 112 is not one the flash kernel takes.
 
+``--mesh DATA,MODEL`` serves a decoder LM (dense, MoE, vlm) on a mesh over
+the default process group (the caller's ``torchrun``): each rank holds its
+slices of the weights (``sharding.local_shards``) and serves its rows of
+the batch, and the tokens are gathered on every rank; rank 0 prints:
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.serve --device cpu \
+      --smoke --mesh 1,2
+
 The full ``jamba-v0.1-52b`` (32 layers, 51.57 B parameters) does not fit
 one 80 GB card even in bf16 (103 GB); ``chip_smoke.py`` serves it cut to
 16 layers with ``param_dtype=bfloat16`` (``dataclasses.replace`` of the
@@ -55,7 +63,12 @@ from ..core import H100_HOST, ConsolidationEngine, Deadlock, ServerSpec, Workloa
 from ..core.units import KB, MB
 from ..device import resolve_device
 from ..distributed.serve_step import greedy_steps
+from ..distributed.sharding import local_shards
+from ..models import layers as L
 from ..models.api import LM, Model, build_model
+from ..models.params import materialize
+from ..tree import tree_map
+from .mesh import parse_mesh, process_mesh
 
 def admission_check(arch: str, n_streams: int, *, host: ServerSpec = H100_HOST,
                     device: str | torch.device | None = None, metrics: bool = False):
@@ -90,18 +103,27 @@ def admission_check(arch: str, n_streams: int, *, host: ServerSpec = H100_HOST,
 
 
 def prepare(cfg: ModelConfig, *, requests: int, prompt_len: int, seed: int = 0,
-            device: str | torch.device | None = None
+            device: str | torch.device | None = None, ctx=None
             ) -> tuple[Model, LM, torch.Tensor, dict[str, torch.Tensor]]:
     """(model, lm, prompts [requests, prompt_len], extras): the LM of
     ``cfg``'s family, its weights, the prompts and then the prefill's other
     inputs (``extras``: the vlm's ``vis_embeds`` [requests, 256, D], the
     encdec's ``audio_embeds`` [requests, 1500, D], standard normal in the
     compute dtype; empty for the other families) drawn from one generator
-    seeded with ``seed`` on ``device``."""
+    seeded with ``seed`` on ``device``. With ``ctx`` (a
+    ``layers.MeshContext``) the LM holds this rank's slices of the same
+    draw."""
     device = resolve_device(device)
     model = build_model(cfg)
     gen = torch.Generator(device).manual_seed(seed)
-    lm = model.init(gen, device=device)
+    if ctx is None:
+        lm = model.init(gen, device=device)
+    else:
+        full = materialize(model.param_infos(), gen)
+        mesh = ctx.mesh
+        lm = model.build(tree_map(lambda t: t.contiguous().clone(),
+                                  local_shards(full, ctx.specs, mesh.coords, mesh.sizes)))
+        del full
     prompts = torch.randint(0, cfg.vocab, (requests, prompt_len), generator=gen, device=device)
     extras = {name: torch.randn(shape, generator=gen, device=device).to(cfg.compute_dtype)
               for name, shape in model.prefill_extras(requests).items()}
@@ -127,29 +149,38 @@ def _sync(device: torch.device) -> None:
 
 def generate(model: Model, lm: LM, prompts: torch.Tensor, gen: int, *,
              extras: dict[str, torch.Tensor] | None = None,
-             keep_logits: bool = False) -> ServeRun:
+             keep_logits: bool = False, ctx=None) -> ServeRun:
     """Prefill ``prompts`` (with ``extras``, the prefill's other inputs) into
     a fresh cache, then ``gen - 1`` greedy decode steps
     (``serve_step.greedy_steps``): ``gen`` tokens per request. The cache
     holds every row the requests write, a vlm's patch embeddings included,
     plus ``CACHE_PAD`` (the JAX serve script sizes it for the prompt and the
     generated tokens only, which a prefix of more than ``CACHE_PAD`` rows
-    overruns)."""
-    B, S = prompts.shape
+    overruns). With ``ctx`` (the LM holding this rank's slices) the rank
+    serves its rows of the batch under ``ctx`` and the tokens of every row
+    are gathered; kept logits are the rank's rows and vocab block."""
+    S = prompts.shape[1]
     device = prompts.device
     batch = dict(extras or {}, tokens=prompts)
-    cache = model.init_cache(B, model.prefix_len(batch) + S + gen, device=device)
+    if ctx is not None:
+        batch = ctx.local_rows(batch)
     toks, times, kept = [], [], [] if keep_logits else None
-    _sync(device)
-    t0 = time.perf_counter()
-    for tok, logits, _ in greedy_steps(model, lm, batch, cache, gen):
+    with L.activation_sharding(ctx):
+        cache = model.init_cache(batch["tokens"].shape[0], model.prefix_len(batch) + S + gen,
+                                 device=device)
         _sync(device)
-        times.append(time.perf_counter() - t0)
-        toks.append(tok)
-        if kept is not None:
-            kept.append(logits[:, -1, :])
         t0 = time.perf_counter()
-    return ServeRun(torch.stack(toks, dim=1), times[0], times[1:], kept)
+        for tok, logits, _ in greedy_steps(model, lm, batch, cache, gen):
+            _sync(device)
+            times.append(time.perf_counter() - t0)
+            toks.append(tok)
+            if kept is not None:
+                kept.append(logits[:, -1, :])
+            t0 = time.perf_counter()
+    tokens = torch.stack(toks, dim=1)
+    if ctx is not None:
+        tokens = ctx.mesh.all_gather(tokens, ctx.batch_axes, 0)
+    return ServeRun(tokens, times[0], times[1:], kept)
 
 
 def main(argv=None) -> torch.Tensor:
@@ -163,12 +194,20 @@ def main(argv=None) -> torch.Tensor:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default="", help="DATA,MODEL: serve on a mesh (decoder LMs)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    ctx, lead = None, True
+    if args.mesh:
+        mesh = process_mesh(*parse_mesh(args.mesh), device)
+        ctx = build_model(cfg).mesh_context(mesh)
+        lead = mesh.coords == {"data": 0, "model": 0}
 
     placements, frame = admission_check(args.arch, args.requests, device=device, metrics=True)
-    print(f"consolidation admission: {args.requests} stream(s) -> hosts {placements}")
-    if frame is not None:
+    if lead:
+        print(f"consolidation admission: {args.requests} stream(s) -> hosts {placements}")
+    if frame is not None and lead:
         # the paper's utilization-floor criterion as a serving SLO: waiting
         # time (s) and slowdown (x solo) percentiles of the admission run
         from ..obs.report import percentile_table
@@ -176,15 +215,18 @@ def main(argv=None) -> torch.Tensor:
         print("admission SLO percentiles:")
         print(percentile_table(frame, ("waiting_time", "slowdown")))
 
-    cfg = get_config(args.arch, smoke=args.smoke)
     model, lm, prompts, extras = prepare(cfg, requests=args.requests,
                                          prompt_len=args.prompt_len, seed=args.seed,
-                                         device=device)
-    run = generate(model, lm, prompts, args.gen, extras=extras)
+                                         device=device, ctx=ctx)
+    run = generate(model, lm, prompts, args.gen, extras=extras, ctx=ctx)
     total = run.prefill_s + sum(run.decode_s)
+    if not lead:
+        return run.tokens.cpu()
+    mesh_note = f" on a {args.mesh} mesh" if args.mesh else ""
     print(f"generated {tuple(run.tokens.shape)} tokens in {total:.3f} s "
           f"({args.requests * args.gen / total:.1f} tok/s; prefill {1e3 * run.prefill_s:.2f} ms, "
-          f"decode {1e3 * sum(run.decode_s) / max(len(run.decode_s), 1):.2f} ms/step) on {device}")
+          f"decode {1e3 * sum(run.decode_s) / max(len(run.decode_s), 1):.2f} ms/step) on "
+          f"{device}{mesh_note}")
     print("sample:", run.tokens[0][:12].tolist())
     return run.tokens.cpu()
 

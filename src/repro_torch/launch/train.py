@@ -6,13 +6,18 @@ On the card:      python -m repro_torch.launch.train --arch tinyllama-1.1b \
 On the CPU:       python -m repro_torch.launch.train --device cpu --smoke \
                       --steps 20 --batch 4 --seq 64
 
-Wires the training substrate together on one device: the chunk-store data
-pipeline -> the training step (``distributed.train_step``) -> async, atomic
+On a mesh:       torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+                      --device cpu --smoke --mesh 1,2 --steps 4 --batch 4 --seq 64
+
+Wires the training substrate together: the chunk-store data pipeline ->
+the training step (``distributed.train_step``) -> async, atomic
 checkpoints -> heartbeats with the straggler policy. Restart-safety:
 rerunning with the same --ckpt dir resumes from the last complete step,
-the data-pipeline cursor included. The JAX launcher's mesh has no
-counterpart: the port trains on one card (the sharded step: ROADMAP item
-10p).
+the data-pipeline cursor included. ``--mesh DATA,MODEL`` runs the sharded
+step (the decoder LMs) on a mesh over the default process group, as JAX's
+launcher runs under ``make_host_mesh()``: every rank draws the same batch
+and computes on its rows; rank 0 prints. Sharded checkpoints are ROADMAP
+10p-b, so ``--mesh`` with ``--ckpt`` raises.
 """
 from __future__ import annotations
 
@@ -28,8 +33,9 @@ from ..configs.registry import get_config
 from ..data import TokenPipeline, synthetic_store
 from ..device import resolve_device
 from ..distributed.fault_tolerance import HeartbeatMonitor
-from ..distributed.train_step import make_train_step
+from ..distributed.train_step import make_sharded_train_step, make_train_step
 from ..models.api import build_model
+from .mesh import parse_mesh, process_mesh
 
 
 @dataclasses.dataclass
@@ -59,7 +65,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    return ap.parse_args(argv)
+    ap.add_argument("--mesh", default="", help="DATA,MODEL: the sharded step on a mesh")
+    args = ap.parse_args(argv)
+    if args.mesh and args.ckpt:
+        raise ValueError("--mesh with --ckpt: sharded checkpoints are ROADMAP item 10p-b")
+    return args
 
 
 def train(argv=None) -> TrainRun:
@@ -68,10 +78,17 @@ def train(argv=None) -> TrainRun:
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     model = build_model(cfg)
-    run = RunConfig(model=cfg, shape="train_4k", mesh=MeshConfig(data=1, model=1),
+    data, mdl = parse_mesh(args.mesh) if args.mesh else (1, 1)
+    run = RunConfig(model=cfg, shape="train_4k", mesh=MeshConfig(data=data, model=mdl),
                     learning_rate=args.lr, total_steps=args.steps,
                     warmup_steps=max(1, args.steps // 10), microbatches=args.microbatches)
-    init, train_step = make_train_step(model, run)
+    lead = True
+    if args.mesh:
+        mesh = process_mesh(data, mdl, device)
+        init, train_step, _ = make_sharded_train_step(model, run, mesh)
+        lead = mesh.coords == {"data": 0, "model": 0}
+    else:
+        init, train_step = make_train_step(model, run)
     params, opt_state = init(torch.Generator(device).manual_seed(args.seed))
 
     store = synthetic_store(n_files=2, file_mb=64, block_mb=8)
@@ -101,7 +118,7 @@ def train(argv=None) -> TrainRun:
             losses.append(out["loss"])
             metrics.append(out)
             monitor.heartbeat(0, time.time(), step_s[-1])
-            if step % args.log_every == 0 or step == args.steps - 1:
+            if lead and (step % args.log_every == 0 or step == args.steps - 1):
                 print(f"step {step:5d} loss {out['loss']:.4f} lr {out['lr']:.2e} "
                       f"gnorm {out['grad_norm']:.3f} "
                       f"({(time.time()-t0)/max(1, step-start_step+1):.3f}s/step)")
@@ -116,7 +133,7 @@ def train(argv=None) -> TrainRun:
                                    "data": pipe.state_dict()}, blocking=True)
     finally:
         pipe.stop()
-    if losses:
+    if losses and lead:
         print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f}); "
               f"improved: {losses[-1] < losses[0]}")
     return TrainRun(start_step, losses, step_s, metrics, params, opt_state)

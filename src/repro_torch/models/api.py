@@ -24,6 +24,14 @@ frame embeddings); ``prefill_extras`` gives their shapes.
 from a ``torch.Generator`` on the target device, and ``init_cache`` makes
 the zero cache: the KV cache, ``CACHE_PAD`` rows longer than asked, as in
 JAX, or the recurrent state.
+
+On a mesh (the decoder LMs: dense, moe, vlm; ``mesh_context`` and
+``layers.activation_sharding``) every step runs on this rank's rows of the
+batch and its slices of the parameters: ``loss`` returns the mean over
+the rank's rows, ``prefill`` and ``decode_step`` this rank's block of the
+logits, and ``init_cache`` makes the rank's cache (its rows, its kv heads
+where they divide TP). The other families' tensor parallelism is ROADMAP
+10p-b.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ import torch
 from ..configs.base import SHAPES, ModelConfig
 from ..device import resolve_device
 from . import encdec, hybrid, rwkv, transformer
+from . import layers as L
 from .params import ParamInfo, map_infos, materialize
 
 #: extra cache rows beyond the nominal context (decode writes at len)
@@ -97,11 +106,31 @@ class Model:
 
     def init_cache(self, batch: int, max_len: int, *,
                    device: str | torch.device | None = None) -> dict:
-        """Zero cache for ``batch`` sequences of up to ``max_len`` tokens."""
+        """Zero cache for ``batch`` sequences of up to ``max_len`` tokens
+        (under a mesh context, ``batch`` is this rank's rows, and the cache
+        holds the rank's kv heads where they divide TP)."""
         device = resolve_device(device)
         infos = self.cache_infos(batch, max_len)
-        cache = {k: torch.zeros(i.shape, dtype=i.dtype, device=device) for k, i in infos.items()}
+        ctx = L.mesh_info()
+        kv = self.cfg.n_kv_heads
+        split = ctx is not None and ctx.tp > 1 and kv % ctx.tp == 0
+
+        def shape(i: ParamInfo) -> tuple:
+            if not split:
+                return i.shape
+            return (*i.shape[:3], kv // ctx.tp, *i.shape[4:])
+
+        cache = {k: torch.zeros(shape(i), dtype=i.dtype, device=device) for k, i in infos.items()}
         return dict(cache, len=0)
+
+    def mesh_context(self, mesh) -> L.MeshContext:
+        """What the layers read on ``mesh`` (``distributed.collectives.Mesh``):
+        install it with ``layers.activation_sharding``. The decoder LMs
+        only: the other families' tensor parallelism is ROADMAP 10p-b."""
+        if self.cfg.family not in PREFIX_FAMILIES:
+            raise NotImplementedError(f"the {self.cfg.family} family has no sharded route yet "
+                                      "(ROADMAP item 10p-b)")
+        return L.MeshContext.build(mesh, self.cfg, self.param_infos())
 
     def prefill_extras(self, batch: int) -> dict[str, tuple[int, ...]]:
         """The shapes of the inputs a prefill batch of ``batch`` sequences
@@ -173,8 +202,13 @@ class Model:
         hidden, _ = module.forward(params, cfg, tokens, return_hidden=True, mode=mode, **kw)
         if cfg.family == "vlm" and "vis_embeds" in batch:
             hidden = hidden[:, batch["vis_embeds"].shape[1]:, :]
-        return transformer.chunked_cross_entropy(hidden, self.head_matrix(params),
-                                                 batch["labels"], cfg.vocab, cfg)
+        head = self.head_matrix(params)
+        ctx = L.mesh_info()
+        if ctx is not None and cfg.family in PREFIX_FAMILIES:
+            name = "embed" if cfg.tie_embeddings else "lm_head"
+            head = ctx.gather_leaf(params[name], ctx.specs[name], ctx.axes[name], name)
+            head = head.T if cfg.tie_embeddings else head
+        return transformer.chunked_cross_entropy(hidden, head, batch["labels"], cfg.vocab, cfg)
 
     def prefill(self, lm: LM, batch: dict, cache: dict):
         """(last-position logits [B, 1, Vp], cache) after the prompt and,

@@ -24,22 +24,60 @@ the forward path: it is the backward's. When q, k or v need a gradient
 call and whose backward differentiates ``chunked_attention`` recomputed
 from q, k and v, as JAX differentiates its jnp attention (``grad_route``
 picks it, as the WKV and the selective scan pick theirs). MoE is the JAX
-package's single-device path (sort-based dispatch into per-expert capacity
-buffers, differentiated through its gathers and the top-k's values); its
-expert-parallel ``shard_map`` path is not ported.
+package's sort-based dispatch into per-expert capacity buffers,
+differentiated through its gathers and the top-k's values.
+
+**On a mesh.** ``activation_sharding(ctx)`` installs a :class:`MeshContext`
+(JAX's ``activation_sharding`` and ``mesh_info``): the (data, model) mesh
+of ``distributed.collectives``, its groups and this rank's coordinates,
+and the spec of every parameter (``distributed.sharding.param_specs``,
+JAX's). Each rank holds its slices of the parameters and its rows of the
+batch. JAX lets GSPMD place the collectives from ``shard`` constraints;
+here each route places them itself, with Megatron's pairs
+(``collectives.copy_to`` before a column-parallel product, ``reduce_from``
+after a row-parallel one), so every gradient of a leaf replicated over
+'model' comes out whole on each rank. A decoder layer first gathers what
+its rank does not compute on sharded (``MeshContext.gather``): the FSDP
+rows over the data axes, in the compute dtype (a reduce-scatter in the
+backward), and 'model' where the spec put it on a weight's 'dmodel'
+dimension. 'model' on heads, kv heads, the MLP width, the vocab and the
+experts stays: those are the tensor-parallel products.
+
+* ``sharded_embed`` (JAX ``:118``): each rank gathers from its vocab rows,
+  one float32 all-reduce over 'model'.
+* attention (JAX ``attention_apply``): q, k, v column-parallel over the
+  rank's heads, ``wo`` row-parallel. Where the kv heads do not divide TP
+  (JAX's kv expansion), k and v are computed whole and each rank reads the
+  kv heads its query heads map to. With ``cfg.attn_shard == 'seq'`` and no
+  cache, ``_seq_sharded_attention`` (JAX ``:303``): each rank attends its
+  S / tp queries of every head at ``q_offset = rank * S / tp`` against all
+  S kv rows.
+* ``mlp_apply``: ``wi`` column-parallel, ``wo`` row-parallel.
+* ``_moe_expert_parallel`` (JAX ``:539``): each rank dispatches its rows
+  into a local capacity buffer of its E / tp experts; one combine
+  all-reduce over 'model' in float32 (or bf16, ``moe_combine_dtype``).
+
+In the 'dp' layout 'model' is one more data axis: no tensor parallelism,
+every weight gathered. The KV cache is sharded over kv heads where they
+divide TP and replicated over 'model' where they do not (JAX shards it over
+time there, ``cache_time``: ROADMAP 10p-c).
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
-from typing import Mapping
+from typing import Any, Mapping
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..configs.base import MeshConfig, sharding_rules
+from ..distributed import collectives as C
 from ..kernels import ops
 from ..kernels.flash_attention import NEG_INF, first_visible_row, flash_attention
-from .params import ParamInfo
+from .params import ParamInfo, axis_names, map_infos, partition_specs
 
 
 class Weights(nn.Module):
@@ -72,23 +110,169 @@ class Weights(nn.Module):
         return self
 
 
+# --- the mesh context ------------------------------------------------------------------
+
+#: leaves a layer uses in float32 whatever the compute dtype (the norms', the router)
+KEEP_F32 = ("scale", "bias", "router")
+#: logical axes of a weight's residual-stream dimension
+DMODEL_AXES = ("dmodel", "expert_dmodel")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class MeshContext:
+    """What the layers read on a mesh: the mesh, the configuration, and per
+    leaf of the LM's parameter tree its spec (JAX's rules on the mesh's
+    sizes) and its logical axes.
+
+    ``tp`` is the tensor-parallel width ('model' in the 'tp' layout, 1 in
+    the 'dp' layout); the batch is split over ``batch_axes`` ('data', or
+    every axis in the 'dp' layout), ``dp`` ranks in all."""
+
+    mesh: Any
+    cfg: Any
+    specs: Mapping
+    axes: Mapping
+
+    @classmethod
+    def build(cls, mesh, cfg, infos) -> "MeshContext":
+        """The context of ``cfg``'s LM, whose parameters ``infos`` declares
+        (``Model.param_infos()``), on ``mesh`` (``collectives.Mesh``)."""
+        mcfg = MeshConfig(data=mesh.sizes["data"], model=mesh.sizes["model"])
+        return cls(mesh, cfg, partition_specs(infos, sharding_rules(cfg, mcfg), mesh.sizes),
+                   map_infos(lambda i: i.axes, infos))
+
+    @property
+    def tp(self) -> int:
+        return self.mesh.sizes["model"] if self.cfg.layout == "tp" else 1
+
+    @property
+    def batch_axes(self) -> tuple[str, ...]:
+        return ("data",) if self.cfg.layout == "tp" else ("data", "model")
+
+    @property
+    def dp(self) -> int:
+        return self.mesh.size(self.batch_axes)
+
+    @property
+    def rank(self) -> int:
+        """This rank's index along 'model'."""
+        return self.mesh.coords["model"]
+
+    def local_rows(self, batch: Mapping[str, torch.Tensor]) -> dict:
+        """This rank's rows of a global batch (every tensor's leading dim,
+        which ``dp`` must divide)."""
+        out = {}
+        for k, v in batch.items():
+            if v.shape[0] % self.dp:
+                raise ValueError(f"batch {k} of {v.shape[0]} rows does not split over "
+                                 f"{self.dp} data-parallel ranks")
+            out[k] = self.mesh.local_slice(v, self.batch_axes, 0)
+        return out
+
+    def gather_leaf(self, t: torch.Tensor, spec, logical, name: str) -> torch.Tensor:
+        """One leaf as the layer computes with it: cast to the compute
+        dtype (unless ``name`` is in KEEP_F32), then gathered over each
+        batch axis of its spec (``gather_sum``: a reduce-scatter in the
+        backward) and over 'model' on a 'dmodel' dimension (``gather_from``:
+        that weight's compute is replicated over 'model'), innermost axis
+        first. 'model' on any other dimension stays, and an axis of one
+        rank (whose gather is the identity) is skipped."""
+        if name not in KEEP_F32:
+            t = t.to(self.cfg.compute_dtype)
+        for dim, entry in enumerate(spec):
+            for ax in reversed(axis_names(entry)):
+                if self.mesh.sizes[ax] == 1:
+                    continue
+                if ax in self.batch_axes:
+                    t = C.gather_sum(t, self.mesh, ax, dim)
+                elif logical[dim] in DMODEL_AXES:
+                    t = C.gather_from(t, self.mesh, ax, dim)
+        return t
+
+    def gather(self, p: Mapping, specs: Mapping, axes: Mapping, drop: int = 0) -> dict:
+        """``gather_leaf`` over a parameter subtree and its specs and axes;
+        ``drop`` leading spec entries are left out (a stacked layer's
+        'layer' axis, for one layer's slice)."""
+        out = {}
+        for k, v in p.items():
+            if isinstance(v, Mapping):
+                out[k] = self.gather(v, specs[k], axes[k], drop)
+            else:
+                out[k] = self.gather_leaf(v, specs[k][drop:], axes[k][drop:], k)
+        return out
+
+    def gather_layer(self, p: Mapping) -> dict:
+        """One decoder layer's slice of the stacked ``params['layers']``."""
+        return self.gather(p, self.specs["layers"], self.axes["layers"], drop=1)
+
+
+_CTX: dict = {"mesh": None}
+
+
+@contextlib.contextmanager
+def activation_sharding(ctx: MeshContext | None):
+    """Install ``ctx`` for the layers while the block runs (JAX's
+    ``activation_sharding``); None runs them on one device."""
+    prev = _CTX["mesh"]
+    _CTX["mesh"] = ctx
+    try:
+        yield ctx
+    finally:
+        _CTX["mesh"] = prev
+
+
+def mesh_info() -> MeshContext | None:
+    """The installed context, or None (JAX's ``mesh_info``)."""
+    return _CTX["mesh"]
+
+
+def _tp(ctx: MeshContext | None) -> bool:
+    return ctx is not None and ctx.tp > 1
+
+
 # --- vocab padding ------------------------------------------------------------------
 
 def padded_vocab(v: int) -> int:
     return -(-v // 256) * 256
 
 
-def mask_padded_logits(logits: torch.Tensor, true_vocab: int) -> torch.Tensor:
-    if logits.shape[-1] == true_vocab:
+def mask_padded_logits(logits: torch.Tensor, true_vocab: int, offset: int = 0) -> torch.Tensor:
+    """Padded vocab columns to -1e30; ``offset`` is the global index of the
+    first column (a rank's block of a vocab-parallel unembedding)."""
+    if offset == 0 and logits.shape[-1] == true_vocab:
         return logits
-    col = torch.arange(logits.shape[-1], device=logits.device)
+    col = offset + torch.arange(logits.shape[-1], device=logits.device)
     return logits.masked_fill(col >= true_vocab, NEG_INF)
+
+
+def vocab_split(ctx: MeshContext | None, head: torch.Tensor) -> bool:
+    """Whether ``head`` [D, V] is this rank's block of a vocab-parallel
+    unembedding (its columns split over 'model')."""
+    return _tp(ctx) and head.shape[-1] * ctx.tp == padded_vocab(ctx.cfg.vocab)
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """The JAX package's single-device embedding lookup: the table in the
     compute dtype, gathered."""
     return table.to(dtype)[tokens]
+
+
+def sharded_embed(table: torch.Tensor, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    """The embedding lookup on a mesh (JAX ``sharded_embed``). ``table`` is
+    this rank's block [Vp / tp, D] of rows (its FSDP columns already
+    gathered): each rank gathers the ids in its range, the others give
+    zeros, and one float32 all-reduce over 'model' assembles the
+    embeddings (identity backward: each rank's gradient lands in its own
+    rows). The dense lookup where the rows are not split (tp 1, the 'dp'
+    layout, a vocab that does not divide)."""
+    ctx = mesh_info()
+    if not _tp(ctx) or table.shape[0] * ctx.tp != padded_vocab(cfg.vocab):
+        return embed(table, tokens, cfg.compute_dtype)
+    v_loc = table.shape[0]
+    local = tokens.long() - ctx.rank * v_loc
+    ok = (local >= 0) & (local < v_loc)
+    x = torch.where(ok[..., None], table[local.clamp(0, v_loc - 1)].float(), 0.0)
+    return C.reduce_from(x, ctx.mesh, "model").to(cfg.compute_dtype)
 
 
 # --- norms -----------------------------------------------------------------------
@@ -240,7 +424,9 @@ def chunked_attention(
 class FlashAttention(torch.autograd.Function):
     """Attention with a gradient: ``apply(q, k, v, causal, window, chunk)``
     on q [B, Sq, H, dh], k, v [B, Skv, Hkv, dh] (self-attention, or
-    cross-attention on an encoder's rows).
+    cross-attention on an encoder's rows); a seventh argument ``q_offset``
+    places the queries at absolute positions q_offset.. (the
+    sequence-sharded attention's rows of one rank).
 
     The forward is ``kernels.flash_attention.flash_attention``: the
     hand-written kernel on CUDA tensors (a launch like serving's, counted in
@@ -253,24 +439,25 @@ class FlashAttention(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int, chunk: int):
+    def forward(ctx, q, k, v, causal: bool, window: int, chunk: int, *q_offset: int):
         ctx.save_for_backward(q, k, v)
-        ctx.opts = (causal, window, chunk)
-        return flash_attention(q, k, v, causal=causal, window=window)
+        off = int(q_offset[0]) if q_offset else 0
+        ctx.opts = (causal, window, chunk, off, len(q_offset))
+        return flash_attention(q, k, v, causal=causal, q_offset=off, window=window)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
         q, k, v = ctx.saved_tensors
-        causal, window, chunk = ctx.opts
+        causal, window, chunk, off, n_extra = ctx.opts
         B, Sq, H, dh = q.shape
         Hkv = k.shape[2]
         with torch.enable_grad():
             qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
             out = chunked_attention(qg.view(B, Sq, Hkv, H // Hkv, dh), kg, vg, causal=causal,
-                                    window=window, chunk=chunk)
+                                    q_offset=off, window=window, chunk=chunk)
             dq, dk, dv = torch.autograd.grad(out, (qg, kg, vg), dout.reshape(out.shape))
-        return dq, dk, dv, None, None, None
+        return (dq, dk, dv, None, None, None) + (None,) * n_extra
 
 
 def grad_route(mode: str, *xs: torch.Tensor) -> bool:
@@ -334,40 +521,150 @@ def attention_apply(
         rope_cs = None
     elif rope_cs is None:
         rope_cs = rope_tables(positions, cfg.d_head, cfg.rope_theta)
-    q, k, v = qkv(p, x, cfg, rope_cs)
     if mode is None:
         mode = "cuda" if x.is_cuda else "torch"
+    ctx = mesh_info()
+    if _tp(ctx):
+        return _attention_tp(p, x, cfg, ctx, cache=cache, causal=causal, window=window,
+                             mode=mode, rope_cs=rope_cs)
+    q, k, v = qkv(p, x, cfg, rope_cs)
     B, S = x.shape[:2]
     if cache is None:
-        if grad_route(mode, q, k, v):
-            out = FlashAttention.apply(q.contiguous(), k, v, causal, window, cfg.attn_chunk)
-        else:
-            out = ops.gqa_flash_attention(q.contiguous(), k, v, causal=causal, window=window,
-                                          mode=mode)
+        out = _attend(q, k, v, cfg, causal=causal, window=window, mode=mode)
         new_cache = None
     else:
-        ck, cv, idx = cache["k"], cache["v"], int(cache["len"])
-        end = idx + S
-        new_cache = {"k": ck, "v": cv, "len": end}
-        if ck.dtype == torch.int8:
-            (ck[:, idx:end], cache["k_scale"][:, idx:end]) = quantize_kv(k)
-            (cv[:, idx:end], cache["v_scale"][:, idx:end]) = quantize_kv(v)
-            lo = first_visible_row(idx, window)  # rows below it no query sees
-            rk = dequantize_kv(ck[:, lo:end], cache["k_scale"][:, lo:end], dt)
-            rv = dequantize_kv(cv[:, lo:end], cache["v_scale"][:, lo:end], dt)
-            q_offset = idx - lo
-            new_cache.update(k_scale=cache["k_scale"], v_scale=cache["v_scale"])
-        elif ck.dtype in (torch.bfloat16, torch.float32):
-            ck[:, idx:end] = k
-            cv[:, idx:end] = v
-            rk, rv, q_offset = ck[:, :end], cv[:, :end], idx
-        else:
-            raise TypeError(f"a KV cache is bf16, float32 or int8, got {ck.dtype}")
+        rk, rv, q_offset, new_cache = _cache_rows(cache, k, v, window, dt)
         out = ops.gqa_flash_attention(q.contiguous(), rk, rv, causal=causal, q_offset=q_offset,
                                       window=window, mode=mode)
     wo = p["wo"].to(dt)
     y = out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
     return y, new_cache
+
+
+def _cache_rows(cache: dict, k: torch.Tensor, v: torch.Tensor, window: int, dt: torch.dtype):
+    """Write k, v [B, S, Hkv, dh] into the cache's rows [len, len + S) in
+    place and return (the rows the queries read, k and v, the queries'
+    offset into them, the new cache). An int8 cache takes the rows
+    quantized; the visible rows come back dequantized into a new buffer."""
+    ck, cv, idx = cache["k"], cache["v"], int(cache["len"])
+    end = idx + k.shape[1]
+    new_cache = {"k": ck, "v": cv, "len": end}
+    if ck.dtype == torch.int8:
+        (ck[:, idx:end], cache["k_scale"][:, idx:end]) = quantize_kv(k)
+        (cv[:, idx:end], cache["v_scale"][:, idx:end]) = quantize_kv(v)
+        lo = first_visible_row(idx, window)  # rows below it no query sees
+        rk = dequantize_kv(ck[:, lo:end], cache["k_scale"][:, lo:end], dt)
+        rv = dequantize_kv(cv[:, lo:end], cache["v_scale"][:, lo:end], dt)
+        new_cache.update(k_scale=cache["k_scale"], v_scale=cache["v_scale"])
+        return rk, rv, idx - lo, new_cache
+    if ck.dtype in (torch.bfloat16, torch.float32):
+        ck[:, idx:end] = k
+        cv[:, idx:end] = v
+        return ck[:, :end], cv[:, :end], idx, new_cache
+    raise TypeError(f"a KV cache is bf16, float32 or int8, got {ck.dtype}")
+
+
+def _attend(q, k, v, cfg, *, causal: bool, window: int, mode: str, q_offset: int = 0):
+    """The kernel (or, where a gradient is asked for, ``FlashAttention``)
+    on q [B, Sq, H, dh] at ``q_offset`` against k, v [B, Skv, Hkv, dh]."""
+    if grad_route(mode, q, k, v):
+        at = (q_offset,) if q_offset else ()  # the Function's optional seventh argument
+        return FlashAttention.apply(q.contiguous(), k, v, causal, window, cfg.attn_chunk, *at)
+    return ops.gqa_flash_attention(q.contiguous(), k, v, causal=causal, q_offset=q_offset,
+                                   window=window, mode=mode)
+
+
+def _kv_for_heads(k: torch.Tensor, first: int, n: int, G: int) -> torch.Tensor:
+    """The kv heads that query heads [first, first + n) read (query head h
+    reads kv head h // G), from k [B, T, Hkv, dh] holding every kv head, in
+    the kernel's grouping: a view of the contiguous kv heads where each
+    reads whole groups or all read one kv head, else one kv head per query
+    head (JAX's kv expansion)."""
+    if n % G == 0:
+        return k[:, :, first // G:first // G + n // G]
+    if G % n == 0:
+        return k[:, :, first // G:first // G + 1]
+    return k.index_select(2, torch.arange(first, first + n, device=k.device) // G)
+
+
+def _attention_tp(p, x, cfg, ctx: MeshContext, *, cache, causal: bool, window: int, mode: str,
+                  rope_cs):
+    """Attention on a mesh (JAX ``attention_apply`` under GSPMD). ``p``
+    holds this rank's weights: ``wq`` [D, H / tp, dh] and ``wo`` when the
+    heads divide TP (else whole), ``wk`` and ``wv`` over H_kv / tp heads
+    when those divide (else whole). Sharded projections are
+    column-parallel (``copy_to`` on x) and ``wo`` row-parallel (one
+    all-reduce); whole k and v are computed on every rank, and each rank
+    reads the kv heads of its query heads. With ``cfg.attn_shard == 'seq'``,
+    no cache and S > 1 dividing TP the attention is
+    ``_seq_sharded_attention``. A cache holds this rank's kv heads (all of
+    them where they do not divide TP)."""
+    mesh, tp, dt = ctx.mesh, ctx.tp, cfg.compute_dtype
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    Hl, heads_split, kv_split = p["wq"].shape[1], p["wq"].shape[1] < H, p["wk"].shape[1] < Hkv
+    x_col = C.copy_to(x, mesh, "model") if heads_split else x
+
+    def project(xx, w: str, b: str) -> torch.Tensor:
+        y = _project(xx, p[w].to(dt))
+        return y + p[b].to(dt) if cfg.qkv_bias else y
+
+    q = project(x_col, "wq", "bq")
+    xkv = x_col if kv_split else x
+    k, v = project(xkv, "wk", "bk"), project(xkv, "wv", "bv")
+    if rope_cs is not None:
+        q, k = apply_rope(q, *rope_cs), apply_rope(k, *rope_cs)
+    B, S = x.shape[:2]
+    first, G = ctx.rank * Hl if heads_split else 0, H // Hkv
+    if cache is None:
+        seq = cfg.attn_shard == "seq" and S > 1 and S % tp == 0
+        if not kv_split and (heads_split or seq):
+            # whole k, v of which each rank reads a part: their gradients add
+            k, v = C.copy_to(k, mesh, "model"), C.copy_to(v, mesh, "model")
+        if seq:
+            out = _seq_sharded_attention(q, k, v, cfg, ctx, heads_split=heads_split,
+                                         kv_split=kv_split, causal=causal, window=window,
+                                         mode=mode)
+        else:
+            if heads_split and not kv_split:
+                k, v = _kv_for_heads(k, first, Hl, G), _kv_for_heads(v, first, Hl, G)
+            out = _attend(q, k, v, cfg, causal=causal, window=window, mode=mode)
+        new_cache = None
+    else:
+        rk, rv, q_offset, new_cache = _cache_rows(cache, k, v, window, dt)
+        if heads_split and not kv_split:
+            rk, rv = _kv_for_heads(rk, first, Hl, G), _kv_for_heads(rv, first, Hl, G)
+        out = ops.gqa_flash_attention(q.contiguous(), rk, rv, causal=causal, q_offset=q_offset,
+                                      window=window, mode=mode)
+    wo = p["wo"].to(dt)
+    y = out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+    if heads_split:
+        y = C.reduce_from(y, mesh, "model")
+    return y, new_cache
+
+
+def _seq_sharded_attention(q, k, v, cfg, ctx: MeshContext, *, heads_split: bool,
+                           kv_split: bool, causal: bool, window: int, mode: str):
+    """Sequence-sharded attention (JAX ``_seq_sharded_attention``): rank r
+    attends queries [r S / tp, (r + 1) S / tp) of every head at ``q_offset
+    = r S / tp`` against all S kv rows. With the heads split, q, k and v are
+    first gathered over the heads and the rows' output goes back to the
+    heads layout (all-gathers whose backward is a reduce-scatter); with
+    them whole, each rank takes its rows of q and the outputs are
+    gathered. Returns [B, S, H / tp, dh] (heads split) or [B, S, H, dh]."""
+    mesh, r = ctx.mesh, ctx.rank
+    S = q.shape[1]
+    Sl = S // ctx.tp
+    if heads_split:
+        q = C.gather_sum(q, mesh, "model", 2).narrow(1, r * Sl, Sl)
+        if kv_split:
+            k, v = C.gather_sum(k, mesh, "model", 2), C.gather_sum(v, mesh, "model", 2)
+    else:
+        q = C.scatter_to(q, mesh, "model", 1)
+    out = _attend(q, k, v, cfg, causal=causal, window=window, mode=mode, q_offset=r * Sl)
+    if heads_split:
+        Hl = out.shape[2] // ctx.tp
+        return C.gather_sum(out, mesh, "model", 1).narrow(2, r * Hl, Hl)
+    return C.gather_from(out, mesh, "model", 1)
 
 
 class Attention(Weights):
@@ -451,13 +748,22 @@ def mlp_infos(cfg, d_ff: int | None = None) -> dict:
 
 
 def mlp_apply(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg) -> torch.Tensor:
+    """The MLP; on a mesh whose 'model' splits its hidden width, ``wi`` is
+    column-parallel and ``wo`` row-parallel (one all-reduce before the
+    bias)."""
     dt = cfg.compute_dtype
+    ctx = mesh_info()
+    split = _tp(ctx) and p["wo"].shape[0] < cfg.d_ff
+    if split:
+        x = C.copy_to(x, ctx.mesh, "model")
     if cfg.act == "swiglu":
         h = _project(x, p["wi"].to(dt))  # [B, S, 2, F]
         h = F.silu(h[..., 0, :]) * h[..., 1, :]
     else:
         h = F.gelu(x @ p["wi"].to(dt) + p["bi"].to(dt), approximate="tanh")
     y = h @ p["wo"].to(dt)
+    if split:
+        y = C.reduce_from(y, ctx.mesh, "model")
     if cfg.act != "swiglu":
         y = y + p["bo"].to(dt)
     return y
@@ -568,36 +874,81 @@ def moe_apply(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg, *,
     an ``index_add_`` would add in the order of the card's atomics, and on
     the CPU accumulates bf16 in float32 (both differ from JAX once top k
     exceeds 2).
+
+    On a mesh whose 'model' divides the experts (the 'tp' layout) this is
+    ``_moe_expert_parallel``, JAX's rule. Otherwise a batch-wide dispatch
+    over data-parallel rows first gathers every rank's rows, as GSPMD runs
+    JAX's dispatch over the global batch.
     """
     B, S, D = x.shape
     E, K = cfg.moe_experts, cfg.moe_topk
-    dt = cfg.compute_dtype
+    ctx = mesh_info()
+    if _tp(ctx) and E % ctx.tp == 0:
+        return _moe_expert_parallel(p, x, cfg, group, ctx)
+    if group not in ("seq", "batch"):
+        raise ValueError(f"group must be seq|batch, got {group!r}")
+    rows = group == "batch" and ctx is not None and ctx.dp > 1
+    if rows:
+        x = C.gather_from(x, ctx.mesh, ctx.batch_axes, 0)
     gates = torch.softmax(x.float() @ p["router"].float(), dim=-1)
     gate_w, expert_idx = top_k(gates, K)
     gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    C_ = moe_capacity(cfg, S if group == "seq" else x.shape[0] * S)
+    y = _route(p, x, expert_idx, gate_w, E, C_, group, cfg.compute_dtype)
+    return C.scatter_to(y, ctx.mesh, ctx.batch_axes, 0) if rows else y
+
+
+def _route(p, x, expert_idx, gate_w, E: int, C_: int, group: str, dt) -> torch.Tensor:
+    """Dispatch x [B, S, D] to E experts of C_ slots (per sequence or over
+    the batch), run them, and combine each token's kept contributions in
+    its experts' order (``moe_apply``); ids >= E are dropped."""
+    B, S, D = x.shape
+    K = expert_idx.shape[-1]
     if group == "seq":
-        n_tok, C = S, moe_capacity(cfg, S)
-        tok, eidx, gw = x, expert_idx, gate_w
-    elif group == "batch":
-        n_tok, C = B * S, moe_capacity(cfg, B * S)
-        tok, eidx, gw = x.reshape(1, B * S, D), expert_idx.reshape(1, B * S, K), \
-            gate_w.reshape(1, B * S, K)
+        n_tok, tok, eidx, gw = S, x, expert_idx, gate_w
     else:
-        raise ValueError(f"group must be seq|batch, got {group!r}")
-    buf, _, slot = _dispatch(tok, eidx, gw, E, C)  # [G, E, C, D]
+        n_tok, tok, eidx, gw = B * S, x.reshape(1, B * S, D), \
+            expert_idx.reshape(1, B * S, K), gate_w.reshape(1, B * S, K)
+    buf, _, slot = _dispatch(tok, eidx, gw, E, C_)  # [G, E, C, D]
     out = _experts(p, buf.to(dt), dt)
     G = out.shape[0]
     # each token's slots in ascending order, which is its experts' order
     # (the dropped, E * C, last), and their gate weights, 0 where dropped
     slot, by_slot = slot.view(G, n_tok, K).sort(dim=-1)
-    w = torch.where(slot < E * C, gw.reshape(G, n_tok, K).gather(-1, by_slot), 0.0).to(dt)
-    parts = out.reshape(G, E * C, D).gather(
-        1, slot.clamp_max(E * C - 1).view(G, n_tok * K, 1).expand(G, n_tok * K, D))
+    w = torch.where(slot < E * C_, gw.reshape(G, n_tok, K).gather(-1, by_slot), 0.0).to(dt)
+    parts = out.reshape(G, E * C_, D).gather(
+        1, slot.clamp_max(E * C_ - 1).view(G, n_tok * K, 1).expand(G, n_tok * K, D))
     parts = parts.view(G, n_tok, K, D) * w[..., None]
     y = parts[:, :, 0]
     for j in range(1, K):
         y = y + parts[:, :, j]
     return y.reshape(B, S, D)
+
+
+def _moe_expert_parallel(p, x, cfg, group: str, ctx: MeshContext) -> torch.Tensor:
+    """Expert-parallel MoE (JAX ``_moe_expert_parallel``): this rank holds
+    experts [r E / tp, (r + 1) E / tp) (``wi``, ``wo``, their FSDP rows
+    already gathered) and its data-parallel rows. It routes over the whole
+    router (gathered over 'model'), dispatches its rows to its experts only
+    into a local capacity buffer [E / tp, C, D] (C from the global batch,
+    as JAX's), and one all-reduce over 'model' in float32 (bf16 with
+    ``moe_combine_dtype == 'bf16'``) adds the ranks' partial outputs."""
+    mesh, E, K = ctx.mesh, cfg.moe_experts, cfg.moe_topk
+    El = E // ctx.tp
+    B, S, _ = x.shape
+    if group not in ("seq", "batch"):
+        raise ValueError(f"group must be seq|batch, got {group!r}")
+    C_ = moe_capacity(cfg, S if group == "seq" else B * ctx.dp * S)
+    x = C.copy_to(x, mesh, "model")
+    router = C.gather_sum(p["router"], mesh, "model", 1)  # [D, E]
+    gates = torch.softmax(x.float() @ router.float(), dim=-1)
+    gate_w, expert_idx = top_k(gates, K)
+    gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    e0 = ctx.rank * El
+    local_idx = torch.where((expert_idx >= e0) & (expert_idx < e0 + El), expert_idx - e0, El)
+    y = _route(p, x, local_idx, gate_w, El, C_, group, cfg.compute_dtype)
+    comb = torch.bfloat16 if cfg.moe_combine_dtype == "bf16" else torch.float32
+    return C.reduce_from(y.to(comb), mesh, "model").to(cfg.compute_dtype)
 
 
 class MoE(Weights):

@@ -21,6 +21,16 @@ float32 masters themselves, so gradients reach them, and with
 (``torch.utils.checkpoint``, JAX's ``jax.checkpoint`` per layer).
 ``chunked_cross_entropy`` is JAX's sequence-chunked loss.
 
+On a mesh (``layers.activation_sharding``) each rank runs ``forward`` on
+its rows of the batch and its slices of the parameters: every layer
+gathers what it does not compute on sharded (``MeshContext.gather_layer``),
+the embedding is ``layers.sharded_embed``, and the unembedding is
+vocab-parallel: each rank holds Vp / tp columns of the head, masks the
+padded ones by their global index and returns its block of the logits.
+``chunked_cross_entropy`` then takes the log-sum-exp over the blocks (an
+all-reduce of the max, one of the sum of exponentials) and the label's
+logit from the rank that holds it.
+
 The KV cache is the JAX one: ``k`` and ``v`` [L, B, max_len, Hkv, dh] in
 bf16 whatever the compute dtype, or with ``kv_cache_dtype='int8'`` int8
 codes with ``k_scale`` and ``v_scale`` [L, B, max_len, Hkv] in bf16; and
@@ -33,9 +43,11 @@ from functools import partial
 from typing import Mapping
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed import collectives as C
 from ..tree import unstack
 from . import layers as L
 from .params import ParamInfo, stack_layers
@@ -91,7 +103,11 @@ def layer_apply(p: Mapping, x: torch.Tensor, cfg, *, positions, rope_cs, cache=N
                 mode=None, group: str = "seq") -> torch.Tensor:
     """One decoder layer on its parameters ``p`` (a layer's slice of the
     tree, cast to the compute dtype inside). ``cache`` is the layer's
-    slice of the KV cache, written in place."""
+    slice of the KV cache, written in place. On a mesh the layer first
+    gathers its weights' FSDP rows (``MeshContext.gather_layer``)."""
+    ctx = L.mesh_info()
+    if ctx is not None:
+        p = ctx.gather_layer(p)
     a, _ = L.attention_apply(p["attn"], L.norm_apply(p["ln1"], x, cfg), cfg,
                              positions=positions, cache=cache, window=cfg.sliding_window,
                              mode=mode, rope_cs=rope_cs)
@@ -137,7 +153,11 @@ def forward(params: Mapping, cfg, tokens: torch.Tensor, *, layers=None,
     embeddings carry one ``cfg.remat == 'layer'`` recomputes each layer in
     the backward.
     """
-    x = L.embed(params["embed"], tokens, cfg.compute_dtype)
+    ctx = L.mesh_info()
+    top = {k: v for k, v in params.items() if k != "layers"}
+    if ctx is not None:
+        top = ctx.gather(top, ctx.specs, ctx.axes)
+    x = L.sharded_embed(top["embed"], tokens, cfg)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(cfg.compute_dtype), x], dim=1)
     S = x.shape[1]
@@ -156,11 +176,23 @@ def forward(params: Mapping, cfg, tokens: torch.Tensor, *, layers=None,
     new_cache = None if cache is None else dict(cache, len=offset + S)
     if last_only:  # the norm is per position: normalise only what is kept
         x = x[:, -1:, :]
-    x = L.norm_apply(params["ln_f"], x, cfg)
+    x = L.norm_apply(top["ln_f"], x, cfg)
     if return_hidden:
         return x, new_cache
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return L.mask_padded_logits(x @ head.to(cfg.compute_dtype), cfg.vocab), new_cache
+    head = top["embed"].T if cfg.tie_embeddings else top["lm_head"]
+    return unembed(x, head, cfg), new_cache
+
+
+def unembed(x: torch.Tensor, head: torch.Tensor, cfg) -> torch.Tensor:
+    """Logits [..., V] of hidden states x [..., D] through ``head`` [D, V]
+    in the compute dtype, the padded vocab masked. On a mesh whose 'model'
+    splits the vocab, ``head`` is this rank's block of columns: x enters
+    through ``copy_to`` and the logits are the rank's block."""
+    ctx = L.mesh_info()
+    off = 0
+    if L.vocab_split(ctx, head):
+        x, off = C.copy_to(x, ctx.mesh, "model"), ctx.rank * head.shape[-1]
+    return L.mask_padded_logits(x @ head.to(cfg.compute_dtype), cfg.vocab, off)
 
 
 class TransformerLM(L.Weights):
@@ -212,11 +244,25 @@ def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor, labels: torch.Ten
         n_chunks = 1
     c = S // n_chunks
     hd = head.to(cfg.compute_dtype)
+    ctx = L.mesh_info()
+    split = L.vocab_split(ctx, hd)
 
     def body(xc, lc, hd):
-        lg = L.mask_padded_logits(xc @ hd, true_vocab).float()
-        lse = torch.logsumexp(lg, dim=-1)
-        gold = lg.gather(-1, lc.long()[..., None])[..., 0]
+        if not split:
+            lg = L.mask_padded_logits(xc @ hd, true_vocab).float()
+            lse = torch.logsumexp(lg, dim=-1)
+            gold = lg.gather(-1, lc.long()[..., None])[..., 0]
+            return torch.sum(lse - gold), z_weight * torch.sum(lse ** 2)
+        # vocab-parallel: this rank's block of the logits
+        mesh, v_loc = ctx.mesh, hd.shape[-1]
+        off = ctx.rank * v_loc
+        lg = L.mask_padded_logits(C.copy_to(xc, mesh, "model") @ hd, true_vocab, off).float()
+        m = mesh.all_reduce(lg.detach().amax(dim=-1), "model", op=dist.ReduceOp.MAX)
+        lse = m + torch.log(C.reduce_from(torch.exp(lg - m[..., None]).sum(-1), mesh, "model"))
+        loc = lc.long() - off
+        mine = (loc >= 0) & (loc < v_loc)
+        gold = torch.where(mine, lg.gather(-1, loc.clamp(0, v_loc - 1)[..., None])[..., 0], 0.0)
+        gold = C.reduce_from(gold, mesh, "model")
         return torch.sum(lse - gold), z_weight * torch.sum(lse ** 2)
 
     ce_sum = z_sum = 0.0

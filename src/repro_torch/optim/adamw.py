@@ -3,7 +3,8 @@ Adafactor, as plain functions over trees (``repro_torch.tree``) of tensors.
 
 All three share one functional interface:
     state = init(params)
-    new_params, new_state, stats = update(params, grads, state, lr, cfg)
+    new_params, new_state, stats = update(params, grads, state, lr, cfg, norm=None)
+(``norm``: the gradients' global norm, when the caller computed it).
 
 Memory policy (why three):
   * adamw     -- float32 m/v; the default for <=10B-param archs.
@@ -48,10 +49,13 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves(tree)))
 
 
-def clip_scale(grads, max_norm: float) -> tuple[torch.Tensor, torch.Tensor]:
+def clip_scale(grads, max_norm: float,
+               norm: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Global-norm clip as a scalar (scale, norm); callers fold the scale
-    into each leaf's update instead of materialising a clipped tree."""
-    gn = global_norm(grads)
+    into each leaf's update instead of materialising a clipped tree.
+    ``norm`` is the gradients' global norm where the caller has it (the
+    sharded step, whose ranks hold slices of the gradients)."""
+    gn = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp_min(gn, 1e-9), max=1.0)
     return scale, gn
 
@@ -84,8 +88,8 @@ def adamw_init(params):
     }
 
 
-def adamw_update(params, grads, state, lr, cfg: OptConfig):
-    scale, gn = clip_scale(grads, cfg.grad_clip)
+def adamw_update(params, grads, state, lr, cfg: OptConfig, norm=None):
+    scale, gn = clip_scale(grads, cfg.grad_clip, norm)
     step = state["step"] + 1
     b1c, b2c = _bias_corrections(step, cfg)
 
@@ -134,8 +138,8 @@ def adamw8bit_init(params, block: int = 256):
     }
 
 
-def adamw8bit_update(params, grads, state, lr, cfg: OptConfig):
-    scale, gn = clip_scale(grads, cfg.grad_clip)
+def adamw8bit_update(params, grads, state, lr, cfg: OptConfig, norm=None):
+    scale, gn = clip_scale(grads, cfg.grad_clip, norm)
     step = state["step"] + 1
     b1c, b2c = _bias_corrections(step, cfg)
 
@@ -175,8 +179,8 @@ def adafactor_init(params):
             "step": torch.zeros((), dtype=torch.int32, device=_first(params).device)}
 
 
-def adafactor_update(params, grads, state, lr, cfg: OptConfig):
-    scale, gn = clip_scale(grads, cfg.grad_clip)
+def adafactor_update(params, grads, state, lr, cfg: OptConfig, norm=None):
+    scale, gn = clip_scale(grads, cfg.grad_clip, norm)
     step = state["step"] + 1
     decay = 1.0 - (step.float() + 1.0) ** -0.8
 

@@ -271,8 +271,9 @@ def test_training_modes_and_families_refused():
     """``mode='cuda'`` on CPU tensors raises; every other family's SMOKE
     model now builds a finite loss with a gradient on its own draw (its
     parity with JAX: ``tests/test_torch_train_*.py``); a compressed
-    gradient reduction (a data-parallel all-reduce) raises and names item
-    10p."""
+    gradient reduction (the sharded step's data-parallel mean,
+    ``tests/test_torch_tp_collectives.py``) is taken, an unknown one
+    raises."""
     jcfg, tcfg = _configs()
     params = params_from_numpy(tcfg, _params_np("port", jcfg, tcfg), device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
@@ -293,8 +294,9 @@ def test_training_modes_and_families_refused():
                                                            torch.Generator().manual_seed(0)), b)
         assert bool(torch.isfinite(loss)) and float(loss) > 0, arch
         assert all(bool(torch.isfinite(g).all()) for g in leaves(grads)), arch
-    with pytest.raises(NotImplementedError, match="10p"):
-        RunConfig(model=tcfg, shape="train_4k", grad_compression="int8")
+    for method in ("bf16", "int8"):
+        assert RunConfig(model=tcfg, shape="train_4k", grad_compression=method) \
+            .grad_compression == method
     with pytest.raises(ValueError, match="grad_compression"):
         RunConfig(model=tcfg, shape="train_4k", grad_compression="fp8")
 
